@@ -1,0 +1,321 @@
+"""Wavefront path tracer: the scan estimator.
+
+Counterpart of the JAX package's ``models/pathtracer.py`` with
+``fused=False``.  The whole image is one SoA ray batch; the bounce loop
+and the loop over samples are Python loops over tensor operations, and
+every closest-hit query goes through ``ops/closest_hit.trace`` (the CUDA
+kernel on the card, the exact scan on the CPU).
+
+Estimator (the reference's Raytracing.cl:39-221, with the JAX package's
+additions):
+  * the primary hit is traced once and reused by every sample;
+  * unidirectional path tracing: lobe sampling as ``ops/bsdf``, paths
+    still on a non-emissive surface after ``max_bounce`` bounces add 0;
+  * an escaped path records its escape vertex; after the bounce loop one
+    sun shadow ray per sample gives full sun when unoccluded and the
+    escape vertex is not glass, tinted sun when glass occludes, and the
+    lat-long IBL adds ``ibl_power * ibl(dir)``;
+  * optional next-event estimation (``nee``) with binary emission
+    suppression or the balance heuristic (``mis``), and Snell glass
+    (``glass_mode="refract"``);
+  * output: mean over spp (``render_image``/``render_scene`` clamp).
+
+Random numbers: ``uniforms [spp, max_bounce+1, N, 2]`` (plus
+``light_uniforms [..., 3]`` for NEE) from the caller, or per sample
+``torch.rand((max_bounce+1, N, 2))`` (then ``[..., 3]`` for NEE) from
+``gen``.  Trace outputs are detached; material and environment tensors
+stay live, so autograd reaches them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
+    EMISSIVE,
+    GLASS,
+    GLOSSY,
+    eval_ggx,
+    eval_lambert,
+    sample_bounce,
+)
+from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import trace
+from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl, sun_direction
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import cross, sample_point_in_triangle
+from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
+from ensem3a_openclraytracer_tpu_torch.ops.sampling import PI
+from ensem3a_openclraytracer_tpu_torch.scene.materials import (
+    CameraParams,
+    EnvParams,
+    MaterialParams,
+)
+from ensem3a_openclraytracer_tpu_torch.scene.scene import GeometryPack, LightPack
+
+_NO_FUSED = (
+    "the fused whole-sample kernel is not ported yet (ROADMAP.md, queue 1 "
+    "item 6); use fused=False or None"
+)
+
+
+class _Escape(NamedTuple):
+    """Per-lane escape record: a path leaves the scene at most once."""
+
+    escaped: torch.Tensor  # [N] bool
+    p: torch.Tensor  # [N, 3] escape vertex (shadow-ray origin)
+    dir: torch.Tensor  # [N, 3] escape direction (IBL lookup)
+    thr: torch.Tensor  # [N, 3] throughput at escape
+    glass: torch.Tensor  # [N] bool: escape vertex was glass (sun gate)
+
+
+class _Surface(NamedTuple):
+    """Per-lane shading state at the current path vertex."""
+
+    p: torch.Tensor  # [N, 3] hit point
+    n: torch.Tensor  # [N, 3] unit shading normal
+    mtype: torch.Tensor  # [N] int32
+    color: torch.Tensor  # [N, 3]
+    rough: torch.Tensor  # [N] (emissive power for type 0)
+    ior: torch.Tensor  # [N]
+
+
+def _gather_surface(geom: GeometryPack, materials: MaterialParams, origin, direction,
+                    hit: Hit) -> _Surface:
+    midx = geom.mat[hit.tri].to(torch.int64)
+    return _Surface(
+        p=origin + direction * hit.t[:, None],
+        n=geom.n[hit.tri],
+        mtype=materials.mtype[midx],
+        color=materials.color[midx],
+        rough=materials.roughness[midx],
+        ior=materials.ior[midx],
+    )
+
+
+def _where(mask, a, b):
+    """``torch.where`` with a lane mask ``[N]`` broadcast over trailing axes."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def radiance_for_rays(
+    geom: GeometryPack,
+    materials: MaterialParams,
+    env: EnvParams,
+    ray_o: torch.Tensor,
+    ray_d: torch.Tensor,
+    gen: Optional[torch.Generator] = None,
+    *,
+    spp: int,
+    max_bounce: int,
+    sun_enabled: bool = True,
+    ibl_bilinear: bool = True,
+    uniforms: Optional[torch.Tensor] = None,
+    lights: Optional[LightPack] = None,
+    nee: bool = False,
+    fused: Optional[bool] = None,
+    glass_mode: str = "tint",
+    light_uniforms: Optional[torch.Tensor] = None,
+    mis: bool = False,
+    engine: str = "kernel",
+) -> torch.Tensor:
+    """Radiance ``[N, 3]`` of a primary-ray batch: the unclamped mean
+    over ``spp`` samples.  ``engine="plain"`` sends every trace through
+    the exact scan even on the card (a reference for the kernel)."""
+    if fused:
+        raise NotImplementedError(_NO_FUSED)
+    if mis and not nee:
+        raise ValueError("mis=True requires nee=True (and lights)")
+    if nee and lights is None:
+        raise ValueError("nee=True requires a LightPack")
+    if nee and uniforms is not None and light_uniforms is None:
+        raise ValueError(
+            "nee with an explicit uniform stream also needs light_uniforms "
+            "[spp, max_bounce + 1, N, 3]"
+        )
+    dev = ray_o.device
+    n_rays = ray_o.shape[0]
+    if uniforms is None and gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    tr = lambda o, d: trace(geom, o, d, engine)
+
+    primary_hit = tr(ray_o, ray_d)
+    primary_surf = _gather_surface(geom, materials, ray_o, ray_d, primary_hit)
+    sun_dir = sun_direction(env.sun_angles_deg).expand(n_rays, 3)
+
+    def env_radiance(d):
+        return sample_ibl(env.ibl, d, bilinear=ibl_bilinear) * env.ibl_power
+
+    primary_miss_rad = _where(primary_hit.hit, torch.zeros_like(ray_d), env_radiance(ray_d))
+
+    n_lights = 0 if lights is None else lights.v0.shape[0]
+    if mis:
+        face_area = (0.5 * torch.linalg.norm(
+            cross(geom.v1 - geom.v0, geom.v2 - geom.v0), dim=-1)).detach()
+
+    def nee_contribution(live, thr, in_dir, surf, ul):
+        """One shadow ray toward an area-sampled light point: the direct
+        light of diffuse/glossy lanes (lights are double-sided)."""
+        li = torch.clamp((ul[:, 0] * n_lights).to(torch.int64), 0, n_lights - 1)
+        lmat = lights.mat[li].to(torch.int64)
+        x = sample_point_in_triangle(lights.v0[li], lights.v1[li], lights.v2[li],
+                                     ul[:, 1], ul[:, 2])
+        ln, larea = lights.n[li], lights.area[li]
+        lpow = materials.roughness[lmat]  # re-read so d/d(power) flows
+        delta = x - surf.p
+        dist2 = torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-8)
+        dist = torch.sqrt(dist2)
+        ldir = (delta / dist[:, None]).detach()
+        cos_s = torch.sum(ldir * surf.n, dim=-1)
+        cos_l = torch.abs(torch.sum(ldir * ln, dim=-1))
+        visible = tr(surf.p, ldir).t >= dist * (1.0 - 1e-3)
+        is_glossy = surf.mtype == GLOSSY
+        brdf = _where(is_glossy, eval_ggx(surf.color, surf.rough, -in_dir, ldir, surf.n),
+                      eval_lambert(surf.color))
+        weight = (n_lights * larea) * cos_l / dist2
+        sampled = live & (surf.mtype != EMISSIVE) & (surf.mtype != GLASS)
+        ok = sampled & visible & (cos_s > 0.0) & (cos_l > 1e-6)
+        contrib = thr * brdf * (torch.clamp(cos_s, min=0.0) * weight * lpow)[:, None]
+        if mis:
+            p_b = torch.where(is_glossy, torch.full_like(cos_s, 1.0 / (2.0 * PI)),
+                              torch.clamp(cos_s, min=0.0) / PI)
+            contrib = contrib / (1.0 + p_b * weight)[:, None]
+        return _where(ok, contrib, torch.zeros_like(contrib)), sampled
+
+    def one_sample(us, uls):
+        """One sample for every ray -> radiance [N, 3]."""
+        live = primary_hit.hit
+        thr = torch.ones_like(ray_d)
+        rad = primary_miss_rad
+        in_dir = ray_d
+        surf = primary_surf
+        emis_w = torch.ones_like(primary_hit.t)
+        zeros3 = torch.zeros_like(ray_d)
+        no = torch.zeros_like(primary_hit.hit)
+        esc = _Escape(escaped=no, p=zeros3, dir=zeros3 + ray_d.new_tensor([0.0, 0.0, 1.0]),
+                      thr=zeros3, glass=no)
+        sampled = None
+        for j in range(max_bounce + 1):
+            u1, u2 = us[j, :, 0], us[j, :, 1]
+            emis = live & (surf.mtype == EMISSIVE)
+            rad = rad + _where(emis, thr * (surf.rough * emis_w)[:, None], zeros3)
+            live = live & ~emis
+            if nee:
+                direct, sampled = nee_contribution(live, thr, in_dir, surf, uls[j])
+                rad = rad + direct
+                if not mis:
+                    # suppress emission at the next vertex only when this
+                    # vertex sampled the light (glass vertices never do)
+                    emis_w = torch.where(live, 1.0 - sampled.to(emis_w.dtype), emis_w)
+            bdir, factor = sample_bounce(surf.mtype, surf.color, surf.rough, in_dir, surf.n,
+                                         u1, u2, ior=surf.ior, glass_mode=glass_mode)
+            thr = _where(live, thr * factor, thr)
+            bh = tr(surf.p, bdir)
+            miss = live & ~bh.hit
+            esc = _Escape(
+                escaped=esc.escaped | miss,
+                p=_where(miss, surf.p, esc.p),
+                dir=_where(miss, bdir, esc.dir),
+                thr=_where(miss, thr, esc.thr),
+                glass=torch.where(miss, surf.mtype == GLASS, esc.glass),
+            )
+            live = live & bh.hit
+            new_surf = _gather_surface(geom, materials, surf.p, bdir, bh)
+            if mis:
+                p_b = torch.where(surf.mtype == GLOSSY, torch.full_like(bh.t, 1.0 / (2.0 * PI)),
+                                  torch.clamp(torch.sum(bdir * surf.n, dim=-1), min=0.0) / PI)
+                cos_l = torch.abs(torch.sum(bdir * new_surf.n, dim=-1))
+                p_nee_hit = (bh.t * bh.t) / (
+                    n_lights * face_area[bh.tri] * torch.clamp(cos_l, min=1e-6))
+                w_b = p_b / (p_b + p_nee_hit)
+                emis_w = torch.where(live, torch.where(sampled, w_b, torch.ones_like(w_b)),
+                                     emis_w)
+            surf = _Surface(*(_where(live, a, b) for a, b in zip(new_surf, surf)))
+            in_dir = _where(live, bdir, in_dir)
+
+        # settle every escape at once: one sun shadow ray + one IBL lookup
+        env_light = env_radiance(esc.dir)
+        if sun_enabled:
+            sun_hit = tr(esc.p, sun_dir)
+            sun_midx = geom.mat[sun_hit.tri].to(torch.int64)
+            unoccluded = (~sun_hit.hit) & ~esc.glass
+            glass_occluded = sun_hit.hit & (materials.mtype[sun_midx] == GLASS)
+            sun_light = (
+                unoccluded[:, None].to(torch.float32) * env.sun_power
+                + glass_occluded[:, None].to(torch.float32) * materials.color[sun_midx]
+                * env.sun_power
+            )
+        else:
+            sun_light = torch.zeros_like(env_light)
+        rad = rad + _where(esc.escaped, esc.thr * (sun_light + env_light), zeros3)
+        # a path whose last bounce landed on a light still contributes
+        final_emis = live & (surf.mtype == EMISSIVE)
+        return rad + _where(final_emis, thr * (surf.rough * emis_w)[:, None], zeros3)
+
+    acc = torch.zeros_like(ray_d)
+    for s in range(spp):
+        if uniforms is None:
+            us = torch.rand((max_bounce + 1, n_rays, 2), generator=gen, device=dev)
+            uls = (torch.rand((max_bounce + 1, n_rays, 3), generator=gen, device=dev)
+                   if nee else None)
+        else:
+            us = uniforms[s]
+            uls = light_uniforms[s] if nee else None
+        acc = acc + one_sample(us, uls)
+    return acc / spp
+
+
+def render_radiance(
+    geom: GeometryPack,
+    materials: MaterialParams,
+    env: EnvParams,
+    camera: CameraParams,
+    gen: Optional[torch.Generator] = None,
+    *,
+    height: int,
+    width: int,
+    **kwargs,
+) -> torch.Tensor:
+    """Radiance image ``[height, width, 3]`` (unclamped mean over spp) of a
+    pinhole view; keyword arguments as :func:`radiance_for_rays`."""
+    ray_o, ray_d = camera_rays(camera.position, camera.rotation_deg, camera.fov_deg,
+                               height, width)
+    rad = radiance_for_rays(geom, materials, env, ray_o, ray_d, gen, **kwargs)
+    return rad.reshape(height, width, 3)
+
+
+def render_image(*args, **kwargs) -> torch.Tensor:
+    """Radiance clamped to [0, 1] (the reference's output stage,
+    Raytracing.cl:216-219)."""
+    return torch.clamp(render_radiance(*args, **kwargs), 0.0, 1.0)
+
+
+def render_scene(scene, seed: int = 0, overrides: Optional[dict] = None) -> torch.Tensor:
+    """Render a loaded ``Scene`` at its ini settings on the scene's
+    device; ``overrides`` may set resolution, spp, max_bounce, nee, mis,
+    glass_mode or fused.  Returns the clamped image ``[res, res, 3]``."""
+    overrides = overrides or {}
+    rs = scene.config.render_settings()
+    res = int(overrides.get("resolution", rs.resolution))
+    spp = int(overrides.get("spp", rs.spp))
+    max_bounce = int(overrides.get("max_bounce", rs.max_bounce))
+    mis = bool(overrides.get("mis", False))
+    nee = bool(overrides.get("nee", False)) or mis
+    env = scene.env_params()
+    materials = scene.material_params()
+    sun_enabled = float(env.sun_power) != 0.0
+    lights = None
+    if nee:
+        lights = scene.light_pack(materials)
+        nee = lights is not None
+    gen = torch.Generator(device=scene.device)
+    gen.manual_seed(int(seed))
+    radiance = render_radiance(
+        scene.geometry, materials, env, scene.camera_params(), gen,
+        height=res, width=res, spp=spp, max_bounce=max_bounce, sun_enabled=sun_enabled,
+        lights=lights, nee=nee, mis=mis and nee,
+        glass_mode=str(overrides.get("glass_mode", "tint")), fused=overrides.get("fused"),
+    )
+    return torch.clamp(radiance, 0.0, 1.0)

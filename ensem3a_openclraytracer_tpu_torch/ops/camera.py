@@ -1,0 +1,36 @@
+"""Pinhole camera ray generation.
+
+Counterpart of the JAX package's ``ops/camera.py`` (the reference's
+Raytracing.cl:18-37): a unit-width image plane in the camera's x-z plane,
+the focal point ``1 / (2 tan(fov/2))`` behind it along -y, Euler X->Y->Z
+rotation in degrees, pixel centres at half-texel offsets.  Rows map to
+-z and columns to +x.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import euler_xyz_matrix, normalize
+
+
+def camera_rays(position: torch.Tensor, rot_deg: torch.Tensor, fov_deg: torch.Tensor,
+                height: int, width: int):
+    """One primary ray per pixel: ``(origins [H*W, 3], unit directions
+    [H*W, 3])`` in row-major pixel order, on ``position``'s device."""
+    dev = position.device
+    fov_rad = fov_deg.to(torch.float32) * (math.pi / 180.0)
+    f = 1.0 / (2.0 * torch.tan(fov_rad / 2.0))
+    rows = (np.arange(height, dtype=np.float32) + 0.5) / height
+    cols = (np.arange(width, dtype=np.float32) + 0.5) / width
+    gx, gz = np.meshgrid(cols - 0.5, (0.5 - rows) * (height / width), indexing="xy")
+    gx = torch.as_tensor(gx, device=dev)
+    gz = torch.as_tensor(gz, device=dev)
+    local = torch.stack([gx, f.expand_as(gx), gz], dim=-1)
+    m = euler_xyz_matrix(rot_deg.to(torch.float32))
+    d = normalize(torch.einsum("ij,hwj->hwi", m, local)).reshape(-1, 3)
+    o = position.to(torch.float32).expand(d.shape[0], 3)
+    return o, d

@@ -1,0 +1,295 @@
+"""Closest-hit queries: triangle features, the exact f32 scan, and the
+hand-written CUDA kernel that answers them on the card.
+
+Counterpart of the JAX package's ``ops/intersect_mxu.py`` (features and
+the exact ``trace_mxu`` scan) and ``ops/pairs.py`` (the multi-block
+engines).  On the TPU three Pallas kernels carry closest-hit queries, one
+per scene size: ``intersect_mxu._mxu_kernel`` (one 256-triangle block),
+``pairs._tile_loop_kernel`` (2-64 blocks) and
+``pairs._tile_stream_kernel`` (more).  Here one block-culled kernel,
+``csrc/closest_hit.cu``, takes all three roles: it needs nothing resident
+beyond one triangle block in shared memory at a time.
+
+A ray hits triangle ``A, B, C`` when its Plucker side tests
+``w = e . [d, d x o]`` against the three edge features share a sign
+(``w == 0`` counts on both sides), and the plane distance
+``t = ([o, 1] . [-n, n.A]) / (d . n)`` exceeds ``MIN_HIT_DIST``.  Among
+equal ``t`` the lowest triangle index wins.  A ``t`` of
+``MAX_DIST * 0.999`` or more is a miss: ``t = MAX_DIST``, ``tri = 0``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST, MIN_HIT_DIST
+from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
+
+TRI_TILE = 256  # triangles per culling block (the TPU kernels' TRI_TILE)
+MISS_T = MAX_DIST * 0.999
+# Dynamic shared memory of the kernel: 25 feature rows of TRI_TILE floats
+# plus one 8-byte sort key per block, rounded up to a power of two; a
+# Hopper block may use 232,448 bytes.
+MAX_KERNEL_BLOCKS = 16384
+
+# Launches of the CUDA kernel, by kernel name.  Only a launch on the card
+# counts; the CPU path runs the plain version and counts nothing.
+LAUNCHES = {"closest_hit": 0}
+
+
+class TriFeatures(NamedTuple):
+    """Per-triangle intersection features, precomputed once per scene.
+
+    ``edges [3, 6, Tp]``: Plucker features ``[A x B, A - B]`` of edges AB,
+    BC, CA.  ``plane [4, Tp]``: ``[-n, n.A]`` so ``t * (n.d) = [o, 1] .
+    plane``.  ``normal_d [3, Tp]``: ``n``.  Padding triangles are all zero
+    (``d.n == 0``, never hit).  ``block_bounds [B, 8]``: the AABB of each
+    ``TRI_TILE`` block (columns 0-5; padding-only blocks are inverted
+    boxes) and in column 6 a scene-scale epsilon, which the kernel uses as
+    a conservative margin on its block culling."""
+
+    edges: torch.Tensor
+    plane: torch.Tensor
+    normal_d: torch.Tensor
+    block_bounds: torch.Tensor
+    num_tris: int
+
+
+def build_tri_features(v0, v1, v2, device: torch.device) -> TriFeatures:
+    """Host-side (numpy) feature build; pads ``T`` to a ``TRI_TILE``
+    multiple above one block and to a multiple of 8 below it."""
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    t = v0.shape[0]
+    pad_to = TRI_TILE if t > TRI_TILE else 8
+    tp = -(-t // pad_to) * pad_to
+
+    def edge_feat(a, b):
+        return np.concatenate([np.cross(a, b), a - b], axis=-1)  # [T, 6]
+
+    e = np.stack([edge_feat(v0, v1), edge_feat(v1, v2), edge_feat(v2, v0)])
+    n = np.cross(v1 - v0, v2 - v0)
+    na = np.einsum("td,td->t", n, v0)
+
+    edges = np.zeros((3, 6, tp), np.float32)
+    edges[:, :, :t] = np.transpose(e, (0, 2, 1))
+    plane = np.zeros((4, tp), np.float32)
+    plane[:3, :t] = -n.T
+    plane[3, :t] = na
+    normal_d = np.zeros((3, tp), np.float32)
+    normal_d[:, :t] = n.T
+
+    nb = -(-tp // TRI_TILE)
+    bounds = np.zeros((nb, 8), np.float32)
+    bounds[:, :3] = np.inf
+    bounds[:, 3:6] = -np.inf
+    allv = np.stack([v0, v1, v2])  # [3, T, 3]
+    for b in range(nb):
+        lo_t, hi_t = b * TRI_TILE, min((b + 1) * TRI_TILE, t)
+        if lo_t < hi_t:
+            blk = allv[:, lo_t:hi_t].reshape(-1, 3)
+            bounds[b, :3] = blk.min(axis=0)
+            bounds[b, 3:6] = blk.max(axis=0)
+    scene_diag = 0.0
+    if t > 0:
+        flat = allv.reshape(-1, 3)
+        scene_diag = float(np.linalg.norm(flat.max(axis=0) - flat.min(axis=0)))
+    bounds[:, 6] = max(MIN_HIT_DIST, 2.0 ** -14 * scene_diag)
+
+    as_t = lambda a: torch.as_tensor(a, device=device)
+    return TriFeatures(
+        edges=as_t(edges),
+        plane=as_t(plane),
+        normal_d=as_t(normal_d),
+        block_bounds=as_t(bounds),
+        num_tris=t,
+    )
+
+
+def _finish(best_t: torch.Tensor, best_i: torch.Tensor) -> Hit:
+    hit = best_t < MISS_T
+    return Hit(
+        t=torch.where(hit, best_t, torch.full_like(best_t, MAX_DIST)),
+        tri=torch.where(hit, best_i, torch.zeros_like(best_i)),
+        hit=hit,
+    )
+
+
+def trace_plain(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                tri_tile: int | None = None) -> Hit:
+    """The exact f32 scan (the JAX package's ``trace_mxu``): every ray
+    against every triangle, ``tri_tile`` triangles at a time, with the
+    dot products summed term by term in index order (as the kernel does).
+    Runs on whatever device the rays are on; it is the kernel's plain
+    version and the CPU engine."""
+    n = ray_o.shape[0]
+    dev = ray_o.device
+    o = ray_o.to(torch.float32)
+    d = ray_d.to(torch.float32)
+    r6 = torch.cat([d, torch.linalg.cross(d, o, dim=-1)], dim=-1)  # [N, 6]
+    q4 = torch.cat([o, torch.ones_like(o[:, :1])], dim=-1)  # [N, 4]
+    tp = feats.edges.shape[-1]
+    if tri_tile is None:
+        tri_tile = max(128, min(2048, (1 << 24) // max(n, 1)))
+
+    def rowdot(lhs, rows):  # sum_k lhs[:, k] * rows[k] in index order
+        acc = lhs[:, 0:1] * rows[0]
+        for k in range(1, rows.shape[0]):
+            acc = acc + lhs[:, k:k + 1] * rows[k]
+        return acc
+
+    best_t = torch.full((n,), MAX_DIST, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for base in range(0, tp, tri_tile):
+        sl = slice(base, min(base + tri_tile, tp))
+        w1 = rowdot(r6, feats.edges[0, :, sl])
+        w2 = rowdot(r6, feats.edges[1, :, sl])
+        w3 = rowdot(r6, feats.edges[2, :, sl])
+        inside = ((w1 >= 0) & (w2 >= 0) & (w3 >= 0)) | ((w1 <= 0) & (w2 <= 0) & (w3 <= 0))
+        den = rowdot(d, feats.normal_d[:, sl])
+        num = rowdot(q4, feats.plane[:, sl])
+        t = num / torch.where(den == 0.0, torch.ones_like(den), den)
+        valid = inside & (den != 0.0) & (t > MIN_HIT_DIST)
+        t = torch.where(valid, t, torch.full_like(t, MAX_DIST))
+        tmin, arg = torch.min(t, dim=1)
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, base + arg, best_i)
+    return _finish(best_t, best_i)
+
+
+def _expand_bits_10(v: torch.Tensor) -> torch.Tensor:
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def coherent_keys(p: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Sort keys ``(direction octant << 27) | 27-bit origin Morton code``
+    (int64), as the JAX package's ``ops/fused.coherent_order`` builds them."""
+    lo = torch.amin(p, dim=0)
+    hi = torch.amax(p, dim=0)
+    q = torch.clamp((p - lo) / torch.clamp(hi - lo, min=1e-12), 0.0, 0.9999999)
+    g = (q * 512.0).to(torch.int64)  # 9 bits per axis
+    code = (
+        (_expand_bits_10(g[:, 0]) << 2)
+        | (_expand_bits_10(g[:, 1]) << 1)
+        | _expand_bits_10(g[:, 2])
+    )
+    octant = (
+        ((d[:, 0] >= 0).to(torch.int64) << 2)
+        | ((d[:, 1] >= 0).to(torch.int64) << 1)
+        | (d[:, 2] >= 0).to(torch.int64)
+    )
+    return (octant << 27) | code
+
+
+def coherent_order(p: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Argsort of rays by (direction octant, origin Morton code): rays
+    that share a CUDA block then share a spatial cluster and an octant,
+    so the kernel's per-block culling and early exit bite."""
+    return torch.argsort(coherent_keys(p, d), stable=True)
+
+
+_KERNEL_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # ray_o, ray_d, n
+    + [ctypes.c_void_p] * 4  # edges, plane, normal_d, block_bounds
+    + [ctypes.c_int] * 3  # tp, tile, nb
+    + [ctypes.c_void_p] * 4  # out_t, out_tri, stats, stream
+)
+
+
+def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype, dev) -> None:
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous {dtype} tensor of shape {shape} on {dev}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous={x.is_contiguous()})"
+        )
+
+
+def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                 stats: torch.Tensor | None = None):
+    """Closest hit ``(t [N] f32, tri [N] int32)`` through the CUDA kernel
+    ``csrc/closest_hit.cu`` for rays on the card; rays on the CPU take
+    the plain version.  ``stats`` (int64 ``[2]`` on the card, optional)
+    receives the (ray, triangle) pairs tested and the triangle-block
+    stagings, added to what it holds."""
+    if ray_o.device.type == "cpu":
+        h = trace_plain(feats, ray_o, ray_d)
+        return h.t, h.tri.to(torch.int32)
+    if ray_o.device.type != "cuda":
+        raise ValueError(f"trace_blocks runs on cuda or cpu, not {ray_o.device}")
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    dev = ray_o.device
+    n = ray_o.shape[0]
+    tp = feats.edges.shape[-1]
+    nb = feats.block_bounds.shape[0]
+    tile = min(TRI_TILE, tp)
+    if nb > MAX_KERNEL_BLOCKS:
+        raise ValueError(
+            f"{nb} triangle blocks exceed the kernel's shared-memory visit list "
+            f"({MAX_KERNEL_BLOCKS} blocks)"
+        )
+    if nb * tile != tp:
+        raise ValueError(f"feature width {tp} is not {nb} blocks of {tile}")
+    _check(ray_o, "ray_o", (n, 3), torch.float32, dev)
+    _check(ray_d, "ray_d", (n, 3), torch.float32, dev)
+    _check(feats.edges, "edges", (3, 6, tp), torch.float32, dev)
+    _check(feats.plane, "plane", (4, tp), torch.float32, dev)
+    _check(feats.normal_d, "normal_d", (3, tp), torch.float32, dev)
+    _check(feats.block_bounds, "block_bounds", (nb, 8), torch.float32, dev)
+    if stats is not None:
+        _check(stats, "stats", (2,), torch.int64, dev)
+    out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out_t, out_tri
+    fn = _build.load("closest_hit").closest_hit_launch
+    fn.argtypes = _KERNEL_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(
+        ray_o.data_ptr(), ray_d.data_ptr(), n,
+        feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
+        feats.block_bounds.data_ptr(), tp, tile, nb,
+        out_t.data_ptr(), out_tri.data_ptr(),
+        None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"closest_hit kernel launch failed: CUDA error {err}")
+    LAUNCHES["closest_hit"] += 1
+    return out_t, out_tri
+
+
+def trace(geom, ray_o: torch.Tensor, ray_d: torch.Tensor, engine: str = "kernel") -> Hit:
+    """Closest-hit dispatch for ``geom.feats``.  Rays on the CPU, and any
+    rays with ``engine="plain"``, take :func:`trace_plain`; rays on the
+    card go through the kernel, sorted by :func:`coherent_order` on
+    multi-block scenes and scattered back.  Visibility is not
+    differentiable: the inputs are detached."""
+    ray_o = ray_o.detach().to(torch.float32)
+    ray_d = ray_d.detach().to(torch.float32)
+    feats = geom.feats
+    if engine == "plain" or ray_o.device.type == "cpu":
+        return trace_plain(feats, ray_o, ray_d)
+    if engine != "kernel":
+        raise ValueError(f"unknown trace engine {engine!r}")
+    if feats.block_bounds.shape[0] == 1:
+        t, tri = trace_blocks(feats, ray_o.contiguous(), ray_d.contiguous())
+    else:
+        order = coherent_order(ray_o, ray_d)
+        t_s, tri_s = trace_blocks(feats, ray_o[order].contiguous(), ray_d[order].contiguous())
+        t = torch.empty_like(t_s)
+        t[order] = t_s
+        tri = torch.empty_like(tri_s)
+        tri[order] = tri_s
+    return Hit(t=t, tri=tri.to(torch.int64), hit=t < MISS_T)

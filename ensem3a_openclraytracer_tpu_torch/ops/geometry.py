@@ -1,0 +1,122 @@
+"""Core ray/triangle/AABB geometry on batched ``[..., 3]`` float32 tensors.
+
+Counterpart of the JAX package's ``ops/geometry.py`` (the reference's
+MathLib.cl:117-199 Moller-Trumbore and slab test, :51-65 rotations).
+Every function broadcasts over leading dimensions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# Hit-distance conventions shared with the reference estimator
+# (MathLib.cl:120 maxDist, :263 min-k threshold, :119 MT epsilon).
+MAX_DIST = 1000.0
+MIN_HIT_DIST = 1e-4
+MT_EPSILON = 1e-7
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3-vector dot product over the trailing axis."""
+    return torch.sum(a * b, dim=-1)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Safe normalize over the trailing axis."""
+    return v * (1.0 / torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=eps)))
+
+
+def _rot(c, s, axis: int) -> torch.Tensor:
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    rows = {
+        0: [[o, z, z], [z, c, -s], [z, s, c]],
+        1: [[c, z, s], [z, o, z], [-s, z, c]],
+        2: [[c, -s, z], [s, c, z], [z, z, o]],
+    }[axis]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def euler_xyz_matrix(angles_deg: torch.Tensor) -> torch.Tensor:
+    """3x3 matrix applying X, then Y, then Z rotations (angles in degrees):
+    ``v' = Rz @ Ry @ Rx @ v`` (Raytracing.cl:33-35, :116-118)."""
+    a = angles_deg.to(torch.float32) * (math.pi / 180.0)
+    mats = [_rot(torch.cos(a[..., k]), torch.sin(a[..., k]), k) for k in range(3)]
+    return mats[2] @ mats[1] @ mats[0]
+
+
+def rotate_euler_xyz_deg(v: torch.Tensor, angles_deg: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors ``v [..., 3]`` by Euler X->Y->Z angles in degrees."""
+    return torch.einsum("ij,...j->...i", euler_xyz_matrix(angles_deg), v)
+
+
+def moller_trumbore(ray_o, ray_d, v0, v1, v2, eps: float = MT_EPSILON):
+    """Batched Moller-Trumbore ray/triangle intersection.
+
+    Returns ``(t, u, v, hit)``; ``t`` is ``MAX_DIST`` on a miss.  Front
+    and back faces both hit, parallel rays (|det| < eps) miss, and only
+    ``t > eps`` counts (MathLib.cl:117-160)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    h = cross(ray_d, e2)
+    det = dot(e1, h)
+    parallel = torch.abs(det) < eps
+    inv_det = 1.0 / torch.where(parallel, torch.ones_like(det), det)
+    s = ray_o - v0
+    u = inv_det * dot(s, h)
+    q = cross(s, e1)
+    v = inv_det * dot(ray_d, q)
+    t = inv_det * dot(e2, q)
+    hit = (~parallel) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
+    t = torch.where(hit, t, torch.full_like(t, MAX_DIST))
+    return t, u, v, hit
+
+
+def ray_aabb(ray_o, ray_d, box_min, box_max):
+    """Batched slab test (MathLib.cl:167-190), returning ``(tmin, tmax)``.
+
+    Zero direction components are nudged to +-1e-12 so the divisions stay
+    finite and an origin on a slab never makes ``inf * 0 = NaN``."""
+    tiny = 1e-12
+    d = torch.where(
+        torch.abs(ray_d) < tiny,
+        torch.where(ray_d < 0, torch.full_like(ray_d, -tiny), torch.full_like(ray_d, tiny)),
+        ray_d,
+    )
+    inv = 1.0 / d
+    t1 = (box_min - ray_o) * inv
+    t2 = (box_max - ray_o) * inv
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return tmin, tmax
+
+
+def aabb_hit(ray_o, ray_d, box_min, box_max, t_cap=None):
+    """Boolean slab test with optional early-out cap on entry distance."""
+    tmin, tmax = ray_aabb(ray_o, ray_d, box_min, box_max)
+    hit = (tmax >= tmin) & (tmax >= 0.0)
+    if t_cap is not None:
+        hit = hit & (tmin <= t_cap)
+    return hit
+
+
+def triangle_area(v0, v1, v2):
+    """Area of triangles (MathLib.cl:398-402)."""
+    return 0.5 * norm(cross(v0 - v1, v0 - v2))
+
+
+def sample_point_in_triangle(v0, v1, v2, u1, u2):
+    """Uniform point sampling in a triangle (MathLib.cl:404-416)."""
+    s = torch.sqrt(u1)
+    x = 1.0 - s
+    y = u2 * s
+    return v0 + (v1 - v0) * x[..., None] + (v2 - v0) * y[..., None]

@@ -34,6 +34,12 @@ import pytest  # noqa: E402
 REFERENCE_OBJ_DIR = "/root/reference/ObjFiles"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (tests/test_torch_cuda.py)"
+    )
+
+
 @pytest.fixture()
 def rng():
     return np.random.default_rng(1234)
