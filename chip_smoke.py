@@ -5,20 +5,41 @@
 
 Builds every CUDA kernel of the port from ``ensem3a_openclraytracer_tpu_torch/csrc``
 and drives the port's main path, a scene loaded from an ``.obj`` + ``.ini``
-and rendered at its ini settings, on the card:
+and rendered at its ini settings with the default engine, on the card:
 
 1. environment and build: the card's name and power limit, versions, and
    the kernels' build time and ``-Xptxas -v`` report;
-2. kernel against plain, once per role of the closest-hit kernel (1, 61
-   and 586 triangle blocks): ``trace_blocks`` against ``trace_plain`` on
-   the same 512^2 primary rays plus 65,536 bounce rays, with times, the
-   (ray, triangle) pairs tested and the least time the card could take;
-3. the main path at full size: ``Scene.load`` -> ``render_scene`` on the
-   three scenes, with the kernel's launch count checked against the
-   traces the estimator makes, and one more render of each traced with
-   ``torch.profiler`` (kernel time by name, device idle share);
-4. the same random stream through the kernel and through the plain scan
-   on the card, at 64^2, 2 spp, 3 bounces: pixel forks below 2 %.
+2. closest-hit kernel against plain, once per role (1, 61 and 586
+   triangle blocks): ``trace_blocks`` against ``trace_plain`` on the same
+   512^2 primary rays plus 65,536 bounce rays, with times, the (ray,
+   triangle) pairs tested and the least time the card could take;
+3. the main path at full size: ``Scene.load`` -> ``render_scene`` on five
+   renders.  Cornell (1 block), Cornell with NEE and outdoor_1000 (47
+   blocks) take the fused engine (``closest_hit`` launched once for the
+   primary trace, ``sample_fused`` once per sample); outdoor_1300 (61
+   blocks) and outdoor_12500 (586 blocks) take the scan estimator
+   (``closest_hit`` per trace, ``uniforms`` once per sample).  The launch
+   counts are set to 0 before each render and checked after it; one more
+   render of each is traced with ``torch.profiler`` (kernel time by name,
+   device idle share);
+4. the same explicit random stream through the scan path with the kernel
+   and with the plain scan on the card, at 64^2, 2 spp, 3 bounces: pixel
+   forks below 2 %;
+5. fused kernel against plain, per role (Cornell, outdoor_1000 with sun +
+   IBL, Cornell with NEE), on arguments from the engine's own
+   ``fused_args``: on the same explicit uniforms at 64^2, 2 spp, 3
+   bounces, and at the main path's shape (512^2 rays, Morton-permuted on
+   47 blocks, 4 bounces, the kernel's own Philox stream), pixel forks
+   below 2 % and median difference below 1e-5 at both; record mode on
+   outdoor_1000 at both shapes; then the kernel's time, pairs tested, its
+   bound and the plain version's time (of the compared call);
+6. stream identity: the fused kernel's in-kernel Philox stream against the
+   RNG kernel's stream fed in explicitly gives the same images (0 forks)
+   at the main path's shape; the RNG kernel is bit-equal to its plain
+   version at 2^24 values, with its time, bound and the plain version's
+   time;
+7. the same scene at the same settings with ``fused=True`` and with
+   ``fused=False`` (Cornell, outdoor_1000, outdoor_1300): render times.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -40,6 +61,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32 = 67e12  # H100 SXM, FP32 outside the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# 32-bit integer instructions: 64 lanes per SM per clock (half the FP32
+# lanes; Hopper white paper) x 132 SMs x 1.98 GHz
+PEAK_INT32 = 64 * 132 * 1.98e9
 # FP32 operations (FMA counted as two) per (ray, triangle) pair tested:
 # three 6-term side tests (33), d.n (5), [o,1].plane (6), one divide (1)
 FLOPS_PER_PAIR = 45
@@ -47,6 +71,21 @@ FLOPS_PER_PAIR = 45
 # max, min) plus the 6-operation epsilon margin
 FLOPS_PER_SLAB = 30
 RAYS_PER_CTA = 128
+# FP32 operations per ray and bounce of the fused kernel outside its
+# traces, counted from csrc/fused_sample.cu with sinf/cosf at 20 each:
+# frame 14, sin/cos 40, radii and pdfs 11, two candidate directions 48,
+# |cos| 6, the cheapest throughput update (Lambert) 8, the trace's ray
+# setup 15, the advance 6; plus 27 per sun shadow ray (setup 15, tint 12)
+# and 80 per NEE sample (light point 30, distances 20, setup 15, Lambert 15)
+FUSED_FLOPS_PER_BOUNCE = 148
+FUSED_FLOPS_SUN = 27
+FUSED_FLOPS_NEE = 80
+# Philox4x32-10 per block of four uniforms: 10 rounds x (two 32x32->64
+# products, two 3-way XORs) + 9 x 2 key bumps, then shift, convert and scale
+# per uniform
+INT_OPS_PER_PHILOX = 10 * 4 + 9 * 2 + 4 * 3
+SMOKE_TRIES = (64, 2, 3)  # kernel-against-plain renders: res, spp, bounces
+MAIN_SHAPE = (512, 4)  # the fused kernel's rays per side and bounces on the main path
 
 
 class SmokeFailure(RuntimeError):
@@ -83,6 +122,46 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn):
+    """``fn()``'s result and its time in ms (one call, CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def image_forks(img_k, img_p):
+    """(pixel fork fraction, median, max) of the max-channel |difference|."""
+    diff = (img_k - img_p).abs().amax(dim=-1)
+    return float((diff > 1e-3).float().mean()), float(diff.median()), float(diff.max())
+
+
+def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FP32):
+    """(bound ms, what bounds it): the larger of the operations at the
+    card's peak and the bytes at its memory rate."""
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def reset_launches():
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, rng
+
+    for counts in (closest_hit.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, rng
+
+    return {**closest_hit.LAUNCHES, **fused.LAUNCHES, **rng.LAUNCHES}
 
 
 def role_rays(geom, cam, dev, seed: int, res: int = 512, n_bounce: int = 65536):
@@ -149,7 +228,7 @@ def phase_kernel_vs_plain(role, dev):
     flops = (pairs * FLOPS_PER_PAIR + n * nb * FLOPS_PER_SLAB
              + stagings * RAYS_PER_CTA * FLOPS_PER_SLAB)
     nbytes = n * (24 + 8) + 4 * 25 * tp + 32 * nb
-    bound_ms = 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES)
+    bound_ms, bound_by = bound(flops, nbytes)
     log(f"[phase 2] {role['name']}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"pairs tested {pairs} ({pairs / n:.1f} per ray, {pairs / (n * tp):.4f} of all), "
         f"block stagings {stagings}, bound {bound_ms:.4f} ms "
@@ -158,69 +237,87 @@ def phase_kernel_vs_plain(role, dev):
         name=role["name"], route="cuda",
         source="ensem3a_openclraytracer_tpu_torch/csrc/closest_hit.cu",
         replaces=role["replaces"], launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="operations" if flops / PEAK_FP32 >= nbytes / PEAK_BYTES
-        else "bytes", library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         rays=n, pairs_tested=pairs, tri_fork_fraction=1 - tri_frac,
         hit_fork_fraction=1 - hit_frac,
     )
 
 
-def phase_main_path(role, dev, workdir: Path, smi: str):
-    import torch
-
+def load_scene(scn, dev, workdir: Path):
+    """Write the scene's ``.obj`` + ``.ini`` at its render settings and
+    load it back with ``Scene.load`` on the card."""
     from ensem3a_openclraytracer_tpu_torch import testing as tt
-    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_scene
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
-    from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
     from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene
 
-    res, spp, mb = role["render"]
-    g, m, e, c = role["make"]("cpu")
-    obj = workdir / f"{role['scene']}.obj"
-    tt.write_scene_files(str(obj), g, m, e, c, resolution=res, spp=spp, max_bounce=mb)
+    res, spp, mb = scn["render"]
+    g, m, e, c = scn["make"]("cpu")
+    obj = workdir / f"{scn['scene']}.obj"
+    if not obj.exists():
+        tt.write_scene_files(str(obj), g, m, e, c, resolution=res, spp=spp, max_bounce=mb)
     t0 = time.perf_counter()
     scene = Scene.load(str(obj), device=dev)
-    load_s = time.perf_counter() - t0
-    sun = float(scene.env_params().sun_power) != 0.0
-    check(sun == role["sun"], f"{role['scene']}: sun_enabled {sun}")
-    render_scene(scene, seed=1, overrides={"resolution": 64, "spp": 1})  # warm-up
-    torch.cuda.synchronize()
+    return scene, time.perf_counter() - t0
 
-    ch.LAUNCHES["closest_hit"] = 0
+
+def timed_render(scene, overrides: dict, seed: int = 0):
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_scene
+
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = render_scene(scene, seed=0)
+    img = render_scene(scene, seed=seed, overrides=overrides)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = ch.LAUNCHES["closest_hit"]
+    return img, time.perf_counter() - t0
 
-    expected = 1 + spp * (mb + 1 + int(sun))
+
+def phase_main_path(scn, dev, workdir: Path, smi: str):
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import FUSED_MAX_BLOCKS
+
+    res, spp, mb = scn["render"]
+    scene, load_s = load_scene(scn, dev, workdir)
+    nb = scene.geometry.feats.block_bounds.shape[0]
+    sun = float(scene.env_params().sun_power) != 0.0
+    check(sun == scn["sun"], f"{scn['scene']}: sun_enabled {sun}")
+    fused = nb <= FUSED_MAX_BLOCKS
+    check(fused == scn["fused"], f"{scn['scene']}: {nb} blocks, fused engine {fused}")
+    ov = dict(scn.get("overrides", {}))
+    timed_render(scene, {**ov, "resolution": 64, "spp": 1}, seed=1)  # warm-up
+
+    reset_launches()
+    img, dt = timed_render(scene, ov)
+    launches = read_launches()
+
+    if fused:
+        expected = {"closest_hit": 1, "sample_fused": spp, "uniforms": 0}
+    else:
+        expected = {"closest_hit": 1 + spp * (mb + 1 + int(sun)), "sample_fused": 0,
+                    "uniforms": spp}
     mean = float(img.mean())
-    check(tuple(img.shape) == (res, res, 3), f"{role['scene']}: image shape {tuple(img.shape)}")
-    check(bool(torch.isfinite(img).all()), f"{role['scene']}: non-finite pixels")
-    check(0.0 < mean <= 1.0, f"{role['scene']}: image mean {mean}")
-    check(launches == expected, f"{role['scene']}: {launches} kernel launches, want {expected}")
+    check(tuple(img.shape) == (res, res, 3), f"{scn['name']}: image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), f"{scn['name']}: non-finite pixels")
+    check(0.0 < mean <= 1.0, f"{scn['name']}: image mean {mean}")
+    check(launches == expected, f"{scn['name']}: launches {launches}, want {expected}")
     rays = res * res * (1 + spp * (mb + 1) * (2 if sun else 1))  # counted as bench.py counts
-    cam = scene.camera_params()
-    o, d = camera_rays(cam.position, cam.rotation_deg, cam.fov_deg, res, res)
-    o, d = o.contiguous(), d.contiguous()
-    if scene.geometry.feats.block_bounds.shape[0] > 1:
-        order = ch.coherent_order(o, d)
-        o, d = o[order].contiguous(), d[order].contiguous()
-    prim_ms = cuda_ms(lambda: ch.trace_blocks(scene.geometry.feats, o, d), iters=10)
-    log(f"[phase 3] {role['scene']} ({scene.num_tris} tris) {res}^2 {spp} spp {mb} bounces "
-        f"sun={sun}: load {load_s:.2f} s, render {dt:.3f} s, {rays / dt / 1e6:.1f} Mrays/s, "
-        f"mean {mean:.4f}, kernel launches {launches}, kernel on the {res * res} primary rays "
-        f"{prim_ms:.4f} ms (CUDA events) [{smi}]")
-    info = dict(scene=role["scene"], res=res, spp=spp, max_bounce=mb, sun=sun, seconds=dt,
-                mrays_per_s=rays / dt / 1e6, launches=launches, primary_trace_ms=prim_ms,
-                mean=mean)
-    info.update(phase_profile(scene, role["scene"]))
-    return launches, info
+    log(f"[phase 3] {scn['name']} ({scene.num_tris} tris, {nb} blocks) {res}^2 {spp} spp {mb} "
+        f"bounces sun={sun} engine={'fused' if fused else 'scan'}: load {load_s:.2f} s, render "
+        f"{dt:.3f} s, {rays / dt / 1e6:.1f} Mrays/s, mean {mean:.4f}, launches {launches} "
+        f"[{smi}]")
+    info = dict(name=scn["name"], res=res, spp=spp, max_bounce=mb, sun=sun, blocks=nb,
+                engine="fused" if fused else "scan", seconds=dt, mrays_per_s=rays / dt / 1e6,
+                launches=launches, mean=mean)
+    info.update(phase_profile(scene, scn["name"], ov))
+    return scene, info
 
 
-def phase_profile(scene, name: str) -> dict:
+KERNEL_GROUPS = ("closest_hit", "fused_sample", "uniforms")
+
+
+def phase_profile(scene, name: str, overrides: dict) -> dict:
     """Where the time goes in one more render of the scene, traced with
-    torch.profiler: device time of the closest-hit kernel and of the
+    torch.profiler: device time of each of the port's kernels and of the
     other kernels, and the device's idle share of the traced window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -231,7 +328,7 @@ def phase_profile(scene, name: str) -> dict:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        render_scene(scene, seed=2)
+        render_scene(scene, seed=2, overrides=overrides)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -249,17 +346,22 @@ def phase_profile(scene, name: str) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    hit_us = sum(v for k, v in by_name.items() if "closest_hit" in k)
     total_us = sum(by_name.values())
-    top = sorted(((v, k) for k, v in by_name.items() if "closest_hit" not in k), reverse=True)[:4]
+    group_us = {g: sum(v for k, v in by_name.items() if g in k) for g in KERNEL_GROUPS}
+    other_us = total_us - sum(group_us.values())
+    top = sorted(((v, k) for k, v in by_name.items()
+                  if not any(g in k for g in KERNEL_GROUPS)), reverse=True)[:4]
     log(f"[phase 3] {name} profiled render: wall {wall_us / 1e3:.1f} ms (profiler on), device "
-        f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}; closest_hit "
-        f"{hit_us / 1e3:.1f} ms = {hit_us / total_us:.3f} of device time; other kernels "
-        f"{(total_us - hit_us) / 1e3:.1f} ms, largest: "
+        f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}; "
+        + ", ".join(f"{g} {v / 1e3:.1f} ms = {v / total_us:.3f}" for g, v in group_us.items())
+        + f" of device time; other kernels {other_us / 1e3:.1f} ms, largest: "
         + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for v, k in top))
-    return dict(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                idle_share=1 - busy / wall_us, closest_hit_ms=hit_us / 1e3,
-                other_kernels_ms=(total_us - hit_us) / 1e3)
+    out = dict(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               idle_share=1 - busy / wall_us, other_kernels_ms=other_us / 1e3)
+    for g, v in group_us.items():
+        out[f"{g}_ms"] = v / 1e3
+        out[f"{g}_share"] = v / total_us
+    return out
 
 
 def phase_same_stream(role, dev):
@@ -268,7 +370,7 @@ def phase_same_stream(role, dev):
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 
-    res, spp, mb = 64, 2, 3
+    res, spp, mb = SMOKE_TRIES
     g, m, e, c = role["make"](dev)
     rng = np.random.default_rng(11)
     u = torch.as_tensor(rng.random(size=(spp, mb + 1, res * res, 2), dtype=np.float64)
@@ -285,6 +387,199 @@ def phase_same_stream(role, dev):
         f"max diff {float(diff.max()):.3e}")
     check(bool(torch.isfinite(img_k).all()), f"{role['scene']}: non-finite pixels")
     check(frac < 0.02, f"{role['scene']}: pixel forks {frac:.5f} >= 0.02")
+
+
+def fused_inputs(g, m, e, c, res: int):
+    """The fused engine's per-sample arguments for ``res^2`` camera rays,
+    from the engine's own ``fused_args`` (Morton order of the primary hits
+    on multi-block scenes)."""
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import _gather_surface
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
+
+    o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, res, res)
+    h = ch.trace(g, o, d)
+    return fu.fused_args(g, m, e, o, d, h, _gather_surface(g, m, o, d, h))[0]
+
+
+def fused_image(outs, e):
+    """Mean over samples of ``rad + esc_thr * ibl(esc_dir)`` (the IBL
+    outside the kernel, as the estimator adds it)."""
+    from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
+
+    return sum(o[0] + o[1] * sample_ibl(e.ibl, o[2]) * e.ibl_power for o in outs) / len(outs)
+
+
+def check_record(role, args, mb, seed, shape):
+    """Record mode, kernel against plain on the kernel's own stream: the
+    recorded uniforms equal, ``tri`` and ``sun_tri`` agreeing on >= 99.5 %."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+
+    key = rg.key_from_generator(torch.Generator(device=args[2].device).manual_seed(seed),
+                                args[2].device)
+    kw = dict(max_bounce=mb, sun_enabled=role["sun"], record=True)
+    rk = fu.sample_fused(*args, key, 1, **kw)
+    rp = fu.sample_fused_plain(*args, key, 1, **kw)
+    agree = [float((a == b).float().mean()) for a, b in zip(rk[4:], rp[4:])]
+    log(f"[phase 5] {role['name']} record mode at {shape}: u equal "
+        f"{bool(torch.equal(rk[3], rp[3]))}, tri agrees {agree[0]:.5f}, sun_tri agrees "
+        f"{agree[1]:.5f}")
+    check(torch.equal(rk[3], rp[3]), f"{role['name']}: recorded uniforms differ at {shape}")
+    check(min(agree) >= 0.995, f"{role['name']}: record agreement {agree} < 0.995 at {shape}")
+
+
+def phase_fused_vs_plain(role, dev):
+    """Fused kernel against its plain version on one explicit stream at a
+    small shape, then at the main path's shape on the kernel's own stream,
+    with its time and bound."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
+
+    res, spp, mb = SMOKE_TRIES
+    g, m, e, c = role["make"](dev)
+    nb = g.feats.block_bounds.shape[0]
+    check(nb == role["blocks"], f"{role['name']}: {nb} blocks, want {role['blocks']}")
+    nee = role.get("nee", False)
+    lights = build_light_pack(g, m) if nee else None
+    args = fused_inputs(g, m, e, c, res)
+    n = args[2].shape[0]
+    n_u = 5 if nee else 2
+    rng = np.random.default_rng(nb + 5 * int(nee))
+    u = torch.as_tensor(rng.random((spp, mb + 1, n, n_u)).astype(np.float32), device=dev)
+    kw = dict(max_bounce=mb, sun_enabled=role["sun"], nee=nee, lights=lights)
+    img_k = fused_image([fu.sample_fused(*args, uniforms=u[s], **kw) for s in range(spp)], e)
+    img_p = fused_image([fu.sample_fused_plain(*args, uniforms=u[s], **kw) for s in range(spp)], e)
+    torch.cuda.synchronize()
+    frac, med, max_err = image_forks(img_k, img_p)
+    log(f"[phase 5] {role['name']} ({nb} blocks) {res}^2 {spp} spp {mb} bounces: kernel vs "
+        f"plain pixel forks {frac:.5f}, median diff {med:.3e}, max diff {max_err:.3e}")
+    check(bool(torch.isfinite(img_k).all()), f"{role['name']}: non-finite pixels")
+    check(frac < 0.02, f"{role['name']}: pixel forks {frac:.5f} >= 0.02")
+    check(med < 1e-5, f"{role['name']}: median diff {med:.3e} >= 1e-5")
+    if role.get("record"):
+        check_record(role, args, mb, 4, f"{res}^2")
+
+    # the main path's shape and stream: 512^2 rays (Morton-permuted on more
+    # than one block), 4 bounces, the kernel's own Philox stream
+    res_t, mb_t = MAIN_SHAPE
+    args = fused_inputs(g, m, e, c, res_t)
+    n = args[2].shape[0]
+    key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)
+    kw = dict(max_bounce=mb_t, sun_enabled=role["sun"], nee=nee, lights=lights)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    out_k = fu.sample_fused(*args, key, 0, stats=stats, **kw)
+    pairs, stagings, slabs = (int(x) for x in stats.cpu())
+    out_p, plain_ms = timed_once(lambda: fu.sample_fused_plain(*args, key, 0, **kw))
+    frac_t, med_t, max_t = image_forks(fused_image([out_k], e), fused_image([out_p], e))
+    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces, own stream: kernel vs plain "
+        f"pixel forks {frac_t:.5f}, median diff {med_t:.3e}, max diff {max_t:.3e}")
+    check(all(bool(torch.isfinite(x).all()) for x in out_k),
+          f"{role['name']}: non-finite outputs at {res_t}^2")
+    check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
+    check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
+    if role.get("record"):
+        check_record(role, args, mb_t, 6, f"{res_t}^2")
+    ms = cuda_ms(lambda: fu.sample_fused(*args, key, 0, **kw), iters=role["iters"])
+    tp = g.feats.edges.shape[-1]
+    per_bounce = (FUSED_FLOPS_PER_BOUNCE + FUSED_FLOPS_SUN * int(role["sun"])
+                  + FUSED_FLOPS_NEE * int(nee))
+    flops = pairs * FLOPS_PER_PAIR + slabs * FLOPS_PER_SLAB + n * (mb_t + 1) * per_bounce
+    nbytes = n * (57 + 36) + tp * (100 + 32) + 32 * nb + (56 * lights.area.shape[0] if nee else 0)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, pairs tested {pairs} ({pairs / n:.1f} per ray), slab tests {slabs}, "
+        f"block stagings {stagings}, bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
+        f"{nbytes} bytes)")
+    return dict(
+        name=role["name"], route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/fused_sample.cu",
+        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0,
+        max_abs_err=max(max_err, max_t), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, rays=n, pairs_tested=pairs, slab_tests=slabs,
+        block_stagings=stagings, pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t,
+    )
+
+
+def phase_stream_identity(roles, dev):
+    """In-kernel Philox stream against the RNG kernel's stream fed in, at
+    the main path's shape, and the RNG kernel against its plain version;
+    returns the RNG kernel's line."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
+
+    (res, mb), spp = MAIN_SHAPE, 2
+    for role in roles:
+        g, m, e, c = role["make"](dev)
+        nee = role.get("nee", False)
+        args = fused_inputs(g, m, e, c, res)
+        n = args[2].shape[0]
+        key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(8), dev)
+        kw = dict(max_bounce=mb, sun_enabled=role["sun"], nee=nee,
+                  lights=build_light_pack(g, m) if nee else None)
+        own = fused_image([fu.sample_fused(*args, key, s, **kw) for s in range(spp)], e)
+        fed = fused_image([fu.sample_fused(*args, uniforms=rg.uniforms(
+            key, (mb + 1, n, 5 if nee else 2), s), **kw) for s in range(spp)], e)
+        forks = int(((own - fed).abs().amax(dim=-1) > 1e-3).sum())
+        log(f"[phase 6] {role['name']} at {res}^2, {mb} bounces, {spp} samples: in-kernel "
+            f"stream vs RNG-kernel stream: {forks} pixel forks, bit-equal "
+            f"{bool(torch.equal(own, fed))}")
+        check(forks == 0, f"{role['name']}: {forks} pixel forks between the two streams")
+
+    n = 1 << 24
+    key = torch.tensor([0x2545F491, -0x61C88647], dtype=torch.int32, device=dev)
+    k = rg.uniforms(key, (n,), 7)
+    p = rg.uniforms_plain(key, (n,), 7)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(k, p))
+    max_err = float((k - p).abs().max())
+    ms = cuda_ms(lambda: rg.uniforms(key, (n,), 7), iters=20)
+    plain_ms = cuda_ms(lambda: rg.uniforms_plain(key, (n,), 7), iters=2)
+    bound_ms, bound_by = bound(n / 4 * INT_OPS_PER_PHILOX, 4 * n + 8, PEAK_INT32)
+    log(f"[phase 6] uniforms: {n} values bit-equal to plain {equal}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({n / 4 * INT_OPS_PER_PHILOX:.3e} int32 ops, {4 * n} bytes)")
+    check(equal, "uniforms kernel differs from its plain version")
+    return dict(name="uniforms", route="cuda", source="ensem3a_openclraytracer_tpu_torch/csrc/rng.cu",
+                replaces="ensem3a_openclraytracer_tpu/ops/rng.py:34", launches=0,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, values=n)
+
+
+def phase_fused_vs_scan(scn, scene):
+    """The same scene and settings through both engines (measurement only:
+    the dispatch rule does not move on it)."""
+    import torch
+
+    ov = dict(scn.get("overrides", {}))
+    out = {}
+    for order in ((True, False), (False, True)):  # fused, scan, scan, fused
+        for fused in order:
+            img, dt = timed_render(scene, {**ov, "fused": fused}, seed=0)
+            out.setdefault(fused, []).append((dt, img))
+    (tf_, img_f), (ts_, img_s) = min(out[True], key=lambda x: x[0]), min(out[False],
+                                                                          key=lambda x: x[0])
+    diff = (img_f - img_s).abs().amax(dim=-1)
+    forks = float((diff > 1e-3).float().mean())
+    mean_gap = float(img_f.mean() - img_s.mean())
+    log(f"[phase 7] {scn['name']}: fused {[round(d, 4) for d, _ in out[True]]} s, scan "
+        f"{[round(d, 4) for d, _ in out[False]]} s; images: pixel forks {forks:.4f}, "
+        f"mean fused - scan {mean_gap:+.5f}")
+    check(bool(torch.isfinite(img_f).all()), f"{scn['name']}: non-finite fused pixels")
+    if scene.geometry.feats.block_bounds.shape[0] == 1:
+        # no ray permutation on one block: both engines draw one stream per ray
+        check(forks < 0.02, f"{scn['name']}: fused vs scan pixel forks {forks:.4f} >= 0.02")
+    return dict(name=scn["name"], fused_s=[d for d, _ in out[True]],
+                scan_s=[d for d, _ in out[False]], pixel_forks=forks, mean_gap=mean_gap)
 
 
 def main() -> int:
@@ -315,30 +610,63 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"[phase 1] nvcc {name}: {line}")
 
+    cornell = lambda d: tt.make_cornell_scene(device=d)
+    outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
     roles = [
         dict(name="closest_hit:role1", scene="cornell", blocks=1, iters=50, sun=False,
-             make=lambda d: tt.make_cornell_scene(device=d), render=(512, 64, 4),
-             replaces="ensem3a_openclraytracer_tpu/ops/intersect_mxu.py:431"),
+             make=cornell, replaces="ensem3a_openclraytracer_tpu/ops/intersect_mxu.py:431"),
         dict(name="closest_hit:role3", scene="outdoor_1300", blocks=61, iters=10, sun=True,
-             make=lambda d: tt.make_outdoor_scene(n_cubes=1300, device=d), render=(512, 16, 4),
-             replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:99"),
+             make=outdoor(1300), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:99"),
         dict(name="closest_hit:role4", scene="outdoor_12500", blocks=586, iters=5, sun=True,
-             make=lambda d: tt.make_outdoor_scene(n_cubes=12500, device=d), render=(256, 16, 4),
-             replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:330"),
+             make=outdoor(12500), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:330"),
     ]
     kernels = [phase_kernel_vs_plain(r, dev) for r in roles]
 
+    scenes = [  # the main path: renders at the scene's ini settings, default engine
+        dict(name="cornell", scene="cornell", make=cornell, render=(512, 64, 4), sun=False,
+             fused=True),
+        dict(name="cornell_nee", scene="cornell", make=cornell, render=(512, 64, 4), sun=False,
+             fused=True, overrides={"nee": True}),
+        dict(name="outdoor_1000", scene="outdoor_1000", make=outdoor(1000), render=(512, 16, 4),
+             sun=True, fused=True),
+        dict(name="outdoor_1300", scene="outdoor_1300", make=outdoor(1300), render=(512, 16, 4),
+             sun=True, fused=False),
+        dict(name="outdoor_12500", scene="outdoor_12500", make=outdoor(12500),
+             render=(256, 16, 4), sun=True, fused=False),
+    ]
     (ROOT / "build").mkdir(exist_ok=True)
-    renders = []
+    renders, loaded = [], {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        for r, k in zip(roles, kernels):
-            k["launches"], info = phase_main_path(r, dev, Path(tmp), smi)
+        for scn in scenes:
+            loaded[scn["name"]], info = phase_main_path(scn, dev, Path(tmp), smi)
             renders.append(info)
+    by_render = {r["name"]: r["launches"] for r in renders}
+    for k, scene_name in zip(kernels, ("cornell", "outdoor_1300", "outdoor_12500")):
+        k["launches"] = by_render[scene_name]["closest_hit"]
 
     for r in roles[:2]:
         phase_same_stream(r, dev)
 
-    log(f"[summary] {json.dumps({'card': smi, 'renders': renders})}")
+    fused_roles = [
+        dict(name="sample_fused:cornell", render="cornell", blocks=1, sun=False, make=cornell,
+             iters=20),
+        dict(name="sample_fused:outdoor_1000", render="outdoor_1000", blocks=47, sun=True,
+             make=outdoor(1000), iters=5, record=True),
+        dict(name="sample_fused:cornell_nee", render="cornell_nee", blocks=1, sun=False,
+             make=cornell, iters=20, nee=True),
+    ]
+    for fr in fused_roles:
+        line = phase_fused_vs_plain(fr, dev)
+        line["launches"] = by_render[fr["render"]]["sample_fused"]
+        kernels.append(line)
+    rng_line = phase_stream_identity(fused_roles, dev)
+    rng_line["launches"] = by_render["outdoor_1300"]["uniforms"]
+    kernels.append(rng_line)
+
+    versus = [phase_fused_vs_scan(scn, loaded[scn["name"]]) for scn in scenes
+              if scn["name"] in ("cornell", "outdoor_1000", "outdoor_1300")]
+
+    log(f"[summary] {json.dumps({'card': smi, 'renders': renders, 'fused_vs_scan': versus})}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

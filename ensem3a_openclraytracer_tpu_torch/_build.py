@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use, with ``nvcc`` for ``sm_90a`` (Hopper), into a shared library under
 ``build/ensem3a_torch_kernels/`` at the root of the checkout, then loaded
-with ``ctypes``.  The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt.  There is no fallback: a
+with ``ctypes``.  The library's file name carries a hash of its source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited source or
+header is rebuilt.  There is no fallback: a
 missing ``nvcc`` or a failed build raises.
 """
 
@@ -48,9 +49,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """The library's path; its tag hashes the source, every shared header
+    in ``csrc/`` and the flags, so an edited header rebuilds each kernel."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] | None = None) -> Dict[str, str]:

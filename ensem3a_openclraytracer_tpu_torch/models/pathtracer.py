@@ -20,11 +20,22 @@ additions):
     (``glass_mode="refract"``);
   * output: mean over spp (``render_image``/``render_scene`` clamp).
 
+Engines: the scan estimator above, or the fused sample engine
+(``ops/fused.sample_fused``: one CUDA kernel launch per sample runs the
+whole bounce loop).  As in the JAX package, ``fused=None`` picks the
+fused engine for forward renders on the card of scenes up to
+``FUSED_MAX_BLOCKS`` triangle blocks, without explicit uniforms, MIS or
+refraction; the CPU stays on the scan path.
+
 Random numbers: ``uniforms [spp, max_bounce+1, N, 2]`` (plus
-``light_uniforms [..., 3]`` for NEE) from the caller, or per sample
-``torch.rand((max_bounce+1, N, 2))`` (then ``[..., 3]`` for NEE) from
-``gen``.  Trace outputs are detached; material and environment tensors
-stay live, so autograd reaches them.
+``light_uniforms [..., 3]`` for NEE) from the caller, or the Philox
+stream of ``ops/rng.py`` under two key words drawn from ``gen``: sample
+``s`` takes ``uniforms(key, (max_bounce+1, N, n_u), s)`` with ``n_u`` 2,
+or 5 with NEE (the bounce's two, then the light's three).  The fused
+engine draws the same stream inside its kernel, with ``N`` indexed by
+position in its (Morton-permuted, on multi-block scenes) batch.  Trace
+outputs are detached; on the scan path material and environment tensors
+stay live, so autograd reaches them.  The fused engine is forward-only.
 """
 
 from __future__ import annotations
@@ -44,7 +55,9 @@ from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import trace
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl, sun_direction
-from ensem3a_openclraytracer_tpu_torch.ops.geometry import cross, sample_point_in_triangle
+from ensem3a_openclraytracer_tpu_torch.ops import fused as fused_ops
+from ensem3a_openclraytracer_tpu_torch.ops import rng
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import cross, sample_point_in_triangle, select
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 from ensem3a_openclraytracer_tpu_torch.ops.sampling import PI
 from ensem3a_openclraytracer_tpu_torch.scene.materials import (
@@ -54,10 +67,11 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
 )
 from ensem3a_openclraytracer_tpu_torch.scene.scene import GeometryPack, LightPack
 
-_NO_FUSED = (
-    "the fused whole-sample kernel is not ported yet (ROADMAP.md, queue 1 "
-    "item 6); use fused=False or None"
-)
+# The JAX package's dispatch rule (its models/pathtracer.py
+# _FUSED_MAX_BLOCKS): up to this many triangle blocks the fused engine is
+# the forward engine.  The port keeps the rule; where the cutover lies on
+# the card is an open measurement (PERF.md).
+FUSED_MAX_BLOCKS = 48
 
 
 class _Escape(NamedTuple):
@@ -94,9 +108,9 @@ def _gather_surface(geom: GeometryPack, materials: MaterialParams, origin, direc
     )
 
 
-def _where(mask, a, b):
-    """``torch.where`` with a lane mask ``[N]`` broadcast over trailing axes."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+def _needs_grad(*groups) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for g in groups if g is not None for t in g)
 
 
 def radiance_for_rays(
@@ -121,10 +135,11 @@ def radiance_for_rays(
     engine: str = "kernel",
 ) -> torch.Tensor:
     """Radiance ``[N, 3]`` of a primary-ray batch: the unclamped mean
-    over ``spp`` samples.  ``engine="plain"`` sends every trace through
-    the exact scan even on the card (a reference for the kernel)."""
-    if fused:
-        raise NotImplementedError(_NO_FUSED)
+    over ``spp`` samples.  ``fused`` picks the engine (module docstring;
+    ``None`` chooses).  ``engine="plain"`` sends every kernel's work to
+    its plain version even on the card (a reference for the kernels)."""
+    if engine not in ("kernel", "plain"):
+        raise ValueError(f"unknown engine {engine!r}")
     if mis and not nee:
         raise ValueError("mis=True requires nee=True (and lights)")
     if nee and lights is None:
@@ -136,6 +151,21 @@ def radiance_for_rays(
         )
     dev = ray_o.device
     n_rays = ray_o.shape[0]
+    n_blocks = None if geom.feats is None else geom.feats.block_bounds.shape[0]
+    if fused is None:
+        fused = (dev.type == "cuda" and n_blocks is not None and n_blocks <= FUSED_MAX_BLOCKS
+                 and uniforms is None and glass_mode == "tint" and not mis
+                 and not _needs_grad(materials, env, lights))
+    if fused:  # the JAX package's refusals
+        if mis:
+            raise ValueError("mis runs on the scan estimator (fused=False)")
+        if geom.feats is None:
+            raise ValueError("fused=True requires the triangle features (geom.feats)")
+        if uniforms is not None or glass_mode != "tint":
+            raise ValueError("fused=True supports the tint-glass path with its own random "
+                             "stream (no explicit uniforms)")
+        if _needs_grad(materials, env, lights):
+            raise ValueError("the fused engine is forward-only: differentiate with fused=False")
     if uniforms is None and gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -148,7 +178,23 @@ def radiance_for_rays(
     def env_radiance(d):
         return sample_ibl(env.ibl, d, bilinear=ibl_bilinear) * env.ibl_power
 
-    primary_miss_rad = _where(primary_hit.hit, torch.zeros_like(ray_d), env_radiance(ray_d))
+    primary_miss_rad = select(primary_hit.hit, torch.zeros_like(ray_d), env_radiance(ray_d))
+    key = rng.key_from_generator(gen, dev) if uniforms is None else None
+
+    if fused:
+        # prepared once per render; multi-block scenes permute the rays by
+        # the Morton order of their primary hit (one sort for every sample)
+        f_args, order = fused_ops.fused_args(geom, materials, env, ray_o, ray_d, primary_hit,
+                                             primary_surf)
+        run = fused_ops.sample_fused_plain if engine == "plain" else fused_ops.sample_fused
+        acc = torch.zeros_like(ray_d)
+        for s in range(spp):
+            rad, esc_thr, esc_dir = run(*f_args, key, s, max_bounce=max_bounce,
+                                        sun_enabled=sun_enabled, nee=nee, lights=lights)
+            acc = acc + rad + esc_thr * env_radiance(esc_dir)
+        if order is not None:
+            acc = torch.empty_like(acc).index_copy_(0, order, acc)
+        return acc / spp + primary_miss_rad
 
     n_lights = 0 if lights is None else lights.v0.shape[0]
     if mis:
@@ -172,7 +218,7 @@ def radiance_for_rays(
         cos_l = torch.abs(torch.sum(ldir * ln, dim=-1))
         visible = tr(surf.p, ldir).t >= dist * (1.0 - 1e-3)
         is_glossy = surf.mtype == GLOSSY
-        brdf = _where(is_glossy, eval_ggx(surf.color, surf.rough, -in_dir, ldir, surf.n),
+        brdf = select(is_glossy, eval_ggx(surf.color, surf.rough, -in_dir, ldir, surf.n),
                       eval_lambert(surf.color))
         weight = (n_lights * larea) * cos_l / dist2
         sampled = live & (surf.mtype != EMISSIVE) & (surf.mtype != GLASS)
@@ -182,7 +228,7 @@ def radiance_for_rays(
             p_b = torch.where(is_glossy, torch.full_like(cos_s, 1.0 / (2.0 * PI)),
                               torch.clamp(cos_s, min=0.0) / PI)
             contrib = contrib / (1.0 + p_b * weight)[:, None]
-        return _where(ok, contrib, torch.zeros_like(contrib)), sampled
+        return select(ok, contrib, torch.zeros_like(contrib)), sampled
 
     def one_sample(us, uls):
         """One sample for every ray -> radiance [N, 3]."""
@@ -200,7 +246,7 @@ def radiance_for_rays(
         for j in range(max_bounce + 1):
             u1, u2 = us[j, :, 0], us[j, :, 1]
             emis = live & (surf.mtype == EMISSIVE)
-            rad = rad + _where(emis, thr * (surf.rough * emis_w)[:, None], zeros3)
+            rad = rad + select(emis, thr * (surf.rough * emis_w)[:, None], zeros3)
             live = live & ~emis
             if nee:
                 direct, sampled = nee_contribution(live, thr, in_dir, surf, uls[j])
@@ -211,14 +257,14 @@ def radiance_for_rays(
                     emis_w = torch.where(live, 1.0 - sampled.to(emis_w.dtype), emis_w)
             bdir, factor = sample_bounce(surf.mtype, surf.color, surf.rough, in_dir, surf.n,
                                          u1, u2, ior=surf.ior, glass_mode=glass_mode)
-            thr = _where(live, thr * factor, thr)
+            thr = select(live, thr * factor, thr)
             bh = tr(surf.p, bdir)
             miss = live & ~bh.hit
             esc = _Escape(
                 escaped=esc.escaped | miss,
-                p=_where(miss, surf.p, esc.p),
-                dir=_where(miss, bdir, esc.dir),
-                thr=_where(miss, thr, esc.thr),
+                p=select(miss, surf.p, esc.p),
+                dir=select(miss, bdir, esc.dir),
+                thr=select(miss, thr, esc.thr),
                 glass=torch.where(miss, surf.mtype == GLASS, esc.glass),
             )
             live = live & bh.hit
@@ -232,8 +278,8 @@ def radiance_for_rays(
                 w_b = p_b / (p_b + p_nee_hit)
                 emis_w = torch.where(live, torch.where(sampled, w_b, torch.ones_like(w_b)),
                                      emis_w)
-            surf = _Surface(*(_where(live, a, b) for a, b in zip(new_surf, surf)))
-            in_dir = _where(live, bdir, in_dir)
+            surf = _Surface(*(select(live, a, b) for a, b in zip(new_surf, surf)))
+            in_dir = select(live, bdir, in_dir)
 
         # settle every escape at once: one sun shadow ray + one IBL lookup
         env_light = env_radiance(esc.dir)
@@ -249,17 +295,17 @@ def radiance_for_rays(
             )
         else:
             sun_light = torch.zeros_like(env_light)
-        rad = rad + _where(esc.escaped, esc.thr * (sun_light + env_light), zeros3)
+        rad = rad + select(esc.escaped, esc.thr * (sun_light + env_light), zeros3)
         # a path whose last bounce landed on a light still contributes
         final_emis = live & (surf.mtype == EMISSIVE)
-        return rad + _where(final_emis, thr * (surf.rough * emis_w)[:, None], zeros3)
+        return rad + select(final_emis, thr * (surf.rough * emis_w)[:, None], zeros3)
 
     acc = torch.zeros_like(ray_d)
     for s in range(spp):
         if uniforms is None:
-            us = torch.rand((max_bounce + 1, n_rays, 2), generator=gen, device=dev)
-            uls = (torch.rand((max_bounce + 1, n_rays, 3), generator=gen, device=dev)
-                   if nee else None)
+            shape = (max_bounce + 1, n_rays, 5 if nee else 2)
+            u = (rng.uniforms_plain if engine == "plain" else rng.uniforms)(key, shape, s)
+            us, uls = u[..., :2], (u[..., 2:] if nee else None)
         else:
             us = uniforms[s]
             uls = light_uniforms[s] if nee else None

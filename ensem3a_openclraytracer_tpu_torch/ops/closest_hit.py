@@ -21,6 +21,7 @@ equal ``t`` the lowest triangle index wins.  A ``t`` of
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -207,6 +208,17 @@ _KERNEL_ARGTYPES = (
 )
 
 
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, built and typed on first use."""
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    fn = _build.load("closest_hit").closest_hit_launch
+    fn.argtypes = _KERNEL_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype, dev) -> None:
     if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
         raise ValueError(
@@ -227,8 +239,6 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
         return h.t, h.tri.to(torch.int32)
     if ray_o.device.type != "cuda":
         raise ValueError(f"trace_blocks runs on cuda or cpu, not {ray_o.device}")
-    from ensem3a_openclraytracer_tpu_torch import _build
-
     dev = ray_o.device
     n = ray_o.shape[0]
     tp = feats.edges.shape[-1]
@@ -253,10 +263,7 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     out_tri = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out_t, out_tri
-    fn = _build.load("closest_hit").closest_hit_launch
-    fn.argtypes = _KERNEL_ARGTYPES
-    fn.restype = ctypes.c_int
-    err = fn(
+    err = _launcher()(
         ray_o.data_ptr(), ray_d.data_ptr(), n,
         feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
         feats.block_bounds.data_ptr(), tp, tile, nb,

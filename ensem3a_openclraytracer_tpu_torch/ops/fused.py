@@ -1,0 +1,356 @@
+"""The fused sample engine: one whole Monte-Carlo sample per ray in one
+kernel launch.
+
+Counterpart of the JAX package's ``ops/fused.py`` (``_make_kernel`` /
+``sample_fused``), which runs the bounce loop of one sample for a tile of
+rays in VMEM.  On the card ``csrc/fused_sample.cu`` does the same with
+one thread per ray and all of the ray's state in registers: per bounce
+the emissive terminal, optional next-event estimation (NEE), Lambert,
+GGX or tint-glass sampling, the bounce trace, the escape record and the
+in-loop sun shadow with its glass tint.  Every trace is the block-culled
+closest-hit search of ``csrc/closest_hit.cuh`` (exact f32, ``t >
+MIN_HIT_DIST``); on a one-block scene the features stay in shared memory
+for the whole sample.  :func:`sample_fused_plain` computes the same
+function in plain torch, trace by trace with ``trace_plain``.
+
+The IBL lookup stays outside: a path escapes at most once, so the kernel
+writes ``(rad, esc_thr, esc_dir)`` and the sample's radiance is
+``rad + esc_thr * ibl(esc_dir)``.
+
+Random numbers: an explicit ``uniforms [mb + 1, N, n_u]`` (``n_u`` = 2,
+or 5 with NEE: ``u1, u2`` for the bounce, ``u3, u4, u5`` for the light
+pick and the area sample), or the in-kernel Philox stream of
+``ops/rng.py`` under ``key`` for sample ``sample``, in which lane ``r``
+draws flat index ``(b N + r) n_u + k`` at bounce ``b``: exactly the
+explicit layout, so ``uniforms(key, (mb + 1, N, n_u), sample)`` fed in
+explicitly gives the same paths.  A lane's index is its position in the
+batch given, which on multi-block scenes is the Morton-permuted order of
+``models/pathtracer``.
+
+Attribute table (:func:`build_tri_attrs`): ``[Tp, 8]`` float32, row
+major, one row per triangle ``[nx, ny, nz, material type, r, g, b,
+roughness (emissive power for type 0)]``, so the winner of a trace is
+one 32-byte row gather.  Padding rows are zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
+    EMISSIVE,
+    GLASS,
+    GLOSSY,
+    eval_ggx,
+    eval_lambert,
+    sample_bounce,
+)
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
+    MAX_KERNEL_BLOCKS,
+    TRI_TILE,
+    TriFeatures,
+    _check,
+    _expand_bits_10,
+    trace_plain,
+)
+from ensem3a_openclraytracer_tpu_torch.ops.envmap import sun_direction
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import dot, sample_point_in_triangle, select
+from ensem3a_openclraytracer_tpu_torch.ops.rng import _check_key, uniforms_plain
+
+N_ATTR = 8
+
+# Launches of the CUDA kernel; only a launch on the card counts.
+LAUNCHES = {"sample_fused": 0}
+
+
+def build_tri_attrs(face_n, face_mat, mtype, color, roughness, tp: int) -> torch.Tensor:
+    """``[Tp, 8]`` attribute table (module docstring): each face's normal
+    joined with its material record, zero-padded to ``tp`` rows."""
+    midx = face_mat.to(torch.int64)
+    rows = torch.cat([face_n.to(torch.float32), mtype[midx].to(torch.float32)[:, None],
+                      color[midx].to(torch.float32), roughness[midx].to(torch.float32)[:, None]],
+                     dim=1)
+    return torch.nn.functional.pad(rows, (0, 0, 0, tp - rows.shape[0])).contiguous()
+
+
+def morton_order_points(p: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of ``[N, 3]`` points by 30-bit Morton code: rays
+    that start near one another then share a CUDA block, so its culling
+    bites.  Primary hits are cached, so one sort serves a whole render."""
+    lo = torch.amin(p, dim=0)
+    hi = torch.amax(p, dim=0)
+    q = torch.clamp((p - lo) / torch.clamp(hi - lo, min=1e-12), 0.0, 0.9999999)
+    g = (q * 1024.0).to(torch.int64)
+    code = ((_expand_bits_10(g[:, 0]) << 2) | (_expand_bits_10(g[:, 1]) << 1)
+            | _expand_bits_10(g[:, 2]))
+    return torch.argsort(code, stable=True)
+
+
+def fused_args(geom, materials, env, ray_o, ray_d, hit, surf, permute: Optional[bool] = None):
+    """The engine's per-sample arguments for a primary-ray batch, prepared
+    once per render: ``(args, order)``.  ``hit`` and ``surf`` are the
+    batch's primary hits and surfaces (``models/pathtracer``'s ``Hit`` and
+    ``_Surface``); ``args`` is ``(feats, tri_attrs, p, n, mtype, color,
+    rough, live, in_dir, sun_dir, sun_power)``, each contiguous, for
+    ``sample_fused(*args, key, sample, ...)``.  ``permute`` (by default on
+    scenes of more than one triangle block) sorts the rays by the Morton
+    order of their primary hit, so a CUDA block's rays start near one
+    another and its culling bites; ``order`` is that permutation (None when
+    the rays keep their order), and lane indices of the in-kernel stream
+    are positions in it."""
+    if permute is None:
+        permute = geom.feats.block_bounds.shape[0] > 1
+    order = morton_order_points(select(hit.hit, surf.p, ray_o)) if permute else None
+    pick = (lambda x: x.contiguous()) if order is None else (lambda x: x[order].contiguous())
+    attrs = build_tri_attrs(geom.n, geom.mat, materials.mtype, materials.color,
+                            materials.roughness, geom.feats.edges.shape[-1])
+    args = (geom.feats, attrs, pick(surf.p), pick(surf.n), pick(surf.mtype.to(torch.int32)),
+            pick(surf.color), pick(surf.rough), pick(hit.hit), pick(ray_d),
+            sun_direction(env.sun_angles_deg).contiguous(), env.sun_power.reshape(1).contiguous())
+    return args, order
+
+
+def _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays):
+    if nee and lights is None:
+        raise ValueError("nee=True requires lights")
+    if record and nee:
+        raise ValueError("record mode is BSDF-only (replay has no NEE)")
+    if max_bounce < 0:
+        raise ValueError(f"max_bounce {max_bounce} < 0")
+    n_u = 5 if nee else 2
+    if uniforms is None:
+        if key is None:
+            raise ValueError("give uniforms [max_bounce + 1, N, n_u] or a Philox key")
+        _check_key(key)
+    elif tuple(uniforms.shape) != (max_bounce + 1, n_rays, n_u):
+        raise ValueError(f"uniforms: want shape {(max_bounce + 1, n_rays, n_u)}, "
+                         f"got {tuple(uniforms.shape)}")
+    return n_u
+
+
+def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                       primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                       key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
+                       sun_enabled: bool, uniforms: Optional[torch.Tensor] = None,
+                       nee: bool = False, lights=None, record: bool = False):
+    """:func:`sample_fused` in plain torch on the inputs' device, built
+    from the scan estimator's ops, each trace through ``trace_plain``;
+    with ``uniforms=None`` it draws the kernel's stream with
+    ``uniforms_plain``."""
+    n_rays = primary_p.shape[0]
+    n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays)
+    if uniforms is None:
+        uniforms = uniforms_plain(key, (max_bounce + 1, n_rays, n_u), sample)
+    dev = primary_p.device
+    f32 = lambda x: x.to(torch.float32)
+    p, n, color, in_d = f32(primary_p), f32(primary_n), f32(primary_color), f32(in_dir)
+    mtype = primary_mtype.to(torch.int64)
+    rough = f32(primary_rough)
+    live = primary_live.to(torch.bool)
+    sun_d = f32(sun_dir).reshape(1, 3).expand(n_rays, 3)
+    sun_pow = f32(sun_power).reshape(())
+    thr = torch.ones_like(p)
+    rad = torch.zeros_like(p)
+    esc_thr = torch.zeros_like(p)
+    esc_dir = torch.zeros_like(p)
+    esc_dir[:, 2] = 1.0  # the caller's IBL lookup stays NaN-free
+    emit_ok = torch.ones_like(live)
+    zero3 = torch.zeros_like(p)
+    mb1 = max_bounce + 1
+    if record:
+        u_rec = torch.zeros((mb1, n_rays, 2), dtype=torch.float32, device=dev)
+        tri_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
+        sun_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
+
+    def attrs_of(h):
+        a = tri_attrs[h.tri]
+        return a[:, 0:3], a[:, 3].round().to(torch.int64), a[:, 4:7], a[:, 7]
+
+    for b in range(mb1):
+        u = f32(uniforms[b])
+        emis = live & (mtype == EMISSIVE)
+        rad = rad + select((emis & emit_ok) if nee else emis, thr * rough[:, None], zero3)
+        live = live & ~emis
+        if nee:  # one area-sampled light point and its shadow ray
+            n_lights = lights.v0.shape[0]
+            li = torch.clamp((u[:, 2] * n_lights).to(torch.int64), 0, n_lights - 1)
+            xl = sample_point_in_triangle(lights.v0[li], lights.v1[li], lights.v2[li],
+                                          u[:, 3], u[:, 4])
+            delta = xl - p
+            dist2 = torch.clamp(dot(delta, delta), min=1e-8)
+            dist = torch.sqrt(dist2)
+            ldir = delta / dist[:, None]
+            cos_s = dot(ldir, n)
+            cos_l = torch.abs(dot(ldir, lights.n[li]))
+            visible = trace_plain(feats, p, ldir).t >= dist * (1.0 - 1e-3)
+            brdf = select(mtype == GLOSSY, eval_ggx(color, rough, -in_d, ldir, n),
+                          eval_lambert(color))
+            sampled = live & (mtype != GLASS)
+            ok = sampled & visible & (cos_s > 0.0) & (cos_l > 1e-6)
+            weight = (float(n_lights) * lights.area[li]) * cos_l / dist2
+            contrib = thr * brdf * (torch.clamp(cos_s, min=0.0) * weight * lights.power[li])[:, None]
+            rad = rad + select(ok, contrib, zero3)
+            emit_ok = (live & ~sampled) | (~live & emit_ok)
+
+        bdir, factor = sample_bounce(mtype, color, rough, in_d, n, u[:, 0], u[:, 1])
+        thr = select(live, thr * factor, thr)
+        h = trace_plain(feats, p, bdir)
+        miss = live & ~h.hit
+        esc_thr = select(miss, thr, esc_thr)
+        esc_dir = select(miss, bdir, esc_dir)
+        if sun_enabled:  # the sun shadow ray of an escaping path, tinted by glass
+            sh = trace_plain(feats, p, sun_d)
+            _, s_mtype, s_color, _ = attrs_of(sh)
+            unocc = (~sh.hit) & (mtype != GLASS)
+            glass_occ = sh.hit & (s_mtype == GLASS)
+            sun_light = (unocc.to(torch.float32)[:, None] * sun_pow
+                         + glass_occ.to(torch.float32)[:, None] * s_color * sun_pow)
+            rad = rad + select(miss, thr * sun_light, zero3)
+        if record:
+            u_rec[b] = u[:, :2]
+            tri_rec[b] = torch.where(h.hit, h.tri, -1).to(torch.int32)
+            if sun_enabled:
+                sun_rec[b] = torch.where(sh.hit, sh.tri, -1).to(torch.int32)
+        live = live & h.hit
+        a_n, a_mt, a_col, a_ro = attrs_of(h)
+        p = select(live, p + bdir * h.t[:, None], p)
+        n = select(live, a_n, n)
+        mtype = select(live, a_mt, mtype)
+        color = select(live, a_col, color)
+        rough = select(live, a_ro, rough)
+        in_d = select(live, bdir, in_d)
+
+    final_emis = live & (mtype == EMISSIVE)
+    if nee:
+        final_emis = final_emis & emit_ok
+    rad = rad + select(final_emis, thr * rough[:, None], zero3)
+    if record:
+        return rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
+    return rad, esc_thr, esc_dir
+
+
+_KERNEL_ARGTYPES = (
+    [ctypes.c_int] * 5  # n, max_bounce, sun_enabled, nee, record
+    + [ctypes.c_void_p] * 7  # p, n, mtype, color, rough, live, in_dir
+    + [ctypes.c_void_p] * 2  # sun_dir [3], sun_power [1]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3  # edges, plane, normal_d, bounds; tp, tile, nb
+    + [ctypes.c_void_p]  # attrs
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int]  # light v0, v1, v2, n, power, area; count
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # uniforms, key, sample
+    + [ctypes.c_void_p] * 6  # rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
+    + [ctypes.c_void_p] * 2  # stats, stream
+)
+
+
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, built and typed on first use."""
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    fn = _build.load("fused_sample").fused_sample_launch
+    fn.argtypes = _KERNEL_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sample_fused(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                 primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                 key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
+                 sun_enabled: bool, uniforms: Optional[torch.Tensor] = None, nee: bool = False,
+                 lights=None, record: bool = False, stats: Optional[torch.Tensor] = None):
+    """One Monte-Carlo sample for ``N`` rays from their cached primary
+    vertices (``p, n [N, 3]``, ``mtype [N]`` int, ``color [N, 3]``,
+    ``rough [N]``, ``live [N]`` bool, ``in_dir [N, 3]``).  Returns
+    ``(rad, esc_thr, esc_dir)``, each ``[N, 3]``; the sample's radiance is
+    ``rad + esc_thr * ibl(esc_dir)``.  ``record=True`` (BSDF only) adds
+    ``(u [mb+1, N, 2], tri [mb+1, N], sun_tri [mb+1, N])`` int32, -1 for a
+    miss (``sun_tri`` all -1 without sun).
+
+    Random numbers come from ``uniforms`` or, when it is None, from the
+    Philox stream of ``key`` (``[2]`` int32 on the rays' device) for
+    ``sample`` (module docstring).  Rays on the card go through
+    ``csrc/fused_sample.cu``; rays on the CPU take
+    :func:`sample_fused_plain`.  With ``nee``, ``lights`` is a ``LightPack``
+    whose columns the kernel reads in place (its ``power`` is the snapshot
+    used, as the TPU kernel's).  ``stats`` (int64 ``[3]`` on the card,
+    optional) receives the (ray, triangle) pairs tested, the triangle-block
+    stagings and the ray-box slab tests, added to what it holds."""
+    kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
+              lights=lights, record=record)
+    dev = primary_p.device
+    if dev.type == "cpu":
+        return sample_fused_plain(feats, tri_attrs, primary_p, primary_n, primary_mtype,
+                                  primary_color, primary_rough, primary_live, in_dir, sun_dir,
+                                  sun_power, key, sample, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"sample_fused runs on cuda or cpu, not {dev}")
+    n = primary_p.shape[0]
+    n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n)
+    tp = feats.edges.shape[-1]
+    nb = feats.block_bounds.shape[0]
+    tile = min(TRI_TILE, tp)
+    if nb > MAX_KERNEL_BLOCKS:
+        raise ValueError(f"{nb} triangle blocks exceed the kernel's visit list "
+                         f"({MAX_KERNEL_BLOCKS} blocks)")
+    if nb * tile != tp:
+        raise ValueError(f"feature width {tp} is not {nb} blocks of {tile}")
+    f32, i32 = torch.float32, torch.int32
+    sun_dir, sun_power = sun_dir.reshape(3), sun_power.reshape(1)
+    for x, name, shape, dt in (
+        (primary_p, "primary_p", (n, 3), f32), (primary_n, "primary_n", (n, 3), f32),
+        (primary_mtype, "primary_mtype", (n,), i32), (primary_color, "primary_color", (n, 3), f32),
+        (primary_rough, "primary_rough", (n,), f32), (primary_live, "primary_live", (n,), torch.bool),
+        (in_dir, "in_dir", (n, 3), f32), (feats.edges, "edges", (3, 6, tp), f32),
+        (feats.plane, "plane", (4, tp), f32), (feats.normal_d, "normal_d", (3, tp), f32),
+        (feats.block_bounds, "block_bounds", (nb, 8), f32),
+        (tri_attrs, "tri_attrs", (tp, N_ATTR), f32),
+        (sun_dir, "sun_dir", (3,), f32), (sun_power, "sun_power", (1,), f32),
+    ):
+        _check(x, name, shape, dt, dev)
+    light_cols, n_lights = (None,) * 6, 0
+    if nee:  # the pack's columns, read in place
+        n_lights = lights.v0.shape[0]
+        light_cols = (lights.v0, lights.v1, lights.v2, lights.n, lights.power, lights.area)
+        for x, name, shape in zip(light_cols, ("v0", "v1", "v2", "n", "power", "area"),
+                                  ((n_lights, 3),) * 4 + ((n_lights,),) * 2):
+            _check(x, f"lights.{name}", shape, f32, dev)
+    if uniforms is not None:
+        _check(uniforms, "uniforms", (max_bounce + 1, n, n_u), f32, dev)
+    if key is not None:
+        _check(key, "key", (2,), i32, dev)
+    if stats is not None:
+        _check(stats, "stats", (3,), torch.int64, dev)
+    mb1 = max_bounce + 1
+    rad = torch.empty((n, 3), dtype=f32, device=dev)
+    esc_thr = torch.empty_like(rad)
+    esc_dir = torch.empty_like(rad)
+    if record:
+        u_rec = torch.empty((mb1, n, 2), dtype=f32, device=dev)
+        tri_rec = torch.empty((mb1, n), dtype=i32, device=dev)
+        sun_rec = torch.full((mb1, n), -1, dtype=i32, device=dev)
+    if n:
+        ptr = lambda x: None if x is None else x.data_ptr()
+        err = _launcher()(
+            n, max_bounce, int(sun_enabled), int(nee), int(record),
+            primary_p.data_ptr(), primary_n.data_ptr(), primary_mtype.data_ptr(),
+            primary_color.data_ptr(), primary_rough.data_ptr(), primary_live.data_ptr(),
+            in_dir.data_ptr(), sun_dir.data_ptr(), sun_power.data_ptr(),
+            feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
+            feats.block_bounds.data_ptr(), tp, tile, nb, tri_attrs.data_ptr(),
+            *(ptr(x) for x in light_cols), n_lights,
+            ptr(uniforms), ptr(key), int(sample),
+            rad.data_ptr(), esc_thr.data_ptr(), esc_dir.data_ptr(),
+            ptr(u_rec) if record else None, ptr(tri_rec) if record else None,
+            ptr(sun_rec) if record and sun_enabled else None,
+            ptr(stats), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
+        LAUNCHES["sample_fused"] += 1
+    if record:
+        return rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
+    return rad, esc_thr, esc_dir

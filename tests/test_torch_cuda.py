@@ -1,7 +1,9 @@
-"""Card-only tests of the port's CUDA closest-hit kernel: ``trace_blocks``
-against its plain version ``trace_plain`` on the card, for each of the
-three roles it takes (1, 61 and 586 triangle blocks).  They skip without
-a card.  This file imports no JAX, so on a machine without JAX run it
+"""Card-only tests of the port's CUDA kernels against their plain versions
+on the card: the closest-hit kernel (``trace_blocks`` against
+``trace_plain``) in each of its three roles (1, 61 and 586 triangle
+blocks), the fused sample kernel (``sample_fused`` against
+``sample_fused_plain``) and the Philox kernel (``uniforms`` against
+``uniforms_plain``).  They skip without a card.  This file imports no JAX, so on a machine without JAX run it
 without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -12,8 +14,13 @@ import pytest
 import torch
 
 from ensem3a_openclraytracer_tpu_torch import testing as tt
+from ensem3a_openclraytracer_tpu_torch.models.pathtracer import _gather_surface
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
+from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
+from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +84,85 @@ def test_dispatch_and_stats(cuda):
     assert stagings > 0
     with pytest.raises(ValueError, match="contiguous"):
         ch.trace_blocks(g.feats, o.t().contiguous().t(), d)
+
+
+FUSED = {  # role -> (scene maker, expected blocks, sun, nee)
+    "cornell": (lambda dev: tt.make_cornell_scene(device=dev), 1, False, False),
+    "cornell_nee": (lambda dev: tt.make_cornell_scene(device=dev), 1, False, True),
+    "outdoor_47_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, device=dev), 47, True,
+                          False),
+}
+
+
+def _fused_inputs(make, dev, res=64):
+    """The engine's own per-sample arguments (``fused_args``, Morton-permuted
+    on multi-block scenes) for the camera's rays."""
+    g, m, e, c = make(dev)
+    o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, res, res)
+    h = ch.trace(g, o, d)
+    args, _ = fu.fused_args(g, m, e, o, d, h, _gather_surface(g, m, o, d, h))
+    return g, m, e, args
+
+
+def _image(out, e):
+    rad, esc_thr, esc_dir = out[:3]
+    return rad + esc_thr * sample_ibl(e.ibl, esc_dir) * e.ibl_power
+
+
+@pytest.mark.parametrize("role", sorted(FUSED))
+def test_fused_kernel_matches_plain(cuda, role):
+    make, blocks, sun, nee = FUSED[role]
+    g, m, e, args = _fused_inputs(make, cuda)
+    assert g.feats.block_bounds.shape[0] == blocks
+    n, mb = args[2].shape[0], 3
+    rng_ = np.random.default_rng(3)
+    u = torch.as_tensor(rng_.random((mb + 1, n, 5 if nee else 2)).astype(np.float32), device=cuda)
+    kw = dict(max_bounce=mb, sun_enabled=sun, uniforms=u, nee=nee,
+              lights=build_light_pack(g, m) if nee else None)
+    before = fu.LAUNCHES["sample_fused"]
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    k = _image(fu.sample_fused(*args, stats=stats, **kw), e)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES["sample_fused"] == before + 1
+    p = _image(fu.sample_fused_plain(*args, **kw), e)
+    assert bool(torch.isfinite(k).all())
+    diff = (k - p).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) < 0.02
+    assert float(diff.median()) < 1e-5
+    assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[2]) > 0
+
+
+def test_fused_record_matches_plain(cuda):
+    g, m, e, args = _fused_inputs(lambda dev: tt.make_outdoor_scene(n_cubes=100, device=dev), cuda)
+    key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(1), cuda)
+    kw = dict(max_bounce=3, sun_enabled=True, record=True)
+    k = fu.sample_fused(*args, key, 2, **kw)
+    p = fu.sample_fused_plain(*args, key, 2, **kw)
+    assert torch.equal(k[3], p[3])
+    for a, b in zip(k[4:], p[4:]):
+        assert float((a == b).float().mean()) >= 0.995
+
+
+def test_in_kernel_stream_matches_rng_kernel(cuda):
+    """The fused kernel's own Philox draws equal the RNG kernel's stream fed
+    in explicitly: the same paths, bit for bit."""
+    for make, _, sun, nee in FUSED.values():
+        g, m, e, args = _fused_inputs(make, cuda)
+        n, mb = args[2].shape[0], 3
+        key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(9), cuda)
+        kw = dict(max_bounce=mb, sun_enabled=sun, nee=nee,
+                  lights=build_light_pack(g, m) if nee else None)
+        own = fu.sample_fused(*args, key, 5, **kw)
+        u = rng.uniforms(key, (mb + 1, n, 5 if nee else 2), 5)
+        fed = fu.sample_fused(*args, uniforms=u, **kw)
+        for a, b in zip(own, fed):
+            assert torch.equal(a, b)
+
+
+def test_rng_kernel_bit_equal_to_plain(cuda):
+    key = torch.tensor([123456789, -987654321], dtype=torch.int32, device=cuda)
+    for shape, sample in (((1 << 20) + 3,), 0), ((5, 77, 5), 17), ((2,), 3):
+        before = rng.LAUNCHES["uniforms"]
+        k = rng.uniforms(key, shape, sample)
+        assert rng.LAUNCHES["uniforms"] == before + 1
+        assert torch.equal(k, rng.uniforms_plain(key, shape, sample))

@@ -110,16 +110,64 @@ def test_moller_trumbore_and_slabs():
                                   np.asarray(jg.aabb_hit(*map(J, (o, d, lo, hi)))))
 
 
-def test_triangle_sampling_and_hemispheres():
+def _sampling_draws():
+    """``(v0, v1, v2, u1, u2, n, rough)`` of the sampling test (numpy seed 6)."""
     rng = np.random.default_rng(6)
     v0, v1, v2 = (rng.normal(size=(N, 3)).astype(np.float32) for _ in range(3))
     u1, u2 = _u(rng, N), _u(rng, N)
+    return v0, v1, v2, u1, u2, _unit(rng, N), _u(rng, N)
+
+
+def _ndf_tolerance(h_port, h_ref, n, rough, d_ref):
+    """Per-element bound on ``|d_ndf(port) - d_ndf(JAX)|``.  d_ndf = a^2 /
+    (pi (1 - c^2 (1 - a^2))^2) multiplies the relative error of c = n.h by
+    cond = 4 c^2 (1 - a^2) / (1 - c^2 (1 - a^2)), so the bound is twice the
+    relative gap of c between the two half vectors, plus 2 ulp, times cond
+    (never tighter than ``atol = rtol = 1e-5``)."""
+    c = np.clip(np.sum(h_ref * n, axis=-1), 0.0, None)
+    c_port = np.clip(np.sum(h_port.astype(np.float64) * n, axis=-1), 0.0, None)
+    gap = np.abs(c_port - c) / np.maximum(c, 1e-30)
+    a2 = rough.astype(np.float64) ** 2
+    cond = 4 * c * c * (1 - a2) / (1 - c * c * (1 - a2))
+    return 1e-5 + np.maximum(1e-5, 2 * cond * (gap + 2 * 2.0 ** -24)) * np.abs(d_ref)
+
+
+def test_triangle_sampling_and_hemispheres():
+    v0, v1, v2, u1, u2, n, rough = _sampling_draws()
     _close(tg.sample_point_in_triangle(*map(T, (v0, v1, v2, u1, u2))),
            jg.sample_point_in_triangle(*map(J, (v0, v1, v2, u1, u2))))
     _close(tg.triangle_area(*map(T, (v0, v1, v2))), jg.triangle_area(*map(J, (v0, v1, v2))))
-    n = _unit(rng, N)
-    rough = _u(rng, N)
     for tf, jf, extra in ((ts.sample_hemisphere_cosine, js.sample_hemisphere_cosine, ()),
                           (ts.sample_hemisphere_uniform, js.sample_hemisphere_uniform, ()),
                           (ts.sample_ggx_half_vector, js.sample_ggx_half_vector, (rough,))):
-        _close(tf(*map(T, extra + (n, u1, u2))), jf(*map(J, extra + (n, u1, u2))), tf.__name__)
+        port, ref = tf(*map(T, extra + (n, u1, u2))), jf(*map(J, extra + (n, u1, u2)))
+        if tf is ts.sample_ggx_half_vector:
+            # sin = sqrt(1 - cos^2) near cos = 1 turns one ulp of cos into ~1e-4 of sin
+            h_ref, d_ref = np.asarray(ref[0]), np.asarray(ref[1])
+            np.testing.assert_allclose(port[0].numpy(), h_ref, atol=1e-4, rtol=1e-5,
+                                       err_msg=tf.__name__)
+            tol = _ndf_tolerance(port[0].numpy(), h_ref, n, rough, d_ref)
+            assert np.all(np.abs(port[1].numpy() - d_ref) <= tol), tf.__name__
+            continue
+        _close(port, ref, tf.__name__)
+
+
+if __name__ == "__main__":
+    # The reading behind the d_ndf bound (run on the CPU:
+    # JAX_PLATFORMS=cpu python tests/test_torch_ops.py)
+    _, _, _, u1, u2, n, rough = _sampling_draws()
+    h, d = (x.numpy() for x in ts.sample_ggx_half_vector(*map(T, (rough, n, u1, u2))))
+    h_ref, d_ref = (np.asarray(x) for x in js.sample_ggx_half_vector(*map(J, (rough, n, u1, u2))))
+    err, mag = np.abs(d - d_ref), np.abs(d_ref)
+    plain_tol = 1e-5 + 1e-5 * mag
+    tol = _ndf_tolerance(h, h_ref, n, rough, d_ref)
+    allow = (tol - 1e-5) / mag  # relative allowance, 1e-5 at the plain tolerance
+    worst = int(np.argmax(err / mag))
+    print(f"half vector: max |diff| {np.abs(h - h_ref).max():.3e}, "
+          f"{int((np.abs(h - h_ref) > 1e-5 + 1e-5 * np.abs(h_ref)).sum())} of {h.size} outside 1e-5")
+    print(f"d_ndf at atol = rtol = 1e-5: {int((err > plain_tol).sum())} of {N} outside; max "
+          f"relative error {err[worst] / mag[worst]:.4g} (roughness {rough[worst]:.4g}), max "
+          f"|diff| {err.max():.4g}")
+    print(f"conditioned bound: relative allowance median {np.median(allow):.3g}, 99th percentile "
+          f"{np.percentile(allow, 99):.3g}, max {allow.max():.3g}; {int((allow > 1e-4).sum())} of "
+          f"{N} above 1e-4; largest error / bound {(err / tol).max():.3f}")

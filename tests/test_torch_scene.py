@@ -136,9 +136,10 @@ def test_bvh_and_fused_raise():
         pack_geometry(mesh, use_bvh=True, device="cpu")
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_radiance(mesh_geom, *tt.make_cornell_scene(device="cpu")[1:], height=2, width=2,
-                        spp=1, max_bounce=0, fused=True)
+    # the fused engine is ported; it refuses what the JAX package's refuses
+    with pytest.raises(ValueError, match="fused=True"):
+        render_radiance(mesh_geom._replace(feats=None), *tt.make_cornell_scene(device="cpu")[1:],
+                        height=2, width=2, spp=1, max_bounce=0, fused=True)
 
 
 def test_cuda_request_without_card_raises():
@@ -154,6 +155,8 @@ def test_port_imports_without_jax():
         "ensem3a_openclraytracer_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
+    port_mods = ("models.pathtracer", "ops.closest_hit", "ops.fused", "ops.rng", "_build")
+    assert {"ensem3a_openclraytracer_tpu_torch." + m for m in port_mods} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
