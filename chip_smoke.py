@@ -39,7 +39,19 @@ and rendered at its ini settings with the default engine, on the card:
    version at 2^24 values, with its time, bound and the plain version's
    time;
 7. the same scene at the same settings with ``fused=True`` and with
-   ``fused=False`` (Cornell, outdoor_1000, outdoor_1300): render times.
+   ``fused=False`` (Cornell, outdoor_1000, outdoor_1300): render times;
+8. the grouped-pair prototype (``experiments/proto_grouped.trace_grouped``,
+   kernel ``grouped_pairs``) on outdoor_1300 (61 blocks) and outdoor_12500
+   (586 blocks), 65,536 rays built as the prototypes build them: one trace
+   with the launch counts set to 0 before it and read after it, the kernel
+   against its plain version and against ``trace_plain`` (phase 2's
+   bounds), then head to head with ``trace_blocks`` on the same rays: the
+   kernel alone, the whole trace (schedule included) and ``trace_blocks``
+   after ``coherent_order``, with the pairs tested per ray of each;
+9. the same for the pair-compaction prototype
+   (``experiments/proto_compact.trace_compact``, kernel ``pair_compact``,
+   one launch per round), with its rounds, live tiles per round and the
+   per-piece profile of its first round.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -150,18 +162,22 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FP32):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def reset_launches():
+def launch_counters():
+    from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact, proto_grouped
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, rng
 
-    for counts in (closest_hit.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES):
+    return (closest_hit.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES, proto_grouped.LAUNCHES,
+            proto_compact.LAUNCHES)
+
+
+def reset_launches():
+    for counts in launch_counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict:
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, rng
-
-    return {**closest_hit.LAUNCHES, **fused.LAUNCHES, **rng.LAUNCHES}
+    return {k: v for counts in launch_counters() for k, v in counts.items()}
 
 
 def role_rays(geom, cam, dev, seed: int, res: int = 512, n_bounce: int = 65536):
@@ -295,6 +311,7 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     else:
         expected = {"closest_hit": 1 + spp * (mb + 1 + int(sun)), "sample_fused": 0,
                     "uniforms": spp}
+    expected.update(grouped_pairs=0, pair_compact=0)  # the prototypes are off the render path
     mean = float(img.mean())
     check(tuple(img.shape) == (res, res, 3), f"{scn['name']}: image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), f"{scn['name']}: non-finite pixels")
@@ -582,6 +599,199 @@ def phase_fused_vs_scan(scn, scene):
                 scan_s=[d for d, _ in out[False]], pixel_forks=forks, mean_gap=mean_gap)
 
 
+PROTO_RAYS = 65536  # rays of the prototypes' own runs
+
+
+def hold(label: str, t, tri, hit, ref):
+    """Phase 2's bounds: ``tri`` and ``hit`` agree on >= 99.9 % of rays,
+    ``|dt| <= 1e-4 max(1, t)`` where ``tri`` agrees.  Returns (tri fork
+    fraction, hit fork fraction, max |dt| where tri agrees)."""
+    import torch
+
+    same = tri == ref.tri
+    tri_frac = float(same.float().mean())
+    hit_frac = float((hit == ref.hit).float().mean())
+    err = (t - ref.t).abs()[same]
+    bad_t = int((err > 1e-4 * torch.clamp(ref.t[same], min=1.0)).sum())
+    max_err = float(err.max()) if err.numel() else 0.0
+    log(f"{label}: tri forks {1 - tri_frac:.6f}, hit forks {1 - hit_frac:.6f}, t out of "
+        f"tolerance {bad_t}, max |dt| {max_err:.3e}")
+    check(tri_frac >= 0.999, f"{label}: tri agrees on {tri_frac:.6f} < 0.999")
+    check(hit_frac >= 0.999, f"{label}: hit agrees on {hit_frac:.6f} < 0.999")
+    check(bad_t == 0, f"{label}: {bad_t} rays with |dt| > 1e-4 max(1, t)")
+    return 1 - tri_frac, 1 - hit_frac, max_err
+
+
+def needed_pairs(feats, o, d, t, chunk: int = 8192) -> int:
+    """The (ray, triangle) pairs that a closest hit culled by triangle
+    block needs on these rays: for each ray, every triangle of each block
+    whose margined box it enters no farther than its closest hit ``t``
+    (every block it enters, for a miss).  A search must test them all to
+    prove its hit, whatever order it visits blocks in."""
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+
+    nb = feats.block_bounds.shape[0]
+    tile = feats.edges.shape[-1] // nb
+    blocks = 0
+    for i in range(0, o.shape[0], chunk):
+        entry = ch.block_entries(feats.block_bounds, o[i:i + chunk], d[i:i + chunk])
+        blocks += int((entry <= t[i:i + chunk, None]).sum())
+    return blocks * tile
+
+
+def proto_inputs(scn, dev, smi: str) -> dict:
+    """The scene, the prototypes' rays, ``trace_plain`` on them, the pairs
+    the closest hit needs on them (``needed_pairs``, which the bounds of
+    phases 8-9 count), and the production closest hit on them:
+    ``trace_blocks`` alone on rays sorted by ``coherent_order``, and
+    ``ops/closest_hit.trace`` (sort, kernel, unsort), with its pairs
+    tested."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.experiments import common
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+
+    g = scn["make"](dev)[0]
+    nb = g.feats.block_bounds.shape[0]
+    check(nb == scn["blocks"], f"{scn['name']}: {nb} blocks, want {scn['blocks']}")
+    o, d = common.bounce_rays(g, PROTO_RAYS)
+    ref, plain_ms = timed_once(lambda: ch.trace_plain(g.feats, o, d))
+    needed = needed_pairs(g.feats, o, d, ref.t)
+    order = ch.coherent_order(o, d)
+    o_s, d_s = o[order].contiguous(), d[order].contiguous()
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    ch.trace_blocks(g.feats, o_s, d_s, stats=stats)
+    pairs = int(stats[0])
+    blocks_ms = cuda_ms(lambda: ch.trace_blocks(g.feats, o_s, d_s), iters=scn["iters"])
+    trace_ms = cuda_ms(lambda: ch.trace(g, o, d), iters=scn["iters"])
+    log(f"[phase 8] {scn['name']} ({g.feats.num_tris} tris, {nb} blocks, {PROTO_RAYS} rays as the "
+        f"prototypes build them): trace_blocks kernel {blocks_ms:.4f} ms, ops/closest_hit.trace "
+        f"(coherent_order + kernel + unsort) {trace_ms:.4f} ms, pairs tested {pairs} "
+        f"({pairs / PROTO_RAYS:.1f} per ray), pairs needed {needed} ({needed / PROTO_RAYS:.1f} per "
+        f"ray), trace_plain {plain_ms:.1f} ms [{smi}]")
+    return dict(g=g, o=o, d=d, ref=ref, blocks_ms=blocks_ms, trace_ms=trace_ms,
+                blocks_pairs=pairs, needed_pairs=needed, trace_plain_ms=plain_ms)
+
+
+def phase_grouped(scn, inp, dev, smi: str) -> dict:
+    """Phase 8 on one scene: the grouped-pair trace once as a user calls
+    it (launch counts 0 before, read after), its kernel against its plain
+    version on the same schedule and against ``trace_plain``, then times."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.experiments import proto_grouped as pg
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+
+    g, o, d = inp["g"], inp["o"], inp["d"]
+    n, tp, name = o.shape[0], g.feats.edges.shape[-1], scn["name"]
+    reset_launches()
+    t, tri, hit, sched_pairs = pg.trace_grouped(g.feats, o, d)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["grouped_pairs"] == 1 and sum(launches.values()) == 1,
+          f"{name}: trace_grouped launches {launches}, want grouped_pairs once")
+    sched = pg.build_schedule(g.feats, o, d)
+    sorted_plain, plain_ms = timed_once(lambda: pg.grouped_pairs_plain(g.feats, sched))
+    forks = hold(f"[phase 8] {name} grouped kernel vs plain", t, tri, hit,
+                 ch.Hit(*pg.unsort(sched, *sorted_plain)))
+    hold(f"[phase 8] {name} grouped kernel vs trace_plain", t, tri, hit, inp["ref"])
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    pg.grouped_pairs(g.feats, sched, stats=stats)
+    pairs, stagings = (int(x) for x in stats.cpu())
+    ms = cuda_ms(lambda: pg.grouped_pairs(g.feats, sched), iters=scn["iters"])
+    schedule_ms = cuda_ms(lambda: pg.build_schedule(g.feats, o, d), iters=scn["iters"])
+    whole_ms = cuda_ms(lambda: pg.trace_grouped(g.feats, o, d), iters=scn["iters"])
+    tiles = sched.offsets.numel() - 1
+    flops = inp["needed_pairs"] * FLOPS_PER_PAIR  # the pairs the function needs, not those tested
+    nbytes = n * (24 + 8) + 4 * 25 * tp + 8 * int(sched_pairs) + 4 * (tiles + 1)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[phase 8] {name} grouped: kernel {ms:.4f} ms, schedule {schedule_ms:.4f} ms, whole "
+        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, ops/closest_hit.trace "
+        f"{inp['trace_ms']:.4f} ms; pairs per ray: grouped {pairs / n:.1f}, trace_blocks "
+        f"{inp['blocks_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; scheduled (tile, "
+        f"block) pairs {int(sched_pairs)} of {tiles * g.feats.block_bounds.shape[0]}, block stagings {stagings}; plain {plain_ms:.1f} "
+        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, {nbytes} bytes) [{smi}]")
+    return dict(
+        name=f"trace_grouped:{name}", route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/grouped_pairs.cu",
+        replaces="experiments/proto_grouped.py:49", launches=launches["grouped_pairs"],
+        max_abs_err=forks[2], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, rays=n, pairs_tested=pairs, pairs_per_ray=pairs / n,
+        pairs_needed=inp["needed_pairs"], block_stagings=stagings,
+        scheduled_pairs=int(sched_pairs), schedule_ms=schedule_ms,
+        trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"], closest_hit_trace_ms=inp["trace_ms"],
+        trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, tri_fork_fraction=forks[0],
+        hit_fork_fraction=forks[1],
+    )
+
+
+def phase_compact(scn, inp, dev, smi: str) -> dict:
+    """Phase 9 on one scene: the pair-compaction trace once as a user
+    calls it (launch counts 0 before, read after: one per round), its
+    kernel's keys against its plain version's on the same rounds' queues
+    and the result against ``trace_plain``, then times and the per-piece
+    profile of the first round."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact as pc
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+
+    g, o, d = inp["g"], inp["o"], inp["d"]
+    n, tp, name = o.shape[0], g.feats.edges.shape[-1], scn["name"]
+    queues = []
+    reset_launches()
+    t, tri, hit, rounds = pc.trace_compact(g.feats, o, d, queues=queues)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(rounds > 0 and launches["pair_compact"] == rounds and sum(launches.values()) == rounds,
+          f"{name}: trace_compact launches {launches}, want pair_compact once per round ({rounds})")
+    keys_p, plain_ms = timed_once(lambda: [pc.pair_compact_plain(g.feats, o, d, q) for q in queues])
+    best = torch.full((n + 1,), pc.NO_HIT_KEY, dtype=torch.int64, device=dev)
+    for q, k in zip(queues, keys_p):
+        pc.combine(best, k, q.queue_rid)
+    plain = ch._finish(pc.key_t(best[:n]), best[:n] & 0xFFFFFFFF)
+    forks = hold(f"[phase 9] {name} compact kernel vs plain", t, tri, hit, plain)
+    hold(f"[phase 9] {name} compact kernel vs trace_plain", t, tri, hit, inp["ref"])
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    buf = torch.empty(queues[0].queue_rid.numel(), dtype=torch.int64, device=dev)
+    for q in queues:
+        pc.pair_compact(g.feats, o, d, q, stats=stats, out=buf)
+    pairs, stagings = (int(x) for x in stats.cpu())
+    kernels_ms = cuda_ms(lambda: [pc.pair_compact(g.feats, o, d, q, out=buf) for q in queues],
+                         iters=scn["iters"])
+    whole_ms = cuda_ms(lambda: pc.trace_compact(g.feats, o, d), iters=scn["iters"])
+    live = [int(q.tile_live.sum()) for q in queues]
+    pieces = pc.profile(g.feats, o, d, runs=3)
+    slots, tiles = buf.numel(), queues[0].tile_blk.numel()
+    flops = inp["needed_pairs"] * FLOPS_PER_PAIR / rounds  # per launch, as ms is
+    nbytes = n * 24 + 4 * 25 * tp + 16 * slots + 8 * tiles
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[phase 9] {name} compact: {rounds} rounds, live tiles per round {live} of {tiles}; "
+        f"kernel {kernels_ms:.4f} ms over the rounds ({kernels_ms / rounds:.4f} per launch), whole "
+        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, ops/closest_hit.trace "
+        f"{inp['trace_ms']:.4f} ms; pairs per ray: compact {pairs / n:.1f}, trace_blocks "
+        f"{inp['blocks_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; block stagings {stagings}; plain {plain_ms:.1f} ms over "
+        f"the rounds; bound per launch {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
+        f"{nbytes} bytes) [{smi}]")
+    log(f"[phase 9] {name} compact first round, per piece: slab+sort {pieces['pre_ms']:.4f} ms, "
+        f"queue build {pieces['queue_ms']:.4f} ms, pair kernel {pieces['kernel_ms']:.4f} ms, "
+        f"combine {pieces['combine_ms']:.4f} ms; blocks entered per ray mean "
+        f"{pieces['counts_mean']:.2f}, max {pieces['counts_max']}")
+    return dict(
+        name=f"trace_compact:{name}", route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/pair_compact.cu",
+        replaces="experiments/proto_compact.py:68", launches=launches["pair_compact"],
+        max_abs_err=forks[2], ms=kernels_ms / rounds, plain_ms=plain_ms / rounds,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, rays=n, pairs_tested=pairs,
+        pairs_per_ray=pairs / n, pairs_needed=inp["needed_pairs"], block_stagings=stagings,
+        rounds=rounds, live_tiles=live,
+        tiles=tiles, kernel_ms_per_trace=kernels_ms, trace_ms=whole_ms,
+        trace_blocks_ms=inp["blocks_ms"], closest_hit_trace_ms=inp["trace_ms"],
+        trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, profile=pieces,
+        tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
+    )
+
+
 def main() -> int:
     import torch
 
@@ -665,6 +875,18 @@ def main() -> int:
 
     versus = [phase_fused_vs_scan(scn, loaded[scn["name"]]) for scn in scenes
               if scn["name"] in ("cornell", "outdoor_1000", "outdoor_1300")]
+
+    proto_scenes = [
+        dict(name="outdoor_1300", blocks=61, make=outdoor(1300), iters=5),
+        dict(name="outdoor_12500", blocks=586, make=outdoor(12500), iters=3),
+    ]
+    t8 = time.perf_counter()
+    inputs = [proto_inputs(scn, dev, smi) for scn in proto_scenes]
+    kernels += [phase_grouped(scn, inp, dev, smi) for scn, inp in zip(proto_scenes, inputs)]
+    t9 = time.perf_counter()
+    log(f"[phase 8] wall {t9 - t8:.1f} s")
+    kernels += [phase_compact(scn, inp, dev, smi) for scn, inp in zip(proto_scenes, inputs)]
+    log(f"[phase 9] wall {time.perf_counter() - t9:.1f} s")
 
     log(f"[summary] {json.dumps({'card': smi, 'renders': renders, 'fused_vs_scan': versus})}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")

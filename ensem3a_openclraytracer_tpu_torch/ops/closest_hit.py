@@ -121,6 +121,70 @@ def _finish(best_t: torch.Tensor, best_i: torch.Tensor) -> Hit:
     )
 
 
+def ray_features(ray_o: torch.Tensor, ray_d: torch.Tensor):
+    """``(r6, q4, d)``: ``[d, d x o]`` for the side tests, ``[o, 1]`` for
+    the plane distance, and ``d``, all f32 ``[..., 6 / 4 / 3]``."""
+    o = ray_o.to(torch.float32)
+    d = ray_d.to(torch.float32)
+    r6 = torch.cat([d, torch.linalg.cross(d, o, dim=-1)], dim=-1)
+    q4 = torch.cat([o, torch.ones_like(o[..., :1])], dim=-1)
+    return r6, q4, d
+
+
+def tri_t(r6, q4, d, edges, plane, normal_d) -> torch.Tensor:
+    """Hit distance of rays against triangles, ``[..., R, T]``, with
+    ``MAX_DIST`` where the ray misses: the exact f32 arithmetic that every
+    plain closest hit of the port shares.  Per ray ``r6 [..., R, 6]``,
+    ``q4 [..., R, 4]``, ``d [..., R, 3]`` (:func:`ray_features`); per
+    triangle ``edges [3, 6, ..., T]``, ``plane [4, ..., T]``, ``normal_d
+    [3, ..., T]``; the leading ``...`` broadcast.  Dot products are summed
+    term by term in index order, as the kernels do."""
+
+    def rowdot(lhs, rows):  # sum_k lhs[..., k] * rows[k] in index order
+        acc = lhs[..., 0, None] * rows[0][..., None, :]
+        for k in range(1, rows.shape[0]):
+            acc = acc + lhs[..., k, None] * rows[k][..., None, :]
+        return acc
+
+    w1 = rowdot(r6, edges[0])
+    w2 = rowdot(r6, edges[1])
+    w3 = rowdot(r6, edges[2])
+    inside = ((w1 >= 0) & (w2 >= 0) & (w3 >= 0)) | ((w1 <= 0) & (w2 <= 0) & (w3 <= 0))
+    den = rowdot(d, normal_d)
+    num = rowdot(q4, plane)
+    t = num / torch.where(den == 0.0, torch.ones_like(den), den)
+    valid = inside & (den != 0.0) & (t > MIN_HIT_DIST)
+    return torch.where(valid, t, torch.full_like(t, MAX_DIST))
+
+
+def block_entries(block_bounds: torch.Tensor, ray_o: torch.Tensor,
+                  ray_d: torch.Tensor) -> torch.Tensor:
+    """``[N, B]`` conservative entry distance of each ray into each
+    triangle block's box, grown by the margin in ``block_bounds[:, 6]``,
+    ``+inf`` where the grown box is missed or the block holds only
+    padding: the plain twin of ``block_entry`` in ``csrc/closest_hit.cuh``,
+    with the same operations in the same order, one axis at a time."""
+    tiny = 1e-12
+    d = torch.where(
+        torch.abs(ray_d) < tiny,
+        torch.where(ray_d < 0, torch.full_like(ray_d, -tiny), torch.full_like(ray_d, tiny)),
+        ray_d,
+    )
+    inv = 1.0 / d
+    lo, hi, eps = block_bounds[:, 0:3], block_bounds[:, 3:6], block_bounds[:, 6]
+    tmin = tmax = None
+    for k in range(3):
+        t1 = (lo[None, :, k] - ray_o[:, None, k]) * inv[:, None, k]
+        t2 = (hi[None, :, k] - ray_o[:, None, k]) * inv[:, None, k]
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    tmin = tmin - eps - 1e-6 * torch.abs(tmin)
+    tmax = tmax + eps + 1e-6 * torch.abs(tmax)
+    hit = (tmax >= tmin) & (tmax >= 0.0) & (lo[:, 0] <= hi[:, 0])
+    return torch.where(hit, torch.clamp(tmin, min=0.0), torch.full_like(tmin, float("inf")))
+
+
 def trace_plain(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
                 tri_tile: int | None = None) -> Hit:
     """The exact f32 scan (the JAX package's ``trace_mxu``): every ray
@@ -130,33 +194,16 @@ def trace_plain(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     version and the CPU engine."""
     n = ray_o.shape[0]
     dev = ray_o.device
-    o = ray_o.to(torch.float32)
-    d = ray_d.to(torch.float32)
-    r6 = torch.cat([d, torch.linalg.cross(d, o, dim=-1)], dim=-1)  # [N, 6]
-    q4 = torch.cat([o, torch.ones_like(o[:, :1])], dim=-1)  # [N, 4]
+    r6, q4, d = ray_features(ray_o, ray_d)
     tp = feats.edges.shape[-1]
     if tri_tile is None:
         tri_tile = max(128, min(2048, (1 << 24) // max(n, 1)))
-
-    def rowdot(lhs, rows):  # sum_k lhs[:, k] * rows[k] in index order
-        acc = lhs[:, 0:1] * rows[0]
-        for k in range(1, rows.shape[0]):
-            acc = acc + lhs[:, k:k + 1] * rows[k]
-        return acc
 
     best_t = torch.full((n,), MAX_DIST, dtype=torch.float32, device=dev)
     best_i = torch.zeros((n,), dtype=torch.int64, device=dev)
     for base in range(0, tp, tri_tile):
         sl = slice(base, min(base + tri_tile, tp))
-        w1 = rowdot(r6, feats.edges[0, :, sl])
-        w2 = rowdot(r6, feats.edges[1, :, sl])
-        w3 = rowdot(r6, feats.edges[2, :, sl])
-        inside = ((w1 >= 0) & (w2 >= 0) & (w3 >= 0)) | ((w1 <= 0) & (w2 <= 0) & (w3 <= 0))
-        den = rowdot(d, feats.normal_d[:, sl])
-        num = rowdot(q4, feats.plane[:, sl])
-        t = num / torch.where(den == 0.0, torch.ones_like(den), den)
-        valid = inside & (den != 0.0) & (t > MIN_HIT_DIST)
-        t = torch.where(valid, t, torch.full_like(t, MAX_DIST))
+        t = tri_t(r6, q4, d, feats.edges[:, :, sl], feats.plane[:, sl], feats.normal_d[:, sl])
         tmin, arg = torch.min(t, dim=1)
         better = tmin < best_t
         best_t = torch.where(better, tmin, best_t)
@@ -227,6 +274,21 @@ def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype, dev) -> No
         )
 
 
+def check_features(feats: TriFeatures, dev: torch.device) -> Tuple[int, int, int]:
+    """``(tp, tile, nb)`` of features that a closest-hit kernel can take on
+    ``dev`` (contiguous f32, whole triangle blocks); raises otherwise."""
+    tp = feats.edges.shape[-1]
+    nb = feats.block_bounds.shape[0]
+    tile = min(TRI_TILE, tp)
+    if nb * tile != tp:
+        raise ValueError(f"feature width {tp} is not {nb} blocks of {tile}")
+    _check(feats.edges, "edges", (3, 6, tp), torch.float32, dev)
+    _check(feats.plane, "plane", (4, tp), torch.float32, dev)
+    _check(feats.normal_d, "normal_d", (3, tp), torch.float32, dev)
+    _check(feats.block_bounds, "block_bounds", (nb, 8), torch.float32, dev)
+    return tp, tile, nb
+
+
 def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
                  stats: torch.Tensor | None = None):
     """Closest hit ``(t [N] f32, tri [N] int32)`` through the CUDA kernel
@@ -241,22 +303,15 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
         raise ValueError(f"trace_blocks runs on cuda or cpu, not {ray_o.device}")
     dev = ray_o.device
     n = ray_o.shape[0]
-    tp = feats.edges.shape[-1]
     nb = feats.block_bounds.shape[0]
-    tile = min(TRI_TILE, tp)
     if nb > MAX_KERNEL_BLOCKS:
         raise ValueError(
             f"{nb} triangle blocks exceed the kernel's shared-memory visit list "
             f"({MAX_KERNEL_BLOCKS} blocks)"
         )
-    if nb * tile != tp:
-        raise ValueError(f"feature width {tp} is not {nb} blocks of {tile}")
+    tp, tile, nb = check_features(feats, dev)
     _check(ray_o, "ray_o", (n, 3), torch.float32, dev)
     _check(ray_d, "ray_d", (n, 3), torch.float32, dev)
-    _check(feats.edges, "edges", (3, 6, tp), torch.float32, dev)
-    _check(feats.plane, "plane", (4, tp), torch.float32, dev)
-    _check(feats.normal_d, "normal_d", (3, tp), torch.float32, dev)
-    _check(feats.block_bounds, "block_bounds", (nb, 8), torch.float32, dev)
     if stats is not None:
         _check(stats, "stats", (2,), torch.int64, dev)
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)

@@ -51,10 +51,10 @@ from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
 )
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
     MAX_KERNEL_BLOCKS,
-    TRI_TILE,
     TriFeatures,
     _check,
     _expand_bits_10,
+    check_features,
     trace_plain,
 )
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sun_direction
@@ -290,24 +290,17 @@ def sample_fused(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mt
         raise ValueError(f"sample_fused runs on cuda or cpu, not {dev}")
     n = primary_p.shape[0]
     n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n)
-    tp = feats.edges.shape[-1]
-    nb = feats.block_bounds.shape[0]
-    tile = min(TRI_TILE, tp)
-    if nb > MAX_KERNEL_BLOCKS:
-        raise ValueError(f"{nb} triangle blocks exceed the kernel's visit list "
-                         f"({MAX_KERNEL_BLOCKS} blocks)")
-    if nb * tile != tp:
-        raise ValueError(f"feature width {tp} is not {nb} blocks of {tile}")
+    if feats.block_bounds.shape[0] > MAX_KERNEL_BLOCKS:
+        raise ValueError(f"{feats.block_bounds.shape[0]} triangle blocks exceed the kernel's "
+                         f"visit list ({MAX_KERNEL_BLOCKS} blocks)")
+    tp, tile, nb = check_features(feats, dev)
     f32, i32 = torch.float32, torch.int32
     sun_dir, sun_power = sun_dir.reshape(3), sun_power.reshape(1)
     for x, name, shape, dt in (
         (primary_p, "primary_p", (n, 3), f32), (primary_n, "primary_n", (n, 3), f32),
         (primary_mtype, "primary_mtype", (n,), i32), (primary_color, "primary_color", (n, 3), f32),
         (primary_rough, "primary_rough", (n,), f32), (primary_live, "primary_live", (n,), torch.bool),
-        (in_dir, "in_dir", (n, 3), f32), (feats.edges, "edges", (3, 6, tp), f32),
-        (feats.plane, "plane", (4, tp), f32), (feats.normal_d, "normal_d", (3, tp), f32),
-        (feats.block_bounds, "block_bounds", (nb, 8), f32),
-        (tri_attrs, "tri_attrs", (tp, N_ATTR), f32),
+        (in_dir, "in_dir", (n, 3), f32), (tri_attrs, "tri_attrs", (tp, N_ATTR), f32),
         (sun_dir, "sun_dir", (3,), f32), (sun_power, "sun_power", (1,), f32),
     ):
         _check(x, name, shape, dt, dev)

@@ -2,8 +2,9 @@
 on the card: the closest-hit kernel (``trace_blocks`` against
 ``trace_plain``) in each of its three roles (1, 61 and 586 triangle
 blocks), the fused sample kernel (``sample_fused`` against
-``sample_fused_plain``) and the Philox kernel (``uniforms`` against
-``uniforms_plain``).  They skip without a card.  This file imports no JAX, so on a machine without JAX run it
+``sample_fused_plain``), the Philox kernel (``uniforms`` against
+``uniforms_plain``) and the two prototype closest-hit kernels
+(``trace_grouped`` and ``trace_compact`` against their plain versions).  They skip without a card.  This file imports no JAX, so on a machine without JAX run it
 without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -14,6 +15,9 @@ import pytest
 import torch
 
 from ensem3a_openclraytracer_tpu_torch import testing as tt
+from ensem3a_openclraytracer_tpu_torch.experiments import common
+from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact as pc
+from ensem3a_openclraytracer_tpu_torch.experiments import proto_grouped as pg
 from ensem3a_openclraytracer_tpu_torch.models.pathtracer import _gather_surface
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
@@ -166,3 +170,42 @@ def test_rng_kernel_bit_equal_to_plain(cuda):
         k = rng.uniforms(key, shape, sample)
         assert rng.LAUNCHES["uniforms"] == before + 1
         assert torch.equal(k, rng.uniforms_plain(key, shape, sample))
+
+
+def _agree(t, tri, hit, ref):
+    same = tri == ref.tri
+    assert float(same.float().mean()) >= 0.999
+    assert float((hit == ref.hit).float().mean()) >= 0.999
+    err = (t - ref.t).abs()[same]
+    assert bool((err <= 1e-4 * torch.clamp(ref.t[same], min=1.0)).all())
+
+
+def test_grouped_kernel_matches_plain(cuda):
+    g = tt.make_outdoor_scene(n_cubes=100, device=cuda)[0]
+    o, d = common.bounce_rays(g, 8192, seed=2)
+    before = pg.LAUNCHES["grouped_pairs"]
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    t, tri, hit, pairs = pg.trace_grouped(g.feats, o, d, stats=stats)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES["grouped_pairs"] == before + 1
+    ref = pg.trace_grouped(g.feats, o, d, engine="plain")
+    assert pg.LAUNCHES["grouped_pairs"] == before + 1
+    assert int(pairs) == int(ref[3]) > 0
+    _agree(t, tri, hit, ch.Hit(*ref[:3]))
+    _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
+    assert 0 < int(stats[0]) <= 8192 * g.feats.edges.shape[-1] and int(stats[1]) > 0
+
+
+def test_compact_kernel_matches_plain(cuda):
+    g = tt.make_outdoor_scene(n_cubes=100, device=cuda)[0]
+    o, d = common.bounce_rays(g, 8192, seed=3)
+    before = pc.LAUNCHES["pair_compact"]
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    t, tri, hit, rounds = pc.trace_compact(g.feats, o, d, stats=stats)
+    torch.cuda.synchronize()
+    assert rounds > 0 and pc.LAUNCHES["pair_compact"] == before + rounds
+    ref = pc.trace_compact(g.feats, o, d, engine="plain")
+    assert ref[3] == rounds and pc.LAUNCHES["pair_compact"] == before + rounds
+    _agree(t, tri, hit, ch.Hit(*ref[:3]))
+    _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
+    assert 0 < int(stats[0]) <= 8192 * g.feats.edges.shape[-1] and int(stats[1]) > 0

@@ -155,13 +155,15 @@ def test_port_imports_without_jax():
         "ensem3a_openclraytracer_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
-    port_mods = ("models.pathtracer", "ops.closest_hit", "ops.fused", "ops.rng", "_build")
+    port_mods = ("models.pathtracer", "ops.closest_hit", "ops.fused", "ops.rng", "_build",
+                 "experiments.common", "experiments.proto_grouped",
+                 "experiments.proto_compact")
     assert {"ensem3a_openclraytracer_tpu_torch." + m for m in port_mods} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.split('.')[0] == 'ensem3a_openclraytracer_tpu']\n"
+        " or m.split('.')[0] in ('ensem3a_openclraytracer_tpu', 'experiments')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -174,7 +176,8 @@ def test_port_imports_without_jax():
 
 def test_port_sources_never_name_the_jax_package():
     pat = ("import ensem3a_openclraytracer_tpu\n", "import ensem3a_openclraytracer_tpu.",
-           "from ensem3a_openclraytracer_tpu ", "from ensem3a_openclraytracer_tpu.", "import jax")
+           "from ensem3a_openclraytracer_tpu ", "from ensem3a_openclraytracer_tpu.", "import jax",
+           "from experiments", "import experiments")
     files = list(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
     for p in files:
         text = p.read_text()
