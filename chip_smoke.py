@@ -9,19 +9,20 @@ and rendered at its ini settings with the default engine, on the card:
 
 1. environment and build: the card's name and power limit, versions, and
    the kernels' build time and ``-Xptxas -v`` report;
-2. closest-hit kernel against plain, once per role (1, 61 and 586
-   triangle blocks): ``trace_blocks`` against ``trace_plain`` on the same
-   512^2 primary rays plus 65,536 bounce rays, with times, the (ray,
-   triangle) pairs tested and the least time the card could take;
+2. block-culled closest-hit kernel against plain, once per role (1, 61
+   and 586 triangle blocks): ``trace_blocks`` against ``trace_plain`` on
+   the same 512^2 primary rays plus 65,536 bounce rays, with times, the
+   (ray, triangle) pairs tested and needed, and the least time the card
+   could take (from the needed pairs);
 3. the main path at full size: ``Scene.load`` -> ``render_scene`` on five
    renders.  Cornell (1 block), Cornell with NEE and outdoor_1000 (47
-   blocks) take the fused engine (``closest_hit`` launched once for the
-   primary trace, ``sample_fused`` once per sample); outdoor_1300 (61
-   blocks) and outdoor_12500 (586 blocks) take the scan estimator
-   (``closest_hit`` per trace, ``uniforms`` once per sample).  The launch
-   counts are set to 0 before each render and checked after it; one more
-   render of each is traced with ``torch.profiler`` (kernel time by name,
-   device idle share);
+   blocks) take the fused engine (one primary trace, by ``closest_hit``
+   on one block and by ``pairs`` on more; ``sample_fused`` once per
+   sample); outdoor_1300 (61 blocks) and outdoor_12500 (586 blocks) take
+   the scan estimator (``pairs`` per trace, ``uniforms`` once per
+   sample).  The launch counts are set to 0 before each render and
+   checked after it; one more render of each is traced with
+   ``torch.profiler`` (kernel time by name, device idle share);
 4. the same explicit random stream through the scan path with the kernel
    and with the plain scan on the card, at 64^2, 2 spp, 3 bounces: pixel
    forks below 2 %;
@@ -51,7 +52,17 @@ and rendered at its ini settings with the default engine, on the card:
 9. the same for the pair-compaction prototype
    (``experiments/proto_compact.trace_compact``, kernel ``pair_compact``,
    one launch per round), with its rounds, live tiles per round and the
-   per-piece profile of its first round.
+   per-piece profile of its first round;
+10. the block-queue closest hit (``ops/pairs.trace_pairs``, kernel
+   ``pairs``, one cooperative launch per trace) in roles #3 and #4, on
+   phase 2's rays and at each render's own trace shape (262,144 bounce
+   rays on outdoor_1300, 65,536 on outdoor_12500): against
+   ``trace_plain`` at phase 2's bounds, forks against ``trace_blocks``,
+   counts equal to its plain version's, two runs equal, one trace under
+   ``set_sync_debug_mode("error")`` (no host sync), times beside
+   ``trace_blocks`` and the sorted ``trace_blocks`` path, k = 4 beside
+   k = 8, pairs tested against needed, rounds, bound from the needed
+   pairs.  Phases 8-9 also time it on the prototypes' rays.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -164,10 +175,10 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FP32):
 
 def launch_counters():
     from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact, proto_grouped
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, rng
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, pairs, rng
 
-    return (closest_hit.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES, proto_grouped.LAUNCHES,
-            proto_compact.LAUNCHES)
+    return (closest_hit.LAUNCHES, pairs.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES,
+            proto_grouped.LAUNCHES, proto_compact.LAUNCHES)
 
 
 def reset_launches():
@@ -241,21 +252,25 @@ def phase_kernel_vs_plain(role, dev):
     ms = cuda_ms(lambda: ch.trace_blocks(g.feats, o, d), iters=role["iters"])
     plain_ms = cuda_ms(lambda: ch.trace_plain(g.feats, o, d), iters=2)
     tp = g.feats.edges.shape[-1]
-    flops = (pairs * FLOPS_PER_PAIR + n * nb * FLOPS_PER_SLAB
-             + stagings * RAYS_PER_CTA * FLOPS_PER_SLAB)
+    needed = needed_pairs(g.feats, o, d, ref.t)
     nbytes = n * (24 + 8) + 4 * 25 * tp + 32 * nb
-    bound_ms, bound_by = bound(flops, nbytes)
+    # the bound counts the pairs the closest hit needs (as phases 8-10 do); the
+    # bound from the pairs this kernel chose to test, and its slab tests, beside it
+    bound_ms, bound_by = bound(needed * FLOPS_PER_PAIR, nbytes)
+    tested_bound_ms = bound(pairs * FLOPS_PER_PAIR + n * nb * FLOPS_PER_SLAB
+                            + stagings * RAYS_PER_CTA * FLOPS_PER_SLAB, nbytes)[0]
     log(f"[phase 2] {role['name']}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"pairs tested {pairs} ({pairs / n:.1f} per ray, {pairs / (n * tp):.4f} of all), "
-        f"block stagings {stagings}, bound {bound_ms:.4f} ms "
-        f"({flops:.3e} FP32 ops, {nbytes} bytes)")
+        f"needed {needed} ({needed / n:.1f} per ray), block stagings {stagings}, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({needed * FLOPS_PER_PAIR:.3e} FP32 ops on the needed "
+        f"pairs, {nbytes} bytes); from the pairs tested and slab tests {tested_bound_ms:.4f} ms")
     return dict(
         name=role["name"], route="cuda",
         source="ensem3a_openclraytracer_tpu_torch/csrc/closest_hit.cu",
         replaces=role["replaces"], launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        rays=n, pairs_tested=pairs, tri_fork_fraction=1 - tri_frac,
-        hit_fork_fraction=1 - hit_frac,
+        rays=n, pairs_tested=pairs, pairs_needed=needed, bound_tested_ms=tested_bound_ms,
+        tri_fork_fraction=1 - tri_frac, hit_fork_fraction=1 - hit_frac,
     )
 
 
@@ -291,6 +306,7 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import FUSED_MAX_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
 
     res, spp, mb = scn["render"]
     scene, load_s = load_scene(scn, dev, workdir)
@@ -306,12 +322,15 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     img, dt = timed_render(scene, ov)
     launches = read_launches()
 
+    # every trace of a multi-block scene goes through the pairs kernel, of a
+    # one-block scene through closest_hit
+    hit_kernel = "pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit"
     if fused:
-        expected = {"closest_hit": 1, "sample_fused": spp, "uniforms": 0}
+        expected = {hit_kernel: 1, "sample_fused": spp, "uniforms": 0}
     else:
-        expected = {"closest_hit": 1 + spp * (mb + 1 + int(sun)), "sample_fused": 0,
-                    "uniforms": spp}
-    expected.update(grouped_pairs=0, pair_compact=0)  # the prototypes are off the render path
+        expected = {hit_kernel: 1 + spp * (mb + 1 + int(sun)), "sample_fused": 0, "uniforms": spp}
+    expected = {"closest_hit": 0, "pairs": 0, "grouped_pairs": 0, "pair_compact": 0,
+                **expected}  # the prototypes are off the render path
     mean = float(img.mean())
     check(tuple(img.shape) == (res, res, 3), f"{scn['name']}: image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), f"{scn['name']}: non-finite pixels")
@@ -329,7 +348,9 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     return scene, info
 
 
-KERNEL_GROUPS = ("closest_hit", "fused_sample", "uniforms")
+# kernel-name substrings of the port's kernels in a profile: the two closest
+# hits, the fused sample, the RNG
+KERNEL_GROUPS = ("closest_hit", "::pairs_kernel", "fused_sample", "uniforms")
 
 
 def phase_profile(scene, name: str, overrides: dict) -> dict:
@@ -376,8 +397,13 @@ def phase_profile(scene, name: str, overrides: dict) -> dict:
     out = dict(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=1 - busy / wall_us, other_kernels_ms=other_us / 1e3)
     for g, v in group_us.items():
+        g = g.strip(":")
         out[f"{g}_ms"] = v / 1e3
         out[f"{g}_share"] = v / total_us
+    hit_us = group_us["closest_hit"] + group_us["::pairs_kernel"]
+    out["closest_hit_all_share"] = hit_us / total_us  # both closest-hit kernels
+    log(f"[phase 3] {name}: closest-hit kernels {hit_us / 1e3:.1f} ms = {hit_us / total_us:.3f} "
+        "of device time")
     return out
 
 
@@ -385,7 +411,6 @@ def phase_same_stream(role, dev):
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 
     res, spp, mb = SMOKE_TRIES
     g, m, e, c = role["make"](dev)
@@ -393,9 +418,11 @@ def phase_same_stream(role, dev):
     u = torch.as_tensor(rng.random(size=(spp, mb + 1, res * res, 2), dtype=np.float64)
                         .astype(np.float32), device=dev)
     kw = dict(height=res, width=res, spp=spp, max_bounce=mb, sun_enabled=role["sun"], uniforms=u)
-    before = ch.LAUNCHES["closest_hit"]
+    before = read_launches()
     img_k = render_radiance(g, m, e, c, engine="kernel", **kw)
-    check(ch.LAUNCHES["closest_hit"] > before, f"{role['scene']}: kernel path made no launch")
+    after = read_launches()
+    check(after["closest_hit"] + after["pairs"] > before["closest_hit"] + before["pairs"],
+          f"{role['scene']}: kernel path made no closest-hit launch")
     img_p = render_radiance(g, m, e, c, engine="plain", **kw)
     torch.cuda.synchronize()
     diff = (img_k - img_p).abs().amax(dim=-1)
@@ -639,17 +666,36 @@ def needed_pairs(feats, o, d, t, chunk: int = 8192) -> int:
     return blocks * tile
 
 
+def sorted_blocks_trace(feats, o, d):
+    """``trace_blocks`` on the rays sorted by ``coherent_order``, scattered
+    back: the multi-block path of ``ops/closest_hit.trace`` before it took
+    ``trace_pairs``."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+
+    order = ch.coherent_order(o, d)
+    t_s, tri_s = ch.trace_blocks(feats, o[order].contiguous(), d[order].contiguous())
+    t = torch.empty_like(t_s)
+    t[order] = t_s
+    tri = torch.empty_like(tri_s)
+    tri[order] = tri_s
+    return t, tri
+
+
 def proto_inputs(scn, dev, smi: str) -> dict:
     """The scene, the prototypes' rays, ``trace_plain`` on them, the pairs
     the closest hit needs on them (``needed_pairs``, which the bounds of
-    phases 8-9 count), and the production closest hit on them:
-    ``trace_blocks`` alone on rays sorted by ``coherent_order``, and
-    ``ops/closest_hit.trace`` (sort, kernel, unsort), with its pairs
-    tested."""
+    phases 8-9 count), and the closest hits they are held against:
+    ``trace_blocks`` alone on rays sorted by ``coherent_order``, that path
+    whole (:func:`sorted_blocks_trace`: sort, kernel, unsort), with its
+    pairs tested, and ``ops/pairs.trace_pairs`` (what ``ops/closest_hit.trace``
+    runs on these scenes), held to phase 2's bounds against ``trace_plain``."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.experiments import common
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+    from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
 
     g = scn["make"](dev)[0]
     nb = g.feats.block_bounds.shape[0]
@@ -663,14 +709,22 @@ def proto_inputs(scn, dev, smi: str) -> dict:
     ch.trace_blocks(g.feats, o_s, d_s, stats=stats)
     pairs = int(stats[0])
     blocks_ms = cuda_ms(lambda: ch.trace_blocks(g.feats, o_s, d_s), iters=scn["iters"])
-    trace_ms = cuda_ms(lambda: ch.trace(g, o, d), iters=scn["iters"])
+    trace_ms = cuda_ms(lambda: sorted_blocks_trace(g.feats, o, d), iters=scn["iters"])
+    pstats = torch.zeros(4, dtype=torch.int64, device=dev)
+    h = pp.trace_pairs(g.feats, o, d, stats=pstats)
+    forks = hold(f"[phase 8] {scn['name']} trace_pairs vs trace_plain", h.t, h.tri, h.hit, ref)
+    pairs_ms = cuda_ms(lambda: pp.trace_pairs(g.feats, o, d), iters=scn["iters"])
+    p_pairs, p_stagings, p_rounds, _ = (int(x) for x in pstats.cpu())
     log(f"[phase 8] {scn['name']} ({g.feats.num_tris} tris, {nb} blocks, {PROTO_RAYS} rays as the "
-        f"prototypes build them): trace_blocks kernel {blocks_ms:.4f} ms, ops/closest_hit.trace "
+        f"prototypes build them): trace_blocks kernel {blocks_ms:.4f} ms, sorted trace_blocks path "
         f"(coherent_order + kernel + unsort) {trace_ms:.4f} ms, pairs tested {pairs} "
-        f"({pairs / PROTO_RAYS:.1f} per ray), pairs needed {needed} ({needed / PROTO_RAYS:.1f} per "
-        f"ray), trace_plain {plain_ms:.1f} ms [{smi}]")
+        f"({pairs / PROTO_RAYS:.1f} per ray); trace_pairs {pairs_ms:.4f} ms, pairs tested "
+        f"{p_pairs / PROTO_RAYS:.1f} per ray, {p_rounds} rounds, {p_stagings} block stagings; pairs "
+        f"needed {needed} ({needed / PROTO_RAYS:.1f} per ray), trace_plain {plain_ms:.1f} ms [{smi}]")
     return dict(g=g, o=o, d=d, ref=ref, blocks_ms=blocks_ms, trace_ms=trace_ms,
-                blocks_pairs=pairs, needed_pairs=needed, trace_plain_ms=plain_ms)
+                blocks_pairs=pairs, needed_pairs=needed, trace_plain_ms=plain_ms,
+                pairs_ms=pairs_ms, pairs_pairs=p_pairs, pairs_rounds=p_rounds,
+                pairs_tri_fork_fraction=forks[0])
 
 
 def phase_grouped(scn, inp, dev, smi: str) -> dict:
@@ -706,9 +760,10 @@ def phase_grouped(scn, inp, dev, smi: str) -> dict:
     nbytes = n * (24 + 8) + 4 * 25 * tp + 8 * int(sched_pairs) + 4 * (tiles + 1)
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"[phase 8] {name} grouped: kernel {ms:.4f} ms, schedule {schedule_ms:.4f} ms, whole "
-        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, ops/closest_hit.trace "
-        f"{inp['trace_ms']:.4f} ms; pairs per ray: grouped {pairs / n:.1f}, trace_blocks "
-        f"{inp['blocks_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; scheduled (tile, "
+        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, sorted trace_blocks path "
+        f"{inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: grouped "
+        f"{pairs / n:.1f}, trace_blocks {inp['blocks_pairs'] / n:.1f}, trace_pairs "
+        f"{inp['pairs_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; scheduled (tile, "
         f"block) pairs {int(sched_pairs)} of {tiles * g.feats.block_bounds.shape[0]}, block stagings {stagings}; plain {plain_ms:.1f} "
         f"ms; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, {nbytes} bytes) [{smi}]")
     return dict(
@@ -719,7 +774,8 @@ def phase_grouped(scn, inp, dev, smi: str) -> dict:
         library_ms=None, rays=n, pairs_tested=pairs, pairs_per_ray=pairs / n,
         pairs_needed=inp["needed_pairs"], block_stagings=stagings,
         scheduled_pairs=int(sched_pairs), schedule_ms=schedule_ms,
-        trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"], closest_hit_trace_ms=inp["trace_ms"],
+        trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"], sorted_blocks_trace_ms=inp["trace_ms"],
+        trace_pairs_ms=inp["pairs_ms"], trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
         trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, tri_fork_fraction=forks[0],
         hit_fork_fraction=forks[1],
     )
@@ -768,9 +824,11 @@ def phase_compact(scn, inp, dev, smi: str) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"[phase 9] {name} compact: {rounds} rounds, live tiles per round {live} of {tiles}; "
         f"kernel {kernels_ms:.4f} ms over the rounds ({kernels_ms / rounds:.4f} per launch), whole "
-        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, ops/closest_hit.trace "
-        f"{inp['trace_ms']:.4f} ms; pairs per ray: compact {pairs / n:.1f}, trace_blocks "
-        f"{inp['blocks_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; block stagings {stagings}; plain {plain_ms:.1f} ms over "
+        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, sorted trace_blocks path "
+        f"{inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: compact "
+        f"{pairs / n:.1f}, trace_blocks {inp['blocks_pairs'] / n:.1f}, trace_pairs "
+        f"{inp['pairs_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; block stagings "
+        f"{stagings}; plain {plain_ms:.1f} ms over "
         f"the rounds; bound per launch {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
         f"{nbytes} bytes) [{smi}]")
     log(f"[phase 9] {name} compact first round, per piece: slab+sort {pieces['pre_ms']:.4f} ms, "
@@ -786,10 +844,103 @@ def phase_compact(scn, inp, dev, smi: str) -> dict:
         pairs_per_ray=pairs / n, pairs_needed=inp["needed_pairs"], block_stagings=stagings,
         rounds=rounds, live_tiles=live,
         tiles=tiles, kernel_ms_per_trace=kernels_ms, trace_ms=whole_ms,
-        trace_blocks_ms=inp["blocks_ms"], closest_hit_trace_ms=inp["trace_ms"],
+        trace_blocks_ms=inp["blocks_ms"], sorted_blocks_trace_ms=inp["trace_ms"],
+        trace_pairs_ms=inp["pairs_ms"], trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
         trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, profile=pieces,
         tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
     )
+
+
+def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
+    """Phase 10 on one role: ``ops/pairs.trace_pairs`` (the block-queue
+    kernel that ``ops/closest_hit.trace`` runs on multi-block scenes) on
+    phase 2's rays and on as many bounce rays as the role's render traces
+    at once (res^2, leaving random primary hits): held against
+    ``trace_plain`` at phase 2's bounds, its forks against
+    ``trace_blocks``, its counts against its plain version's (phase 2's
+    rays), one trace under ``torch.cuda.set_sync_debug_mode("error")``, its
+    time beside ``trace_blocks`` and the sorted ``trace_blocks`` path, with
+    k = 4 beside the default, pairs tested against ``needed_pairs``,
+    rounds, and a bound from the needed pairs."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+    from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
+
+    g, _, _, c = role["make"](dev)
+    feats, name = g.feats, role["name"]
+    nb, tp = feats.block_bounds.shape[0], feats.edges.shape[-1]
+    res = role["render_res"]
+    o2, d2 = role_rays(g, c, dev, seed=nb)
+    ob, db = role_rays(g, c, dev, seed=nb + 1, res=res, n_bounce=res * res)
+    shapes = {"phase2": (o2, d2), "render": (ob[res * res:].contiguous(), db[res * res:].contiguous())}
+    grid = pp.kernel_grid(pp.K)
+    out = dict(name=f"pairs:{name.split(':')[1]}", route="cuda",
+               source="ensem3a_openclraytracer_tpu_torch/csrc/pairs.cu", replaces=role["replaces"],
+               launches=0, library_ms=None, k=pp.K, grid=grid)
+    for label, (o, d) in shapes.items():
+        n = o.shape[0]
+        ref = ch.trace_plain(feats, o, d)
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        h = pp.trace_pairs(feats, o, d, stats=stats)
+        torch.cuda.synchronize()
+        forks = hold(f"[phase 10] {name} trace_pairs vs trace_plain, {label} shape ({n} rays)",
+                     h.t, h.tri, h.hit, ref)
+        t_b, tri_b = ch.trace_blocks(feats, o, d)
+        vs_blocks = (float((h.tri != tri_b.long()).float().mean()),
+                     float((h.hit != (t_b < ch.MISS_T)).float().mean()))
+        again = pp.trace_pairs(feats, o, d)
+        check(torch.equal(again.t, h.t) and torch.equal(again.tri, h.tri),
+              f"{name}: two trace_pairs runs differ at the {label} shape")
+        pairs, stagings, rounds, slabs = (int(x) for x in stats.cpu())
+        needed = needed_pairs(feats, o, d, ref.t)
+        ms = cuda_ms(lambda: pp.trace_pairs(feats, o, d), iters=role["iters"])
+        k4_ms = cuda_ms(lambda: pp.trace_pairs(feats, o, d, k=4), iters=role["iters"])
+        order = ch.coherent_order(o, d)
+        o_s, d_s = o[order].contiguous(), d[order].contiguous()
+        blocks_ms = cuda_ms(lambda: ch.trace_blocks(feats, o_s, d_s), iters=role["iters"])
+        sorted_ms = cuda_ms(lambda: sorted_blocks_trace(feats, o, d), iters=role["iters"])
+        nbytes = n * (24 + 4 + 8 + 1) + 4 * ch.PACKED_ROWS * tp + 32 * nb
+        bound_ms, bound_by = bound(needed * FLOPS_PER_PAIR, nbytes)
+        log(f"[phase 10] {name} {label} shape ({n} rays, {nb} blocks): trace_pairs {ms:.4f} ms "
+            f"(k=4: {k4_ms:.4f} ms), trace_blocks on sorted rays {blocks_ms:.4f} ms, sorted "
+            f"trace_blocks path {sorted_ms:.4f} ms; forks vs trace_blocks: tri {vs_blocks[0]:.6f}, "
+            f"hit {vs_blocks[1]:.6f}; pairs tested {pairs} ({pairs / n:.1f} per ray), needed "
+            f"{needed} ({needed / n:.1f} per ray, tested / needed {pairs / max(needed, 1):.4f}); "
+            f"{rounds} rounds, {stagings} block stagings, {slabs} slab tests ({slabs * FLOPS_PER_SLAB:.3e}"
+            f" FP32 ops against {pairs * FLOPS_PER_PAIR:.3e} in pair tests); bound {bound_ms:.4f} ms by "
+            f"{bound_by}; {needed * FLOPS_PER_PAIR / ms / 1e9:.2f} TFLOP/s on the needed pairs [{smi}]")
+        shape = dict(rays=n, ms=ms, k4_ms=k4_ms, trace_blocks_ms=blocks_ms,
+                     sorted_blocks_trace_ms=sorted_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     pairs_tested=pairs, pairs_needed=needed, rounds=rounds, block_stagings=stagings,
+                     slab_tests=slabs, tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
+                     max_abs_err=forks[2], tri_forks_vs_trace_blocks=vs_blocks[0],
+                     hit_forks_vs_trace_blocks=vs_blocks[1])
+        if label == "phase2":
+            plain_stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            hp, plain_ms = timed_once(lambda: pp.trace_pairs_plain(feats, o, d, stats=plain_stats))
+            hold(f"[phase 10] {name} trace_pairs vs its plain version", h.t, h.tri, h.hit, hp)
+            check(torch.equal(stats, plain_stats),
+                  f"{name}: kernel counts {stats.tolist()}, plain {plain_stats.tolist()}")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pp.trace_pairs(feats, o, d)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            log(f"[phase 10] {name}: counts equal to the plain version's {stats.tolist()}, plain "
+                f"{plain_ms:.1f} ms; one trace under set_sync_debug_mode('error') passed; grid {grid}")
+            out.update(shape, plain_ms=plain_ms)
+        else:
+            out["render_shape"] = shape
+    out["prototype_rays"] = dict(rays=PROTO_RAYS, ms=proto["pairs_ms"],
+                                 sorted_blocks_trace_ms=proto["trace_ms"],
+                                 trace_blocks_ms=proto["blocks_ms"],
+                                 pairs_per_ray=proto["pairs_pairs"] / PROTO_RAYS,
+                                 needed_per_ray=proto["needed_pairs"] / PROTO_RAYS,
+                                 rounds=proto["pairs_rounds"])
+    return out
 
 
 def main() -> int:
@@ -826,9 +977,11 @@ def main() -> int:
         dict(name="closest_hit:role1", scene="cornell", blocks=1, iters=50, sun=False,
              make=cornell, replaces="ensem3a_openclraytracer_tpu/ops/intersect_mxu.py:431"),
         dict(name="closest_hit:role3", scene="outdoor_1300", blocks=61, iters=10, sun=True,
-             make=outdoor(1300), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:99"),
+             make=outdoor(1300), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:99",
+             render_res=512),
         dict(name="closest_hit:role4", scene="outdoor_12500", blocks=586, iters=5, sun=True,
-             make=outdoor(12500), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:330"),
+             make=outdoor(12500), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:330",
+             render_res=256),
     ]
     kernels = [phase_kernel_vs_plain(r, dev) for r in roles]
 
@@ -852,7 +1005,12 @@ def main() -> int:
             renders.append(info)
     by_render = {r["name"]: r["launches"] for r in renders}
     for k, scene_name in zip(kernels, ("cornell", "outdoor_1300", "outdoor_12500")):
+        # 0 on the multi-block renders: their traces go through the pairs kernel
         k["launches"] = by_render[scene_name]["closest_hit"]
+        k["role_on_main_path"] = k["launches"] > 0
+    for kern in ("closest_hit", "pairs", "sample_fused", "uniforms"):
+        total = sum(r[kern] for r in by_render.values())
+        check(total > 0, f"the main path launched no {kern} kernel")
 
     for r in roles[:2]:
         phase_same_stream(r, dev)
@@ -886,7 +1044,15 @@ def main() -> int:
     t9 = time.perf_counter()
     log(f"[phase 8] wall {t9 - t8:.1f} s")
     kernels += [phase_compact(scn, inp, dev, smi) for scn, inp in zip(proto_scenes, inputs)]
-    log(f"[phase 9] wall {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    log(f"[phase 9] wall {t10 - t9:.1f} s")
+
+    for role, scn, inp in zip(roles[1:], ("outdoor_1300", "outdoor_12500"), inputs):
+        line = phase_pairs(role, dev, smi, inp)
+        line["launches"] = by_render[scn]["pairs"]
+        check(line["launches"] > 0, f"{scn}: the render launched no pairs kernel")
+        kernels.append(line)
+    log(f"[phase 10] wall {time.perf_counter() - t10:.1f} s")
 
     log(f"[summary] {json.dumps({'card': smi, 'renders': renders, 'fused_vs_scan': versus})}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")

@@ -14,7 +14,11 @@ import numpy as np
 import torch
 
 from ensem3a_openclraytracer_tpu_torch._device import DeviceLike, resolve_device
-from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import TriFeatures, build_tri_features
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
+    TriFeatures,
+    build_tri_features,
+    pack_features,
+)
 from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     CameraParams,
     EnvParams,
@@ -36,9 +40,10 @@ def geometry(geom, device: DeviceLike = None) -> GeometryPack:
         feats = build_tri_features(np.asarray(geom.v0), np.asarray(geom.v1),
                                    np.asarray(geom.v2), dev)
     else:
+        edges, plane, normal_d = _t(f.edges, dev), _t(f.plane, dev), _t(f.normal_d, dev)
         feats = TriFeatures(
-            edges=_t(f.edges, dev), plane=_t(f.plane, dev), normal_d=_t(f.normal_d, dev),
-            block_bounds=_t(f.block_bounds, dev), num_tris=int(f.num_tris),
+            edges=edges, plane=plane, normal_d=normal_d, block_bounds=_t(f.block_bounds, dev),
+            num_tris=int(f.num_tris), packed=pack_features(edges, plane, normal_d),
         )
     return GeometryPack(
         v0=_t(geom.v0, dev), v1=_t(geom.v1, dev), v2=_t(geom.v2, dev), n=_t(geom.n, dev),

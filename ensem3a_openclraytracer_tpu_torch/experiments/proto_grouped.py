@@ -18,7 +18,7 @@ it equals ``ops/closest_hit.trace_plain`` bit for bit on the CPU.
 runs :func:`main`: outdoor_1300 (61 triangle blocks), 65,536 rays leaving
 random surface points in random directions (2,048 with ``--cpu``),
 checked against ``trace_plain`` and, on the card, timed against
-``ops/closest_hit.trace`` (``coherent_order`` and ``trace_blocks``).
+``ops/closest_hit.trace`` (the render path's closest hit).
 """
 
 from __future__ import annotations

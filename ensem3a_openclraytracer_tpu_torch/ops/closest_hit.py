@@ -2,13 +2,13 @@
 hand-written CUDA kernel that answers them on the card.
 
 Counterpart of the JAX package's ``ops/intersect_mxu.py`` (features and
-the exact ``trace_mxu`` scan) and ``ops/pairs.py`` (the multi-block
-engines).  On the TPU three Pallas kernels carry closest-hit queries, one
-per scene size: ``intersect_mxu._mxu_kernel`` (one 256-triangle block),
-``pairs._tile_loop_kernel`` (2-64 blocks) and
-``pairs._tile_stream_kernel`` (more).  Here one block-culled kernel,
-``csrc/closest_hit.cu``, takes all three roles: it needs nothing resident
-beyond one triangle block in shared memory at a time.
+the exact ``trace_mxu`` scan).  On the TPU three Pallas kernels carry
+closest-hit queries, one per scene size: ``intersect_mxu._mxu_kernel``
+(one 256-triangle block), ``pairs._tile_loop_kernel`` (2-64 blocks) and
+``pairs._tile_stream_kernel`` (more).  Here the block-culled kernel
+``csrc/closest_hit.cu`` (:func:`trace_blocks`) takes any scene size and
+carries one-block scenes; :func:`trace` sends multi-block scenes to the
+block-queue kernel of ``ops/pairs.py``.
 
 A ray hits triangle ``A, B, C`` when its Plucker side tests
 ``w = e . [d, d x o]`` against the three edge features share a sign
@@ -51,13 +51,30 @@ class TriFeatures(NamedTuple):
     (``d.n == 0``, never hit).  ``block_bounds [B, 8]``: the AABB of each
     ``TRI_TILE`` block (columns 0-5; padding-only blocks are inverted
     boxes) and in column 6 a scene-scale epsilon, which the kernel uses as
-    a conservative margin on its block culling."""
+    a conservative margin on its block culling.  ``packed [Tp, 28]``: the
+    25 feature rows of each triangle side by side, padded to 28 (the
+    triangle-major copy that ``ops/pairs.trace_pairs`` stages with 16-byte
+    loads; :func:`pack_features`), built once per scene."""
 
     edges: torch.Tensor
     plane: torch.Tensor
     normal_d: torch.Tensor
     block_bounds: torch.Tensor
     num_tris: int
+    packed: torch.Tensor | None = None
+
+
+PACKED_ROWS = 28  # feature rows per triangle in ``TriFeatures.packed``
+
+
+def pack_features(edges: torch.Tensor, plane: torch.Tensor, normal_d: torch.Tensor) -> torch.Tensor:
+    """``[Tp, 28]``: per triangle the 18 edge rows, the 4 plane rows and
+    the 3 normal rows (the order of ``csrc/closest_hit.cuh``'s
+    ``FEAT_ROWS``), then 3 zeros."""
+    tp = edges.shape[-1]
+    rows = torch.cat([edges.reshape(18, tp), plane, normal_d,
+                      edges.new_zeros(PACKED_ROWS - 25, tp)])
+    return rows.t().contiguous()
 
 
 def build_tri_features(v0, v1, v2, device: torch.device) -> TriFeatures:
@@ -103,12 +120,14 @@ def build_tri_features(v0, v1, v2, device: torch.device) -> TriFeatures:
     bounds[:, 6] = max(MIN_HIT_DIST, 2.0 ** -14 * scene_diag)
 
     as_t = lambda a: torch.as_tensor(a, device=device)
+    edges, plane, normal_d = as_t(edges), as_t(plane), as_t(normal_d)
     return TriFeatures(
-        edges=as_t(edges),
-        plane=as_t(plane),
-        normal_d=as_t(normal_d),
+        edges=edges,
+        plane=plane,
+        normal_d=normal_d,
         block_bounds=as_t(bounds),
         num_tris=t,
+        packed=pack_features(edges, plane, normal_d),
     )
 
 
@@ -332,26 +351,29 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     return out_t, out_tri
 
 
+# Scenes of at least this many triangle blocks trace through
+# ``ops/pairs.trace_pairs`` on the card; fewer (one block: the features stay
+# resident in shared memory) through ``trace_blocks``.
+PAIRS_MIN_BLOCKS = 2
+
+
 def trace(geom, ray_o: torch.Tensor, ray_d: torch.Tensor, engine: str = "kernel") -> Hit:
     """Closest-hit dispatch for ``geom.feats``.  Rays on the CPU, and any
     rays with ``engine="plain"``, take :func:`trace_plain`; rays on the
-    card go through the kernel, sorted by :func:`coherent_order` on
-    multi-block scenes and scattered back.  Visibility is not
-    differentiable: the inputs are detached."""
-    ray_o = ray_o.detach().to(torch.float32)
-    ray_d = ray_d.detach().to(torch.float32)
+    card go through a kernel: ``ops/pairs.trace_pairs`` (one launch, no
+    ray sort) on scenes of ``PAIRS_MIN_BLOCKS`` blocks or more, else
+    :func:`trace_blocks`.  Visibility is not differentiable: the inputs are
+    detached."""
+    ray_o = ray_o.detach().to(torch.float32).contiguous()
+    ray_d = ray_d.detach().to(torch.float32).contiguous()
     feats = geom.feats
     if engine == "plain" or ray_o.device.type == "cpu":
         return trace_plain(feats, ray_o, ray_d)
     if engine != "kernel":
         raise ValueError(f"unknown trace engine {engine!r}")
-    if feats.block_bounds.shape[0] == 1:
-        t, tri = trace_blocks(feats, ray_o.contiguous(), ray_d.contiguous())
-    else:
-        order = coherent_order(ray_o, ray_d)
-        t_s, tri_s = trace_blocks(feats, ray_o[order].contiguous(), ray_d[order].contiguous())
-        t = torch.empty_like(t_s)
-        t[order] = t_s
-        tri = torch.empty_like(tri_s)
-        tri[order] = tri_s
+    if feats.block_bounds.shape[0] >= PAIRS_MIN_BLOCKS:
+        from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs
+
+        return trace_pairs(feats, ray_o, ray_d)
+    t, tri = trace_blocks(feats, ray_o, ray_d)
     return Hit(t=t, tri=tri.to(torch.int64), hit=t < MISS_T)

@@ -1,0 +1,209 @@
+"""Closest hit of multi-block scenes by block queues: one persistent CUDA
+launch per trace.
+
+Counterpart of the JAX package's ``ops/pairs.py`` (``trace_pairs`` and
+``trace_pairs_streamed``, whose Pallas kernels ``_tile_loop_kernel`` and
+``_tile_stream_kernel`` carry 2-64 and more triangle blocks).  The answer is
+that of ``ops/closest_hit.trace_plain``: exact f32, the lowest triangle
+index among equal ``t``, ``t >= MAX_DIST * 0.999`` a miss.
+
+The search runs in rounds.  Each live ray takes the next ``k`` blocks of
+its front-to-back walk: the ``k`` least keys ``(entry bits << 32) | block``
+above its cursor (the last key it queued) among the blocks whose margined
+box it enters no farther than its best ``t`` (``closest_hit.block_entries``).
+The (ray, block) pairs are grouped by block, each block is tested against
+the rays queued on it (``closest_hit.tri_t``), and each ray keeps the least
+``(t, tri)``.  A ray that had more than ``k`` such blocks stays live.  On the
+card all rounds run in one cooperative launch of ``csrc/pairs.cu``
+(:func:`trace_pairs`); :func:`trace_pairs_plain` runs the same rounds in
+tensor ops and equals ``trace_plain`` bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Tuple
+
+import torch
+
+from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST
+from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
+
+# Blocks each live ray takes per round.  A round slab-tests every block
+# (30 FP32 operations each) and tests up to K x 256 triangles (45 each), so
+# the slab tests stay under a fifth of the pair tests up to ~600 blocks.
+K = 8
+KERNEL_KS = (4, 8)  # the values of k that csrc/pairs.cu is compiled for
+CHUNK = 256  # queued rays per work item of the kernel (a block staging)
+PAIR_CHUNK = 2048  # (ray, block) pairs per step of the plain version (bounds its memory)
+# (float bits of MAX_DIST) << 32 | triangle 0: "no hit yet"
+NO_HIT_KEY = int(torch.tensor(MAX_DIST, dtype=torch.float32).view(torch.int32)) << 32
+_NO_KEY = torch.iinfo(torch.int64).max
+
+# Launches of the CUDA kernel; only a launch on the card counts.
+LAUNCHES = {"pairs": 0}
+
+
+def key_t(key: torch.Tensor) -> torch.Tensor:
+    """The ``t`` of ``(float bits of t) << 32 | tri`` keys."""
+    return (key >> 32).to(torch.int32).view(torch.float32)
+
+
+def _finish(best: torch.Tensor) -> Hit:
+    return ch._finish(key_t(best), best & 0xFFFFFFFF)
+
+
+def _test_pairs(feats: ch.TriFeatures, r6, q4, d, rid: torch.Tensor, blk: torch.Tensor,
+                tile: int) -> torch.Tensor:
+    """Per (ray, block) pair, the key of the ray's least ``(t, tri)`` in
+    the block, ``NO_HIT_KEY`` where it hits nothing short of ``MAX_DIST``."""
+    idx = blk[:, None] * tile + torch.arange(tile, device=blk.device)  # [P, tile]
+    t = ch.tri_t(r6[rid][:, None], q4[rid][:, None], d[rid][:, None], feats.edges[:, :, idx],
+                 feats.plane[:, idx], feats.normal_d[:, idx])[:, 0]  # [P, tile]
+    tmin, arg = torch.min(t, dim=1)
+    tri = torch.gather(idx, 1, arg[:, None])[:, 0]
+    key = (tmin.view(torch.int32).to(torch.int64) << 32) | tri
+    return torch.where(tmin < MAX_DIST, key, torch.full_like(key, NO_HIT_KEY))
+
+
+def trace_pairs_plain(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                      k: int = K, stats: torch.Tensor | None = None,
+                      queues: List[Tuple[torch.Tensor, torch.Tensor]] | None = None) -> Hit:
+    """The kernel's plain version: the same rounds in tensor ops, with a
+    host sync per round.  ``stats`` (int64 ``[4]``, optional) receives what
+    the kernel counts: (ray, triangle) pairs tested, block stagings (work
+    items of up to ``CHUNK`` queued rays), rounds and slab tests.
+    ``queues`` (a list, optional) receives each round's ``(rays, blocks)``
+    pairs."""
+    if k < 1:
+        raise ValueError(f"k must be at least 1, not {k}")
+    o = ray_o.detach().to(torch.float32).contiguous()
+    d = ray_d.detach().to(torch.float32).contiguous()
+    n, nb = o.shape[0], feats.block_bounds.shape[0]
+    dev = o.device
+    best = torch.full((n,), NO_HIT_KEY, dtype=torch.int64, device=dev)
+    if n == 0 or nb == 0:
+        return _finish(best)
+    tile = feats.edges.shape[-1] // nb
+    r6, q4, dd = ch.ray_features(o, d)
+    entry = ch.block_entries(feats.block_bounds, o, d)  # [N, B]
+    keys = ((entry.view(torch.int32).to(torch.int64) << 32)
+            | torch.arange(nb, device=dev))  # (entry bits << 32) | block
+    cursor = torch.full((n,), -1, dtype=torch.int64, device=dev)  # keys are >= 0
+    live = torch.arange(n, device=dev)
+    counts = [0, 0, 0, 0]
+    while live.numel():
+        counts[2] += 1
+        counts[3] += live.numel() * nb
+        qual = (entry[live] <= key_t(best[live])[:, None]) & (keys[live] > cursor[live, None])
+        nq = qual.sum(dim=1)
+        pick = torch.topk(torch.where(qual, keys[live], _NO_KEY), min(k, nb), dim=1,
+                          largest=False).values  # sorted ascending
+        took = pick != _NO_KEY
+        last = torch.gather(pick, 1, torch.clamp(torch.clamp(nq, max=k) - 1, min=0)[:, None])[:, 0]
+        cursor[live] = torch.where(nq > 0, last, cursor[live])
+        rid = live[:, None].expand_as(pick)[took]
+        blk = pick[took] & 0xFFFFFFFF
+        if queues is not None:
+            queues.append((rid, blk))
+        for c in range(0, rid.numel(), PAIR_CHUNK):
+            r, b = rid[c:c + PAIR_CHUNK], blk[c:c + PAIR_CHUNK]
+            best.scatter_reduce_(0, r, _test_pairs(feats, r6, q4, dd, r, b, tile), "amin")
+        per_block = torch.bincount(blk, minlength=nb)
+        counts[0] += rid.numel() * tile
+        counts[1] += int(((per_block + CHUNK - 1) // CHUNK).sum())
+        live = live[nq > k]
+    if stats is not None:
+        stats += torch.tensor(counts, dtype=torch.int64, device=stats.device)
+    return _finish(best)
+
+
+_KERNEL_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # ray_o, ray_d, n
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4  # packed, bounds; tp, tile, nb, k
+    + [ctypes.c_void_p] * 6  # scratch, out_t, out_tri, out_hit, stats, stream
+)
+
+
+@functools.cache
+def _lib():
+    """The kernel's library with its C entry points typed, built on first
+    use."""
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    lib = _build.load("pairs")
+    lib.pairs_launch.argtypes = _KERNEL_ARGTYPES
+    lib.pairs_launch.restype = ctypes.c_int
+    lib.pairs_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.pairs_scratch_bytes.restype = ctypes.c_longlong
+    lib.pairs_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.pairs_grid.restype = ctypes.c_int
+    return lib
+
+
+def kernel_grid(k: int = K) -> dict:
+    """The launch's grid on the current card: CUDA blocks per SM (the
+    occupancy API's count), SMs, registers per thread, threads per CUDA
+    block and dynamic shared memory per CUDA block."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().pairs_grid(k, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"pairs kernel: no cooperative grid (CUDA error {err})")
+    return dict(zip(("blocks_per_sm", "sms", "registers", "threads", "smem_bytes"), out))
+
+
+def _aligned(x: torch.Tensor, name: str) -> None:
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                stats: torch.Tensor | None = None, k: int = K) -> Hit:
+    """Closest hit ``(t, tri, hit)`` through the CUDA kernel
+    ``csrc/pairs.cu`` for rays on the card: one cooperative launch for a
+    non-empty batch, nothing read back.  Rays on the CPU take
+    :func:`trace_pairs_plain`.  ``stats`` (int64 ``[4]`` on the card,
+    optional) receives the (ray, triangle) pairs tested, the block
+    stagings, the rounds and the slab tests, added to what it holds."""
+    if ray_o.device.type == "cpu":
+        return trace_pairs_plain(feats, ray_o, ray_d, k=k, stats=stats)
+    if ray_o.device.type != "cuda":
+        raise ValueError(f"trace_pairs runs on cuda or cpu, not {ray_o.device}")
+    if k not in KERNEL_KS:
+        raise ValueError(f"the kernel is built for k in {KERNEL_KS}, not {k}")
+    dev = ray_o.device
+    n = ray_o.shape[0]
+    tp, tile, nb = ch.check_features(feats, dev)
+    if feats.packed is None:
+        raise ValueError("features lack their packed copy: build them with build_tri_features")
+    ch._check(feats.packed, "packed", (tp, ch.PACKED_ROWS), torch.float32, dev)
+    ch._check(ray_o, "ray_o", (n, 3), torch.float32, dev)
+    ch._check(ray_d, "ray_d", (n, 3), torch.float32, dev)
+    _aligned(feats.packed, "packed")
+    _aligned(feats.block_bounds, "block_bounds")
+    if stats is not None:
+        ch._check(stats, "stats", (4,), torch.int64, dev)
+    if n * k >= 2 ** 31:
+        raise ValueError(f"{n} rays x {k} picks overflow the kernel's int32 queue")
+    if n == 0 or nb == 0:
+        return Hit(t=torch.full((n,), MAX_DIST, dtype=torch.float32, device=dev),
+                   tri=torch.zeros((n,), dtype=torch.int64, device=dev),
+                   hit=torch.zeros((n,), dtype=torch.bool, device=dev))
+    out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_tri = torch.empty((n,), dtype=torch.int64, device=dev)
+    out_hit = torch.empty((n,), dtype=torch.bool, device=dev)
+    lib = _lib()
+    scratch = torch.empty((lib.pairs_scratch_bytes(n, nb, k),), dtype=torch.uint8, device=dev)
+    err = lib.pairs_launch(
+        ray_o.data_ptr(), ray_d.data_ptr(), n, feats.packed.data_ptr(),
+        feats.block_bounds.data_ptr(), tp, tile, nb, k, scratch.data_ptr(),
+        out_t.data_ptr(), out_tri.data_ptr(), out_hit.data_ptr(),
+        None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"pairs kernel launch failed: CUDA error {err}")
+    LAUNCHES["pairs"] += 1
+    return Hit(t=out_t, tri=out_tri, hit=out_hit)

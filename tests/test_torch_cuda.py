@@ -4,7 +4,9 @@ on the card: the closest-hit kernel (``trace_blocks`` against
 blocks), the fused sample kernel (``sample_fused`` against
 ``sample_fused_plain``), the Philox kernel (``uniforms`` against
 ``uniforms_plain``) and the two prototype closest-hit kernels
-(``trace_grouped`` and ``trace_compact`` against their plain versions).  They skip without a card.  This file imports no JAX, so on a machine without JAX run it
+(``trace_grouped`` and ``trace_compact`` against their plain versions)
+and the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
+``trace_blocks`` and its plain version's counts).  They skip without a card.  This file imports no JAX, so on a machine without JAX run it
 without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -21,6 +23,7 @@ from ensem3a_openclraytracer_tpu_torch.experiments import proto_grouped as pg
 from ensem3a_openclraytracer_tpu_torch.models.pathtracer import _gather_surface
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
@@ -209,3 +212,77 @@ def test_compact_kernel_matches_plain(cuda):
     _agree(t, tri, hit, ch.Hit(*ref[:3]))
     _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
     assert 0 < int(stats[0]) <= 8192 * g.feats.edges.shape[-1] and int(stats[1]) > 0
+
+
+@pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
+def test_pairs_kernel_matches_plain(cuda, role):
+    make, blocks = ROLES[role]
+    g, _, _, c = make(cuda)
+    assert g.feats.block_bounds.shape[0] == blocks
+    o, d = _rays(g, c, cuda, seed=blocks)
+    before = pp.LAUNCHES["pairs"]
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    h = pp.trace_pairs(g.feats, o, d, stats=stats)
+    torch.cuda.synchronize()
+    assert pp.LAUNCHES["pairs"] == before + 1
+    _agree(h.t, h.tri, h.hit, ch.trace_plain(g.feats, o, d))
+    assert bool(torch.all(h.hit == (h.t < ch.MISS_T))) and bool(torch.all(h.tri[~h.hit] == 0))
+    t_b, tri_b = ch.trace_blocks(g.feats, o, d)
+    assert float((h.tri == tri_b.long()).float().mean()) >= 0.999
+    again = pp.trace_pairs(g.feats, o, d)  # atomics reorder the work, not the result
+    assert torch.equal(again.t, h.t) and torch.equal(again.tri, h.tri)
+    plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    pp.trace_pairs_plain(g.feats, o, d, stats=plain_stats)
+    assert torch.equal(stats, plain_stats)  # the same rounds, pairs, stagings and slab tests
+
+
+def test_pairs_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):
+    g, _, _, c = ROLES["61_blocks"][0](cuda)
+    o, d = _rays(g, c, cuda, seed=7, res=64, n_bounce=5000)
+    before = dict(pairs=pp.LAUNCHES["pairs"], closest_hit=ch.LAUNCHES["closest_hit"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = ch.trace(g, o, d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pp.LAUNCHES["pairs"] == before["pairs"] + 1
+    assert ch.LAUNCHES["closest_hit"] == before["closest_hit"]
+    _agree(h.t, h.tri, h.hit, ch.trace_plain(g.feats, o, d))
+    e = torch.zeros(0, 3, device=cuda)
+    h0 = pp.trace_pairs(g.feats, e, e)
+    assert h0.t.shape == (0,) and pp.LAUNCHES["pairs"] == before["pairs"] + 1
+
+
+def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
+    """More triangle blocks than ``trace_blocks``' visit list holds
+    (``MAX_KERNEL_BLOCKS``): the select phase stages the bounds in chunks.
+    Each block is one unit quad of a flat floor centred on the origin (two
+    triangles; the rest of the block repeats the quad's centre, triangles
+    of zero area that are never hit), so the side tests are conditioned as
+    on the outdoor scenes."""
+    rng = np.random.default_rng(12)
+    bx, by = 129, 128
+    assert bx * by > ch.MAX_KERNEL_BLOCKS
+    x0, y0 = (g.reshape(-1).astype(np.float32) - n / 2 for g, n in
+              zip(np.meshgrid(np.arange(bx), np.arange(by), indexing="ij"), (bx, by)))
+    z = np.zeros_like(x0)
+    corner = lambda dx, dy: np.stack([x0 + dx, y0 + dy, z], axis=-1)
+    quad = [(corner(0, 0), corner(1, 0), corner(1, 1)), (corner(0, 0), corner(1, 1), corner(0, 1))]
+    mid = np.repeat(corner(0.5, 0.5)[:, None], ch.TRI_TILE - 2, axis=1)  # [blocks, 254, 3]
+    v = [np.concatenate([quad[0][k][:, None], quad[1][k][:, None], mid], axis=1).reshape(-1, 3)
+         for k in range(3)]
+    feats = ch.build_tri_features(*v, cuda)
+    assert feats.block_bounds.shape[0] == bx * by
+    o = np.stack([rng.uniform(-bx / 2, bx / 2, 2000), rng.uniform(-by / 2, by / 2, 2000),
+                  np.full(2000, 5.0)], axis=-1)
+    dd = np.concatenate([rng.normal(scale=0.5, size=(2000, 2)), -np.ones((2000, 1))], axis=-1)
+    o, d = (torch.as_tensor(x.astype(np.float32), device=cuda) for x in (o, dd))
+    d = torch.nn.functional.normalize(d, dim=-1)
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    h = pp.trace_pairs(feats, o, d, stats=stats)
+    _agree(h.t, h.tri, h.hit, ch.trace_plain(feats, o, d))
+    assert float(h.hit.float().mean()) > 0.3
+    plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    pp.trace_pairs_plain(feats, o, d, stats=plain_stats)
+    assert torch.equal(stats, plain_stats)

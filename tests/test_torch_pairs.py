@@ -1,0 +1,182 @@
+"""Port parity, the block-queue closest hit (``ops/pairs.py``): its plain
+version against ``trace_plain`` (bit for bit) and against the JAX
+package's multi-block engines ``ops/pairs.trace_pairs`` and
+``trace_pairs_streamed`` (interpret mode, under the bands that
+``tests/test_pairs.py`` holds them to), and the invariants of its rounds.
+The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``)."""
+
+import functools
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ensem3a_openclraytracer_tpu import testing as jt
+from ensem3a_openclraytracer_tpu.ops.pairs import trace_pairs as j_trace_pairs
+from ensem3a_openclraytracer_tpu.ops.pairs import trace_pairs_streamed as j_trace_pairs_streamed
+from ensem3a_openclraytracer_tpu_torch import convert
+from ensem3a_openclraytracer_tpu_torch import testing as tt
+from ensem3a_openclraytracer_tpu_torch.experiments import common
+from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
+from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
+
+SCENES = {"outdoor40": 40, "outdoor100": 100}  # 2 and 5 triangle blocks
+
+
+@functools.cache
+def _scene(name):
+    jg = jt.make_outdoor_scene(n_cubes=SCENES[name], use_bvh=False)[0]
+    return jg, convert.geometry(jg, "cpu")
+
+
+def _assert_exact(h, ref):
+    assert torch.equal(h.t, ref.t) and torch.equal(h.tri, ref.tri) and torch.equal(h.hit, ref.hit)
+
+
+@pytest.mark.parametrize("offset", [1e-4, 1e-2])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_plain_equals_trace_plain_on_bounce_rays(name, offset):
+    g = _scene(name)[1]
+    o, d = common.bounce_rays(g, 2048, seed=1, offset=offset)
+    h = pp.trace_pairs_plain(g.feats, o, d)
+    _assert_exact(h, ch.trace_plain(g.feats, o, d))
+    assert h.hit.float().mean() > 0.3
+
+
+def test_plain_equals_trace_plain_on_camera_rays_with_sky():
+    g, _, _, c = tt.make_outdoor_scene(n_cubes=100, device="cpu")
+    o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, 40, 40)
+    ref = ch.trace_plain(g.feats, o, d)
+    assert bool((~ref.hit).any()) and bool(ref.hit.any())  # sky misses and hits
+    _assert_exact(pp.trace_pairs_plain(g.feats, o, d), ref)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_results_do_not_depend_on_k(k):
+    g = _scene("outdoor100")[1]
+    o, d = common.bounce_rays(g, 1500, seed=2)
+    _assert_exact(pp.trace_pairs_plain(g.feats, o, d, k=k), ch.trace_plain(g.feats, o, d))
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000])
+def test_results_do_not_depend_on_the_ray_count(n):
+    """A batch (empty, one ray, or not a multiple of the kernel's work
+    item of ``CHUNK`` rays) gives each ray what a larger batch gives it."""
+    g = _scene("outdoor100")[1]
+    o, d = common.bounce_rays(g, 1300, seed=3)
+    whole = pp.trace_pairs_plain(g.feats, o, d)
+    part = pp.trace_pairs_plain(g.feats, o[300:300 + n], d[300:300 + n])
+    assert part.t.shape == part.tri.shape == part.hit.shape == (n,)
+    assert torch.equal(part.t, whole.t[300:300 + n]) and torch.equal(part.tri, whole.tri[300:300 + n])
+    assert part.tri.dtype == torch.int64 and part.hit.dtype == torch.bool
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_rounds_queue_each_pair_once_and_every_needed_pair(k):
+    g = _scene("outdoor100")[1]
+    feats = g.feats
+    n, nb, tile = 1000, feats.block_bounds.shape[0], ch.TRI_TILE
+    o, d = common.bounce_rays(g, n, seed=4)
+    queues = []
+    stats = torch.zeros(4, dtype=torch.int64)
+    h = pp.trace_pairs_plain(feats, o, d, k=k, stats=stats, queues=queues)
+    entry = ch.block_entries(feats.block_bounds, o, d)
+    rid = torch.cat([q[0] for q in queues])
+    blk = torch.cat([q[1] for q in queues])
+    pair = rid * nb + blk
+    assert torch.unique(pair).numel() == pair.numel()  # each (ray, block) pair at most once
+    needed = torch.nonzero((entry <= h.t[:, None]).reshape(-1)).squeeze(1)
+    assert bool(torch.isin(needed, pair).all())  # every needed pair is tested
+    assert bool((torch.isfinite(entry.reshape(-1))[pair]).all())  # only entered blocks
+    most = int(torch.isfinite(entry).sum(dim=1).max())
+    rounds = len(queues)
+    assert 1 <= rounds <= max(1, math.ceil(most / k))
+    for r, (qr, _) in enumerate(queues):  # at most k picks per ray per round
+        assert int(torch.bincount(qr, minlength=n).max()) <= k
+    stagings = sum(int(((torch.bincount(b, minlength=nb) + pp.CHUNK - 1) // pp.CHUNK).sum())
+                   for _, b in queues)
+    slabs = sum(torch.unique(qr).numel() for qr, _ in queues)
+    assert stats[0] == pair.numel() * tile and stats[1] == stagings and stats[2] == rounds
+    assert int(stats[3]) >= slabs * nb  # every live ray slab-tests every block each round
+    _assert_exact(h, ch.trace_plain(feats, o, d))
+
+
+def _jax_bounce_rays(geom, n, seed):
+    """``tests/test_pairs.py``'s rays: surface origins 5e-4 along a random
+    direction (numpy, from a seed)."""
+    rng = np.random.default_rng(seed)
+    v0, v1, v2 = (np.asarray(x) for x in (geom.v0, geom.v1, geom.v2))
+    ti = rng.integers(0, len(v0), n)
+    r1, r2 = rng.random(n), rng.random(n)
+    s = np.sqrt(r1)
+    p = (v0[ti] * (1 - s)[:, None] + v1[ti] * (s * (1 - r2))[:, None]
+         + v2[ti] * (s * r2)[:, None])
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (p + 5e-4 * d).astype(np.float32), d
+
+
+def _assert_within_jax_bands(port, ref, scene_diag=115.0):
+    """The bands of ``tests/test_pairs.py``'s ``_assert_hits_match`` for the
+    JAX package's split-bf16 engines: hit forks under 1 %, median relative
+    ``t`` gap under 1e-4, under 1 % of ``t`` outside ``5e-3 t + 2^-15 x
+    scene extent``, and under 1 % of ``tri`` forks at a ``t`` outside it."""
+    hg, hr = port.hit.numpy(), np.asarray(ref.hit)
+    assert (hg != hr).mean() < 0.01
+    both = hg & hr
+    tg, tr = port.t.numpy()[both], np.asarray(ref.t)[both]
+    err = np.abs(tg - tr)
+    rel = err / np.maximum(np.abs(tr), 1e-9)
+    assert np.percentile(rel, 50) < 1e-4, np.percentile(rel, 50)
+    allow = 5e-3 * np.abs(tr) + 2.0 ** -15 * scene_diag
+    assert (err > allow).mean() < 0.01, (err / allow).max()
+    tri_diff = port.tri.numpy()[both] != np.asarray(ref.tri)[both]
+    assert (tri_diff & (err > allow)).mean() < 0.01
+
+
+@functools.cache
+def _jax_scene64():
+    jg = jt.make_outdoor_scene(n_cubes=64, use_bvh=False)[0]
+    return jg, convert.geometry(jg, "cpu")
+
+
+@pytest.mark.parametrize("engine", ["trace_pairs", "trace_pairs_streamed"])
+def test_matches_jax_multi_block_engines(engine):
+    jg, g = _jax_scene64()
+    assert g.feats.block_bounds.shape[0] == 4
+    o, d = _jax_bounce_rays(g, 700, seed=11)
+    fn = j_trace_pairs if engine == "trace_pairs" else j_trace_pairs_streamed
+    ref = fn(jg.feats, jnp.asarray(o), jnp.asarray(d), interpret=True)
+    port = pp.trace_pairs_plain(g.feats, torch.as_tensor(o), torch.as_tensor(d))
+    _assert_within_jax_bands(port, ref)
+    assert port.hit.float().mean() > 0.3
+
+
+def test_cpu_wrapper_and_dispatch_take_the_plain_version():
+    g = _scene("outdoor40")[1]
+    o, d = common.bounce_rays(g, 600, seed=5)
+    before = pp.LAUNCHES["pairs"]
+    stats = torch.zeros(4, dtype=torch.int64)
+    h = pp.trace_pairs(g.feats, o, d, stats=stats)
+    ref = ch.trace_plain(g.feats, o, d)
+    _assert_exact(h, ref)
+    _assert_exact(ch.trace(g, o, d), ref)
+    assert pp.LAUNCHES["pairs"] == before
+    assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[2]) >= 1
+    assert int(stats[3]) >= 600 * g.feats.block_bounds.shape[0]
+    with pytest.raises(ValueError, match="k must be"):
+        pp.trace_pairs_plain(g.feats, o, d, k=0)
+    assert g.feats.block_bounds.shape[0] >= ch.PAIRS_MIN_BLOCKS  # the card would take trace_pairs
+
+
+@pytest.mark.parametrize("name", ["outdoor40", "cornell"])
+def test_packed_features_are_the_feature_rows_by_triangle(name):
+    g = _scene(name)[1] if name in SCENES else tt.make_cornell_scene(device="cpu")[0]
+    f = g.feats
+    tp = f.edges.shape[-1]
+    rows = torch.cat([f.edges.reshape(18, tp), f.plane, f.normal_d])  # csrc FEAT_ROWS order
+    assert f.packed.shape == (tp, ch.PACKED_ROWS) and f.packed.is_contiguous()
+    assert torch.equal(f.packed[:, :25], rows.t()) and not f.packed[:, 25:].any()
