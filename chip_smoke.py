@@ -14,33 +14,46 @@ and rendered at its ini settings with the default engine, on the card:
    the same 512^2 primary rays plus 65,536 bounce rays, with times, the
    (ray, triangle) pairs tested and needed, and the least time the card
    could take (from the needed pairs);
-3. the main path at full size: ``Scene.load`` -> ``render_scene`` on five
-   renders.  Cornell (1 block), Cornell with NEE and outdoor_1000 (47
-   blocks) take the fused engine (one primary trace, by ``closest_hit``
-   on one block and by ``pairs`` on more; ``sample_fused`` once per
-   sample); outdoor_1300 (61 blocks) and outdoor_12500 (586 blocks) take
-   the scan estimator (``pairs`` per trace, ``uniforms`` once per
-   sample).  The launch counts are set to 0 before each render and
-   checked after it; one more render of each is traced with
-   ``torch.profiler`` (kernel time by name, device idle share);
+3. the main path at full size: ``Scene.load`` -> ``render_scene`` on six
+   renders.  Cornell (1 block) and Cornell with NEE take the fused engine
+   on ``csrc/fused_sample.cu`` (``closest_hit`` once, ``sample_fused``
+   once per sample); outdoor_1000 (47 blocks) and outdoor_1000 with a light
+   panel and NEE take it on ``csrc/fused_queue.cu`` (``pairs`` once,
+   ``sample_fused_queue`` once per sample, ``sample_fused`` never);
+   outdoor_1300 (61 blocks) and outdoor_12500 (586 blocks) take the scan
+   estimator (``pairs`` per trace, ``uniforms`` once per sample).  The
+   launch counts are set to 0 before each render and checked after it;
+   one more render of each is traced with ``torch.profiler`` (kernel time
+   by name, device idle share);
 4. the same explicit random stream through the scan path with the kernel
    and with the plain scan on the card, at 64^2, 2 spp, 3 bounces: pixel
    forks below 2 %;
-5. fused kernel against plain, per role (Cornell, outdoor_1000 with sun +
-   IBL, Cornell with NEE), on arguments from the engine's own
+5. fused kernels against plain, per role (Cornell and Cornell with NEE on
+   ``fused_sample``; outdoor_1000 with sun + IBL, and with its light panel
+   and NEE, on ``fused_queue``), on arguments from the engine's own
    ``fused_args``: on the same explicit uniforms at 64^2, 2 spp, 3
    bounces, and at the main path's shape (512^2 rays, Morton-permuted on
    47 blocks, 4 bounces, the kernel's own Philox stream), pixel forks
    below 2 % and median difference below 1e-5 at both; record mode on
-   outdoor_1000 at both shapes; then the kernel's time, pairs tested, its
-   bound and the plain version's time (of the compared call);
+   Cornell and outdoor_1000 at both shapes (on outdoor_1000 at 512^2 also
+   through the culled branch of ``fused_sample``); then the kernel's time,
+   pairs tested, its bound from the pairs its traces need (``needed_pairs``
+   over the traces the plain version logs) and the plain version's time
+   (of the compared call).  On the multi-block roles also: the kernel's
+   counts within 1 % of its plain version's, rounds, the grid syncs the
+   kernel counted, one sample under
+   ``set_sync_debug_mode("error")``, its grid (registers, CUDA blocks per
+   SM), the time of a sample with nothing to trace (every lane dead: the
+   passes and grid syncs alone), and the culled branch of ``fused_sample``
+   on the same arguments (against plain, its time and pairs tested);
 6. stream identity: the fused kernel's in-kernel Philox stream against the
    RNG kernel's stream fed in explicitly gives the same images (0 forks)
    at the main path's shape; the RNG kernel is bit-equal to its plain
    version at 2^24 values, with its time, bound and the plain version's
    time;
 7. the same scene at the same settings with ``fused=True`` and with
-   ``fused=False`` (Cornell, outdoor_1000, outdoor_1300): render times;
+   ``fused=False`` (Cornell, outdoor_1000, outdoor_1300, outdoor_12500):
+   render times;
 8. the grouped-pair prototype (``experiments/proto_grouped.trace_grouped``,
    kernel ``grouped_pairs``) on outdoor_1300 (61 blocks) and outdoor_12500
    (586 blocks), 65,536 rays built as the prototypes build them: one trace
@@ -307,6 +320,7 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
 
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import FUSED_MAX_BLOCKS
     from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.ops.fused import QUEUE_MIN_BLOCKS
 
     res, spp, mb = scn["render"]
     scene, load_s = load_scene(scn, dev, workdir)
@@ -323,13 +337,16 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     launches = read_launches()
 
     # every trace of a multi-block scene goes through the pairs kernel, of a
-    # one-block scene through closest_hit
+    # one-block scene through closest_hit; the fused sample of a multi-block
+    # scene through fused_queue, of a one-block scene through fused_sample
     hit_kernel = "pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit"
     if fused:
-        expected = {hit_kernel: 1, "sample_fused": spp, "uniforms": 0}
+        sample_kernel = "sample_fused_queue" if nb >= QUEUE_MIN_BLOCKS else "sample_fused"
+        expected = {hit_kernel: 1, sample_kernel: spp}
     else:
-        expected = {hit_kernel: 1 + spp * (mb + 1 + int(sun)), "sample_fused": 0, "uniforms": spp}
-    expected = {"closest_hit": 0, "pairs": 0, "grouped_pairs": 0, "pair_compact": 0,
+        expected = {hit_kernel: 1 + spp * (mb + 1 + int(sun)), "uniforms": spp}
+    expected = {"closest_hit": 0, "pairs": 0, "sample_fused": 0, "sample_fused_queue": 0,
+                "uniforms": 0, "grouped_pairs": 0, "pair_compact": 0,
                 **expected}  # the prototypes are off the render path
     mean = float(img.mean())
     check(tuple(img.shape) == (res, res, 3), f"{scn['name']}: image shape {tuple(img.shape)}")
@@ -349,8 +366,8 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
 
 
 # kernel-name substrings of the port's kernels in a profile: the two closest
-# hits, the fused sample, the RNG
-KERNEL_GROUPS = ("closest_hit", "::pairs_kernel", "fused_sample", "uniforms")
+# hits, the two fused samples, the RNG
+KERNEL_GROUPS = ("closest_hit", "::pairs_kernel", "fused_sample", "fused_queue", "uniforms")
 
 
 def phase_profile(scene, name: str, overrides: dict) -> dict:
@@ -455,9 +472,10 @@ def fused_image(outs, e):
     return sum(o[0] + o[1] * sample_ibl(e.ibl, o[2]) * e.ibl_power for o in outs) / len(outs)
 
 
-def check_record(role, args, mb, seed, shape):
-    """Record mode, kernel against plain on the kernel's own stream: the
-    recorded uniforms equal, ``tri`` and ``sun_tri`` agreeing on >= 99.5 %."""
+def check_record(role, args, mb, seed, shape, wrappers=("sample_fused",)):
+    """Record mode, kernel (through each of ``ops/fused``'s ``wrappers``)
+    against plain on the kernel's own stream: the recorded uniforms equal,
+    ``tri`` and ``sun_tri`` agreeing on >= 99.5 %."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
@@ -466,20 +484,26 @@ def check_record(role, args, mb, seed, shape):
     key = rg.key_from_generator(torch.Generator(device=args[2].device).manual_seed(seed),
                                 args[2].device)
     kw = dict(max_bounce=mb, sun_enabled=role["sun"], record=True)
-    rk = fu.sample_fused(*args, key, 1, **kw)
     rp = fu.sample_fused_plain(*args, key, 1, **kw)
-    agree = [float((a == b).float().mean()) for a, b in zip(rk[4:], rp[4:])]
-    log(f"[phase 5] {role['name']} record mode at {shape}: u equal "
-        f"{bool(torch.equal(rk[3], rp[3]))}, tri agrees {agree[0]:.5f}, sun_tri agrees "
-        f"{agree[1]:.5f}")
-    check(torch.equal(rk[3], rp[3]), f"{role['name']}: recorded uniforms differ at {shape}")
-    check(min(agree) >= 0.995, f"{role['name']}: record agreement {agree} < 0.995 at {shape}")
+    for wrapper in wrappers:
+        rk = getattr(fu, wrapper)(*args, key, 1, **kw)
+        agree = [float((a == b).float().mean()) for a, b in zip(rk[4:], rp[4:])]
+        log(f"[phase 5] {role['name']} record mode through {wrapper} at {shape}: u equal "
+            f"{bool(torch.equal(rk[3], rp[3]))}, tri agrees {agree[0]:.5f}, sun_tri agrees "
+            f"{agree[1]:.5f}")
+        check(torch.equal(rk[3], rp[3]),
+              f"{role['name']}: {wrapper} recorded uniforms differ at {shape}")
+        check(min(agree) >= 0.995,
+              f"{role['name']}: {wrapper} record agreement {agree} < 0.995 at {shape}")
 
 
-def phase_fused_vs_plain(role, dev):
+def phase_fused_vs_plain(role, dev, smi: str):
     """Fused kernel against its plain version on one explicit stream at a
     small shape, then at the main path's shape on the kernel's own stream,
-    with its time and bound."""
+    with its time and bound; on a multi-block role also its counts against
+    the plain version's, a sample under ``set_sync_debug_mode("error")``,
+    its grid, and the culled branch of ``fused_sample`` head to head.
+    Returns the role's ``kernels`` lines."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
@@ -490,6 +514,7 @@ def phase_fused_vs_plain(role, dev):
     g, m, e, c = role["make"](dev)
     nb = g.feats.block_bounds.shape[0]
     check(nb == role["blocks"], f"{role['name']}: {nb} blocks, want {role['blocks']}")
+    queue = nb >= fu.QUEUE_MIN_BLOCKS
     nee = role.get("nee", False)
     lights = build_light_pack(g, m) if nee else None
     args = fused_inputs(g, m, e, c, res)
@@ -517,10 +542,12 @@ def phase_fused_vs_plain(role, dev):
     n = args[2].shape[0]
     key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)
     kw = dict(max_bounce=mb_t, sun_enabled=role["sun"], nee=nee, lights=lights)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
     out_k = fu.sample_fused(*args, key, 0, stats=stats, **kw)
-    pairs, stagings, slabs = (int(x) for x in stats.cpu())
-    out_p, plain_ms = timed_once(lambda: fu.sample_fused_plain(*args, key, 0, **kw))
+    pairs, stagings, rounds, slabs, syncs = (int(x) for x in stats.cpu())
+    traces, plain_stats = [], torch.zeros(5, dtype=torch.int64, device=dev)
+    out_p, plain_ms = timed_once(lambda: fu.sample_fused_plain(
+        *args, key, 0, stats=plain_stats, traces=traces, **kw))
     frac_t, med_t, max_t = image_forks(fused_image([out_k], e), fused_image([out_p], e))
     log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces, own stream: kernel vs plain "
         f"pixel forks {frac_t:.5f}, median diff {med_t:.3e}, max diff {max_t:.3e}")
@@ -528,27 +555,86 @@ def phase_fused_vs_plain(role, dev):
           f"{role['name']}: non-finite outputs at {res_t}^2")
     check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
     check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
-    if role.get("record"):
-        check_record(role, args, mb_t, 6, f"{res_t}^2")
+    if queue:  # shading float order forks a few knife-edge rays, so the counts may differ a little
+        ks, ps = stats[:4].tolist(), plain_stats[:4].tolist()
+        gap = [abs(a - b) / max(b, 1) for a, b in zip(ks, ps)]
+        log(f"[phase 5] {role['name']}: kernel counts (pairs, stagings, rounds, slab tests) "
+            f"{ks}, plain {ps}, relative gaps {[round(x, 6) for x in gap]}; grid syncs {syncs}")
+        check(max(gap) <= 0.01, f"{role['name']}: counts {ks} vs plain {ps} differ by more "
+              f"than 1 %")
+        check(syncs > 0, f"{role['name']}: the kernel counted no grid syncs")
+    if role.get("record"):  # and on several blocks the culled branch of fused_sample.cu
+        check_record(role, args, mb_t, 6, f"{res_t}^2",
+                     ("sample_fused", "sample_fused_blocks") if queue else ("sample_fused",))
     ms = cuda_ms(lambda: fu.sample_fused(*args, key, 0, **kw), iters=role["iters"])
     tp = g.feats.edges.shape[-1]
+    needed = sum(needed_pairs(g.feats, o, d, h.t) for o, d, h in traces)
+    traced = sum(o.shape[0] for o, _, _ in traces)
     per_bounce = (FUSED_FLOPS_PER_BOUNCE + FUSED_FLOPS_SUN * int(role["sun"])
                   + FUSED_FLOPS_NEE * int(nee))
-    flops = pairs * FLOPS_PER_PAIR + slabs * FLOPS_PER_SLAB + n * (mb_t + 1) * per_bounce
+    flops = needed * FLOPS_PER_PAIR + n * (mb_t + 1) * per_bounce
     nbytes = n * (57 + 36) + tp * (100 + 32) + 32 * nb + (56 * lights.area.shape[0] if nee else 0)
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, pairs tested {pairs} ({pairs / n:.1f} per ray), slab tests {slabs}, "
-        f"block stagings {stagings}, bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
-        f"{nbytes} bytes)")
-    return dict(
+    source = "fused_queue" if queue else "fused_sample"
+    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces: {source} kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms; {len(traces)} trace loops, {traced} rays traced; pairs tested "
+        f"{pairs} ({pairs / n:.1f} per lane), needed {needed} ({needed / n:.1f} per lane, tested / "
+        f"needed {pairs / max(needed, 1):.4f}), slab tests {slabs}, block stagings {stagings}, "
+        f"rounds {rounds}; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
+        f"{nbytes} bytes); {needed * FLOPS_PER_PAIR / ms / 1e9:.2f} TFLOP/s on the needed pairs "
+        f"[{smi}]")
+    line = dict(
         name=role["name"], route="cuda",
-        source="ensem3a_openclraytracer_tpu_torch/csrc/fused_sample.cu",
+        source=f"ensem3a_openclraytracer_tpu_torch/csrc/{source}.cu",
         replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0,
         max_abs_err=max(max_err, max_t), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None, rays=n, pairs_tested=pairs, slab_tests=slabs,
-        block_stagings=stagings, pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t,
+        bound_by=bound_by, library_ms=None, rays=n, pairs_tested=pairs, pairs_needed=needed,
+        slab_tests=slabs, block_stagings=stagings, rounds=rounds,
+        pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t,
     )
+    if not queue:
+        return [line]
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fu.sample_fused(*args, key, 0, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    grid = fu.queue_grid()
+    # the culled branch of fused_sample.cu on the same arguments: the engine before the queues
+    cstats = torch.zeros(5, dtype=torch.int64, device=dev)
+    out_c = fu.sample_fused_blocks(*args, key, 0, stats=cstats, **kw)
+    frac_c, med_c, max_c = image_forks(fused_image([out_c], e), fused_image([out_p], e))
+    check(frac_c < 0.02 and med_c < 1e-5,
+          f"{role['name']}: culled branch vs plain forks {frac_c:.5f}, median {med_c:.3e}")
+    culled_ms = cuda_ms(lambda: fu.sample_fused_blocks(*args, key, 0, **kw), iters=3)
+    c_pairs, c_stagings, _, c_slabs, _ = (int(x) for x in cstats.cpu())
+    # a sample with nothing to trace (every lane dead): the launch's fixed cost, its lane
+    # passes and the grid syncs around empty trace loops
+    dead = args[:7] + (torch.zeros_like(args[7]),) + args[8:]
+    estats = torch.zeros(5, dtype=torch.int64, device=dev)
+    fu.sample_fused(*dead, key, 0, stats=estats, **kw)
+    empty_syncs = int(estats[4])
+    empty_ms = cuda_ms(lambda: fu.sample_fused(*dead, key, 0, **kw), iters=role["iters"])
+    log(f"[phase 5] {role['name']}: one sample under set_sync_debug_mode('error') passed; grid "
+        f"{grid}; culled branch (fused_sample) {culled_ms:.4f} ms vs fused_queue {ms:.4f} ms "
+        f"({culled_ms / ms:.2f}x), its pairs tested {c_pairs} ({c_pairs / n:.1f} per lane), "
+        f"stagings {c_stagings}, forks vs plain {frac_c:.5f}; a sample with nothing to trace "
+        f"{empty_ms:.4f} ms ({empty_syncs} grid syncs counted; the full sample counted "
+        f"{syncs}) [{smi}]")
+    line.update(grid=grid, culled_ms=culled_ms, culled_pairs_tested=c_pairs,
+                empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs)
+    culled = dict(
+        name=role["name"].replace("sample_fused:", "sample_fused_culled:"), route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/fused_sample.cu",
+        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0, max_abs_err=max_c,
+        ms=culled_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        rays=n, pairs_tested=c_pairs, pairs_needed=needed, slab_tests=c_slabs,
+        block_stagings=c_stagings, pixel_fork_fraction_main_shape=frac_c,
+    )
+    return [line, culled]
 
 
 def phase_stream_identity(roles, dev):
@@ -973,6 +1059,8 @@ def main() -> int:
 
     cornell = lambda d: tt.make_cornell_scene(device=d)
     outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
+    outdoor_panel = lambda d: tt.make_outdoor_scene(n_cubes=1000, emissive_panel=True, device=d)
+    panel_blocks = outdoor_panel("cpu")[0].feats.block_bounds.shape[0]  # read, not assumed
     roles = [
         dict(name="closest_hit:role1", scene="cornell", blocks=1, iters=50, sun=False,
              make=cornell, replaces="ensem3a_openclraytracer_tpu/ops/intersect_mxu.py:431"),
@@ -992,6 +1080,8 @@ def main() -> int:
              fused=True, overrides={"nee": True}),
         dict(name="outdoor_1000", scene="outdoor_1000", make=outdoor(1000), render=(512, 16, 4),
              sun=True, fused=True),
+        dict(name="outdoor_1000_nee", scene="outdoor_1000_panel", make=outdoor_panel,
+             render=(512, 16, 4), sun=True, fused=True, overrides={"nee": True}),
         dict(name="outdoor_1300", scene="outdoor_1300", make=outdoor(1300), render=(512, 16, 4),
              sun=True, fused=False),
         dict(name="outdoor_12500", scene="outdoor_12500", make=outdoor(12500),
@@ -1008,7 +1098,7 @@ def main() -> int:
         # 0 on the multi-block renders: their traces go through the pairs kernel
         k["launches"] = by_render[scene_name]["closest_hit"]
         k["role_on_main_path"] = k["launches"] > 0
-    for kern in ("closest_hit", "pairs", "sample_fused", "uniforms"):
+    for kern in ("closest_hit", "pairs", "sample_fused", "sample_fused_queue", "uniforms"):
         total = sum(r[kern] for r in by_render.values())
         check(total > 0, f"the main path launched no {kern} kernel")
 
@@ -1017,22 +1107,29 @@ def main() -> int:
 
     fused_roles = [
         dict(name="sample_fused:cornell", render="cornell", blocks=1, sun=False, make=cornell,
-             iters=20),
+             iters=20, record=True),
         dict(name="sample_fused:outdoor_1000", render="outdoor_1000", blocks=47, sun=True,
-             make=outdoor(1000), iters=5, record=True),
+             make=outdoor(1000), iters=10, record=True),
         dict(name="sample_fused:cornell_nee", render="cornell_nee", blocks=1, sun=False,
              make=cornell, iters=20, nee=True),
+        dict(name="sample_fused:outdoor_1000_nee", render="outdoor_1000_nee", blocks=panel_blocks,
+             sun=True, make=outdoor_panel, iters=10, nee=True),
     ]
     for fr in fused_roles:
-        line = phase_fused_vs_plain(fr, dev)
-        line["launches"] = by_render[fr["render"]]["sample_fused"]
-        kernels.append(line)
+        for line in phase_fused_vs_plain(fr, dev, smi):
+            # each kernel's launches in the role's render; the culled branch is off the path
+            kern = {"fused_queue": "sample_fused_queue",
+                    "fused_sample": "sample_fused"}[Path(line["source"]).stem]
+            line["launches"] = by_render[fr["render"]][kern]
+            if "culled" in line["name"]:
+                check(line["launches"] == 0, f"{fr['render']}: the culled branch ran on the path")
+            kernels.append(line)
     rng_line = phase_stream_identity(fused_roles, dev)
     rng_line["launches"] = by_render["outdoor_1300"]["uniforms"]
     kernels.append(rng_line)
 
     versus = [phase_fused_vs_scan(scn, loaded[scn["name"]]) for scn in scenes
-              if scn["name"] in ("cornell", "outdoor_1000", "outdoor_1300")]
+              if scn["name"] in ("cornell", "outdoor_1000", "outdoor_1300", "outdoor_12500")]
 
     proto_scenes = [
         dict(name="outdoor_1300", blocks=61, make=outdoor(1300), iters=5),

@@ -19,7 +19,10 @@
 //     staged into shared memory once and stay there for every trace of every
 //     bounce (the analogue of the TPU's VMEM-resident operand, and no barrier
 //     at all); on more blocks each trace is the CUDA block's cull -> sort ->
-//     front-to-back visit, which every thread calls, dead lanes included;
+//     front-to-back visit, which every thread calls, dead lanes included
+//     (the render path sends multi-block scenes to csrc/fused_queue.cu; this
+//     culled branch stays callable as ops/fused.sample_fused_blocks);
+//   * the shading is csrc/shading.cuh's, shared with csrc/fused_queue.cu;
 //   * the winner's attributes are one 32-byte row gather of the [Tp, 8] table;
 //   * random numbers are explicit uniforms [mb+1, N, n_u] or the Philox stream
 //     of csrc/philox.cuh: lane r at bounce b draws flat index (b N + r) n_u + k.
@@ -31,27 +34,13 @@
 #include <stdint.h>
 
 #include "closest_hit.cuh"
-#include "philox.cuh"
+#include "shading.cuh"
 
 namespace {
 
-constexpr int RAYS = 128;
-constexpr float PI = 3.14159265358979323846f;
-constexpr float SQRT_2_OVER_PI = 0.79788456080286535588f;
-constexpr int EMISSIVE = 0, GLOSSY = 2, GLASS = 3;
-constexpr int N_ATTR = 8;
+using namespace shade;
 
-// The emissive triangles of ops/fused.sample_fused's LightPack, one pointer
-// per column.
-struct Lights {
-  const float* __restrict__ v0;     // [n_lights, 3]
-  const float* __restrict__ v1;     // [n_lights, 3]
-  const float* __restrict__ v2;     // [n_lights, 3]
-  const float* __restrict__ n;      // [n_lights, 3] unit normal
-  const float* __restrict__ power;  // [n_lights]
-  const float* __restrict__ area;   // [n_lights]
-  int count;
-};
+constexpr int RAYS = 128;
 
 struct Params {
   int n, max_bounce, sun_enabled, nee, record, n_u;
@@ -76,38 +65,8 @@ struct Params {
   float* __restrict__ u_rec;  // [mb+1, n, 2]
   int* __restrict__ tri_rec;  // [mb+1, n]
   int* __restrict__ sun_rec;  // [mb+1, n]
-  unsigned long long* __restrict__ stats;  // [pairs, stagings, slabs]
+  unsigned long long* __restrict__ stats;  // [5]: pairs [0], stagings [1], slab tests [3]
 };
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-// GGX + Schlick + Smith BRDF, term for term as ops/bsdf.eval_ggx.
-__device__ __forceinline__ void ggx(const float color[3], float rough, const float v[3],
-                                    const float l[3], const float n[3], float out[3]) {
-  float h[3] = {l[0] + v[0], l[1] + v[1], l[2] + v[2]};
-  const float hs = 1.0f / sqrtf(fmaxf(dot3(h, h), 1e-20f));
-#pragma unroll
-  for (int k = 0; k < 3; ++k) h[k] = h[k] * hs;
-  const float alpha_sqr = rough * rough;
-  const float ndoth = fmaxf(dot3(n, h), 0.0f);
-  const float q = ndoth * ndoth * (alpha_sqr - 1.0f) + 1.0f;
-  const float d_den = fmaxf(PI * (q * q), 1e-12f);
-  const float kk = rough * SQRT_2_OVER_PI;
-  const float ndotv = fmaxf(dot3(n, v), 0.0f);
-  const float ndotl = fmaxf(dot3(n, l), 0.0f);
-  const float g1_den = fmaxf(ndotv * (1.0f - kk) + kk, 1e-12f);
-  const float g2_den = fmaxf(ndotl * (1.0f - kk) + kk, 1e-12f);
-  const float one_m_hv = 1.0f - fmaxf(dot3(h, v), 0.0f);
-  const float p2 = one_m_hv * one_m_hv;
-  const float fr = 0.04f + 0.96f * (p2 * p2 * one_m_hv);
-  const float spec = (fr * alpha_sqr * ndotv * ndotl) /
-                     fmaxf(d_den * g1_den * g2_den * fmaxf(4.0f * ndotv * ndotl, 1e-3f), 1e-12f);
-  const float kd = (1.0f - fr) * 0.5f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) out[k] = kd * color[k] / PI + spec;
-}
 
 // ptxas keeps the state in 72 registers and spills 48 bytes to L1; asking for
 // six blocks per SM instead (80 registers, no spill) ran slower on an H100.
@@ -186,49 +145,14 @@ __global__ void __launch_bounds__(RAYS) fused_sample_kernel(const Params P) {
     live = live && !emis;
 
     float u[5] = {0.5f, 0.5f, 0.5f, 0.5f, 0.5f};
-    if (in_range) {
-      if (P.uniforms != nullptr) {
-#pragma unroll
-        for (int k = 0; k < 5; ++k)
-          if (k < P.n_u) u[k] = P.uniforms[row * P.n_u + k];
-      } else {
-        const unsigned long long f0 = static_cast<unsigned long long>(row) * P.n_u;
-        unsigned long long cur = ~0ull;
-        uint4 blk = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-        for (int k = 0; k < 5; ++k) {
-          if (k < P.n_u) {
-            const unsigned long long f = f0 + k;
-            if ((f >> 2) != cur) {
-              cur = f >> 2;
-              blk = philox::block(cur, static_cast<unsigned>(P.sample), key);
-            }
-            u[k] = philox::to_unit(philox::word(blk, static_cast<int>(f & 3)));
-          }
-        }
-      }
-    }
+    if (in_range) draw(P.uniforms, key, P.sample, P.n_u, row, u);
     const float u1 = u[0], u2 = u[1];
 
     if (P.nee) {  // uniform over the launch: every thread traces
       const Lights& L = P.lights;  // read from the parameter bank, indexed in place
-      const int li = min(max(static_cast<int>(u[2] * static_cast<float>(L.count)), 0),
-                         L.count - 1);
-      const float sx = sqrtf(u[3]);
-      float delta[3], ln[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float a0 = L.v0[3 * li + k];
-        const float xl = a0 + (L.v1[3 * li + k] - a0) * (1.0f - sx) +
-                         (L.v2[3 * li + k] - a0) * (u[4] * sx);
-        delta[k] = xl - p[k];
-        ln[k] = L.n[3 * li + k];
-      }
-      const float dist2 = fmaxf(dot3(delta, delta), 1e-8f);
-      const float dist = sqrtf(dist2);
-      const float ldir[3] = {delta[0] / dist, delta[1] / dist, delta[2] / dist};
-      const float cos_s = dot3(ldir, n);
-      const float cos_l = fabsf(dot3(ldir, ln));
+      int li;
+      float ldir[3], dist2, dist, cos_s, cos_l;
+      light_point(L, u, p, n, li, ldir, dist2, dist, cos_s, cos_l);
       const bool sampled = live && mtype != GLASS;
       const bool want = sampled && cos_s > 0.0f && cos_l > 1e-6f;
       float st;
@@ -236,59 +160,16 @@ __global__ void __launch_bounds__(RAYS) fused_sample_kernel(const Params P) {
       trace(p, ldir, in_range && want, st, stri);
       if (want && st >= dist * (1.0f - 1e-3f)) {
         float brdf[3];
-        if (mtype == GLOSSY) {
-          const float v[3] = {-in_d[0], -in_d[1], -in_d[2]};
-          ggx(color, rough, v, ldir, n, brdf);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) brdf[k] = color[k] / PI;
-        }
-        const float weight = (static_cast<float>(L.count) * L.area[li]) * cos_l / dist2;
-        const float s = fmaxf(cos_s, 0.0f) * weight * L.power[li];
+        const float s = light_weight(L, li, mtype, color, rough, in_d, ldir, n, cos_s, cos_l,
+                                     dist2, brdf);
 #pragma unroll
         for (int k = 0; k < 3; ++k) rad[k] += thr[k] * brdf[k] * s;
       }
       if (live) emit_ok = !sampled;
     }
 
-    // bounce sampling as ops/bsdf.sample_bounce (tint glass): cosine /
-    // uniform hemisphere directions in the Frisvad / Duff basis
-    const float sign = n[2] >= 0.0f ? 1.0f : -1.0f;
-    const float a = -1.0f / (sign + n[2]);
-    const float bb = n[0] * n[1] * a;
-    const float tg[3] = {1.0f + sign * n[0] * n[0] * a, sign * bb, -sign * n[0]};
-    const float bt[3] = {bb, sign + n[1] * n[1] * a, -n[1]};
-    const float phi = (2.0f * PI) * u2;
-    const float cphi = cosf(phi), sphi = sinf(phi);
-    const float rr = sqrtf(u1);
-    const float z_cos = sqrtf(fmaxf(0.0f, 1.0f - u1));
-    const float invpdf_diff = PI / fmaxf(z_cos, 1e-6f);
-    const float cos_u = 1.0f - u1;
-    const float sin_u = sqrtf(fmaxf(0.0f, 1.0f - cos_u * cos_u));
     float bdir[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float d_diff = tg[k] * (rr * cphi) + bt[k] * (rr * sphi) + n[k] * z_cos;
-      const float d_unif = tg[k] * (sin_u * cphi) + bt[k] * (sin_u * sphi) + n[k] * cos_u;
-      bdir[k] = mtype == GLASS ? in_d[k] : mtype == GLOSSY ? d_unif : d_diff;
-    }
-    const float cos_abs = fabsf(dot3(bdir, n));
-    if (live) {
-      if (mtype == GLASS) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) thr[k] = thr[k] * color[k];
-      } else if (mtype == GLOSSY) {
-        const float v[3] = {-in_d[0], -in_d[1], -in_d[2]};
-        float brdf[3];
-        ggx(color, rough, v, bdir, n, brdf);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) thr[k] = thr[k] * (brdf[k] * ((2.0f * PI) * cos_abs));
-      } else {
-        const float s = invpdf_diff * cos_abs;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) thr[k] = thr[k] * (color[k] / PI * s);
-      }
-    }
+    bounce(n, in_d, color, rough, mtype, live, u1, u2, bdir, thr);
 
     // bounce segment; record mode traces dead lanes too, as the TPU kernel
     float t;
@@ -306,17 +187,7 @@ __global__ void __launch_bounds__(RAYS) fused_sample_kernel(const Params P) {
       float st;
       int stri;
       const bool shit = trace(p, sun_dir, in_range && (miss || P.record), st, stri);
-      if (miss) {
-        const float* sa = P.attrs + N_ATTR * stri;
-        const bool unocc = !shit && mtype != GLASS;
-        const bool glass_occ = shit && __float2int_rn(sa[3]) == GLASS;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float sun_light = (unocc ? 1.0f : 0.0f) * sun_power +
-                                  (glass_occ ? 1.0f : 0.0f) * sa[4 + k] * sun_power;
-          rad[k] += thr[k] * sun_light;
-        }
-      }
+      if (miss) add_sun(P.attrs, shit, stri, mtype, thr, sun_power, rad);
       if (P.record && in_range) P.sun_rec[row] = shit ? stri : -1;
     }
     if (P.record && in_range) {
@@ -361,7 +232,7 @@ __global__ void __launch_bounds__(RAYS) fused_sample_kernel(const Params P) {
     }
     if ((threadIdx.x & 31) == 0) {
       if (pairs) atomicAdd(&P.stats[0], pairs);
-      if (slabs) atomicAdd(&P.stats[2], slabs);
+      if (slabs) atomicAdd(&P.stats[3], slabs);
     }
     if (threadIdx.x == 0) atomicAdd(&P.stats[1], counts.stagings);
   }
@@ -373,8 +244,9 @@ __global__ void __launch_bounds__(RAYS) fused_sample_kernel(const Params P) {
 // `uniforms` ([mb+1, n, 2 or 5 with nee]) or `key` (two uint32 words on the
 // card) must be given.  `u_rec`, `tri_rec` (and `sun_rec` with sun) are
 // needed with record, which excludes nee; nee needs the light columns.
-// `stats` may be null, else it receives [pairs tested, block stagings, slab
-// tests] (added).  Returns the cudaError_t of the launch (0 on success).
+// `stats` may be null, else it receives [pairs tested, block stagings, -, slab
+// tests, -] (added; it makes no rounds and no grid syncs).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int fused_sample_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,
     const float* nrm, const int* mtype, const float* color, const float* rough,

@@ -1,0 +1,531 @@
+// The rounds of the block-queue closest hit, shared by csrc/pairs.cu (one
+// trace per launch) and csrc/fused_queue.cu (every trace of a sample in one
+// launch).  They run on a ray list held in device memory, inside a cooperative
+// launch whose grid-wide syncs separate the pieces of a round:
+//
+//   select  one thread per live ray slab-tests it against every triangle
+//           block's margined box (ch::block_entry; the bounds staged in shared
+//           memory, in chunks above what fits) and keeps in registers the K
+//           least keys (entry bits << 32) | block that lie above its cursor
+//           (the last key it queued) with entry <= its best t: the next K
+//           blocks of its front-to-back walk, with no [N, B] matrix and no
+//           sort.  Each chosen (ray, block) pair takes a slot in its block's
+//           queue from a per-block counter (warp-aggregated atomicAdd).  A ray
+//           with more than K such blocks stays live for the next round.
+//   scan    one CUDA block turns the per-block counts into queue offsets and
+//           work items of up to CHUNK queued rays (an exclusive scan).
+//   fill    each pair writes its ray into its block's queue.
+//   test    CUDA blocks take work items (block, up to CHUNK rays) from a
+//           device-side counter.  The next item's block is staged with
+//           cp.async into the second of two shared-memory buffers while this
+//           one is tested; each thread tests RPT rays, so each shared-memory
+//           read of a triangle's features feeds RPT pair tests.  A ray's best
+//           hit is folded with a 64-bit atomicMin on (float bits of t) << 32 |
+//           tri, which orders (t, tri) lexicographically for t > 0: the fold
+//           is exact whatever order the items run in.
+// trace_rounds loops until no ray is live.  The arithmetic per (ray,
+// triangle) pair is ch::test_block's, term for term, and the slab test is
+// ch::block_entry, so the result equals ops/closest_hit.trace_plain's.
+#pragma once
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "closest_hit.cuh"
+
+namespace bq {
+
+namespace cg = cooperative_groups;
+
+constexpr int THREADS = 128;
+constexpr int RPT = 2;                  // rays per thread in the test phase
+constexpr int CHUNK = THREADS * RPT;    // queued rays per work item
+constexpr int PACK4 = 7;                // float4s per triangle in the packed features [tp, 28]
+// One staged block: rows 0-23 of each triangle as 6 float4s, then row 24 (the
+// normal's z) of each triangle as a float; rows 25-27 are padding and stay in
+// device memory.
+constexpr int BUF4 = ch::TRI_TILE * 6 + ch::TRI_TILE / 4;
+constexpr int SMEM_BYTES = 2 * BUF4 * 16;  // two buffers: 51,200 bytes
+constexpr int SEL_BLOCKS = 2 * BUF4 / 2;   // bounds rows (two float4s each) per select chunk
+constexpr unsigned long long NONE = ~0ull;  // cursor of a ray that queued nothing yet
+constexpr unsigned NO_BLOCK = 0xffffffffu;
+
+struct Ctrl {
+  int live[2];  // live rays of the round that reads list r & 1, and of the next
+  int work;     // the work-item counter of the test phase
+  int items;    // work items of this round
+};
+
+// The rays and the queues of one trace.  n is the capacity of the ray slots
+// (each live list holds up to n slot indices).
+struct Queues {
+  const float* ray_o;    // [n, 3]
+  const float* ray_d;    // [n, 3]
+  const float4* packed;  // [tp, 7] float4: ch::FEAT_ROWS rows per triangle, padded to 28
+  const float* bounds;   // [nb, 8]
+  int n, nb, tile;
+  unsigned long long* best;    // [n] (t bits << 32) | tri
+  unsigned long long* cursor;  // [n] the last key queued, NONE before the first
+  int2* pairs;                 // [n, K] (block, slot in its queue) of each live ray's picks
+  int* live;                   // [2, n] live ray lists, alternating by round
+  int* queue;                  // [n * K] rays grouped by block
+  int* cnt;                    // [nb] pairs queued per block this round
+  int* qoff;                   // [nb] each block's first queue slot
+  int* qcnt;                   // [nb] each block's queued rays
+  int* item_off;               // [nb + 1] each block's first work item
+  Ctrl* ctrl;
+};
+
+// What a thread's share of the rounds counted; rounds and grid syncs are the
+// same in every thread.
+struct Tally {
+  unsigned long long pairs = 0, stagings = 0, slabs = 0;
+  int rounds = 0, syncs = 0;
+};
+
+// A grid-wide sync, counted.
+__device__ __forceinline__ void sync(cg::grid_group& grid, Tally& tally) {
+  grid.sync();
+  ++tally.syncs;
+}
+
+// Cross-block data written during the launch is read with __ldcg (L2, never a
+// stale L1 line).
+__device__ __forceinline__ float key_t(unsigned long long key) {
+  return __uint_as_float(static_cast<unsigned>(key >> 32));
+}
+
+// (float bits of t) << 32 | tri: ordered as (t, tri) for t >= 0
+__device__ __forceinline__ unsigned long long hit_key(float t, int tri) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | static_cast<unsigned>(tri);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Ray i of the list.  FRESH: the rays were written during this launch, so
+// they are read through L2.
+template <bool FRESH>
+__device__ __forceinline__ ch::Ray load_ray(const Queues& p, int i) {
+  float o[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = FRESH ? __ldcg(p.ray_o + 3 * i + k) : p.ray_o[3 * i + k];
+    d[k] = FRESH ? __ldcg(p.ray_d + 3 * i + k) : p.ray_d[3 * i + k];
+  }
+  return ch::make_ray(o, d);
+}
+
+// Blocks [c0, c1)'s bounds into sb (two float4s each), between barriers.
+__device__ __forceinline__ void stage_bounds(const Queues& p, float4* sb, int c0, int c1) {
+  __syncthreads();
+  const float4* src = reinterpret_cast<const float4*>(p.bounds) + 2 * c0;
+  for (int k = threadIdx.x; k < 2 * (c1 - c0); k += THREADS) sb[k] = src[k];
+  __syncthreads();
+}
+
+// Select: each live ray's next K blocks, queued by block (see the header).
+template <int K, bool FRESH>
+__device__ void select_round(const Queues& p, int n_live, const int* live_in, int* live_out,
+                             int* n_live_out, float4* sb, unsigned long long& slabs) {
+  const int lane = threadIdx.x & 31;
+  const bool resident = p.nb <= SEL_BLOCKS;
+  if (resident) stage_bounds(p, sb, 0, p.nb);
+  for (int base = blockIdx.x * THREADS; base < n_live; base += gridDim.x * THREADS) {
+    const int q = base + threadIdx.x;
+    const bool has = q < n_live;
+    const int i = has ? __ldcg(live_in + q) : 0;
+    const ch::Ray r = load_ray<FRESH>(p, i);
+    const float best_t = has ? key_t(__ldcg(p.best + i)) : -1.0f;
+    const unsigned long long cur = has ? __ldcg(p.cursor + i) : NONE;
+    unsigned long long sel[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) sel[s] = NONE;
+    int qual = 0;  // blocks above the cursor with entry <= best t
+    for (int c0 = 0; c0 < p.nb; c0 += SEL_BLOCKS) {
+      const int c1 = min(p.nb, c0 + SEL_BLOCKS);
+      if (!resident) stage_bounds(p, sb, c0, c1);
+      if (!has) continue;
+      const float* b = reinterpret_cast<const float*>(sb);
+      for (int j = c0; j < c1; ++j) {
+        const float e = ch::block_entry(r, b, j - c0);
+        if (!(e <= best_t)) continue;  // beyond the best hit, or missed (+inf)
+        const unsigned long long key =
+            (static_cast<unsigned long long>(__float_as_uint(e)) << 32) | static_cast<unsigned>(j);
+        if (cur != NONE && key <= cur) continue;  // queued in an earlier round
+        ++qual;
+        if (key < sel[K - 1]) {  // insert into the sorted K least
+          sel[K - 1] = key;
+#pragma unroll
+          for (int s = K - 1; s > 0; --s) {
+            const unsigned long long lo = min(sel[s - 1], sel[s]), hi = max(sel[s - 1], sel[s]);
+            sel[s - 1] = lo;
+            sel[s] = hi;
+          }
+        }
+      }
+    }
+    if (has) slabs += p.nb;
+
+    // queue the picks: per pick, lanes that chose the same block share one atomicAdd
+    const int nsel = min(qual, K);
+    unsigned long long last = NONE;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const unsigned blk = s < nsel ? static_cast<unsigned>(sel[s] & 0xffffffffu) : NO_BLOCK;
+      const unsigned peers = __match_any_sync(0xffffffffu, blk);
+      const int leader = __ffs(peers) - 1;
+      int first = 0;
+      if (lane == leader && blk != NO_BLOCK) first = atomicAdd(p.cnt + blk, __popc(peers));
+      first = __shfl_sync(0xffffffffu, first, leader);
+      const int slot = first + __popc(peers & ((1u << lane) - 1u));
+      if (has && s <= nsel)  // the picks, then a terminator when fewer than K
+        p.pairs[static_cast<long long>(q) * K + s] =
+            make_int2(blk == NO_BLOCK ? -1 : static_cast<int>(blk), slot);
+      if (s == nsel - 1) last = sel[s];
+    }
+    if (has && nsel > 0) p.cursor[i] = last;
+
+    // a ray with more qualifying blocks than it picked stays live
+    const bool more = has && qual > K;
+    const unsigned m = __ballot_sync(0xffffffffu, more);
+    int out = 0;
+    if (lane == 0 && m) out = atomicAdd(n_live_out, __popc(m));
+    out = __shfl_sync(0xffffffffu, out, 0);
+    if (more) live_out[out + __popc(m & ((1u << lane) - 1u))] = i;
+  }
+}
+
+// Scan (one CUDA block): queue offsets and work items from the per-block
+// counts, which it zeroes for the next round.
+__device__ void scan_round(const Queues& p, unsigned long long* s_scan) {
+  const int tid = threadIdx.x;
+  const int per = (p.nb + THREADS - 1) / THREADS;
+  const int lo = min(p.nb, tid * per), hi = min(p.nb, lo + per);
+  // (queued pairs << 32) | work items: both sums stay below 2^31
+  auto packed = [](unsigned c) {
+    return (static_cast<unsigned long long>(c) << 32) | ((c + CHUNK - 1) / CHUNK);
+  };
+  unsigned long long sum = 0;
+  for (int j = lo; j < hi; ++j) sum += packed(static_cast<unsigned>(__ldcg(p.cnt + j)));
+  s_scan[tid] = sum;
+  __syncthreads();
+  for (int off = 1; off < THREADS; off <<= 1) {  // inclusive scan over the threads
+    const unsigned long long v = tid >= off ? s_scan[tid - off] : 0ull;
+    __syncthreads();
+    s_scan[tid] += v;
+    __syncthreads();
+  }
+  unsigned long long run = s_scan[tid] - sum;
+  for (int j = lo; j < hi; ++j) {
+    const unsigned c = static_cast<unsigned>(__ldcg(p.cnt + j));
+    p.qoff[j] = static_cast<int>(run >> 32);
+    p.item_off[j] = static_cast<int>(run & 0xffffffffu);
+    p.qcnt[j] = static_cast<int>(c);
+    p.cnt[j] = 0;
+    run += packed(c);
+  }
+  if (tid == THREADS - 1) {
+    const int items = static_cast<int>(s_scan[tid] & 0xffffffffu);
+    p.item_off[p.nb] = items;
+    p.ctrl->items = items;
+    p.ctrl->work = 0;
+  }
+}
+
+// Fill: each live ray writes itself into the queues of its picks.
+template <int K>
+__device__ void fill_round(const Queues& p, int n_live, const int* live_in) {
+  for (int q = blockIdx.x * THREADS + threadIdx.x; q < n_live; q += gridDim.x * THREADS) {
+    const int i = __ldcg(live_in + q);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int2 pb = __ldcg(p.pairs + static_cast<long long>(q) * K + s);
+      if (pb.x < 0) break;
+      p.queue[__ldcg(p.qoff + pb.x) + pb.y] = i;
+    }
+  }
+}
+
+// The next work item: (item, block, first queue slot, rays); item >= items
+// when none is left.
+__device__ int4 next_item(const Queues& p, int items) {
+  const int item = atomicAdd(&p.ctrl->work, 1);
+  if (item >= items) return make_int4(items, 0, 0, 0);
+  int lo = 0, hi = p.nb;  // the last block whose first item is <= item
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldcg(p.item_off + mid) <= item) lo = mid;
+    else hi = mid;
+  }
+  const int s = (item - __ldcg(p.item_off + lo)) * CHUNK;
+  return make_int4(item, lo, __ldcg(p.qoff + lo) + s, min(CHUNK, __ldcg(p.qcnt + lo) - s));
+}
+
+__device__ __forceinline__ void stage_block(const Queues& p, int blk, float4* f4) {
+  const float4* src = p.packed + static_cast<long long>(blk) * p.tile * PACK4;
+  for (int k = threadIdx.x; k < 6 * p.tile; k += THREADS) {
+    const int c = k / 6;
+    cp_async16(f4 + k, src + c * PACK4 + (k - 6 * c));
+  }
+  float* fz = reinterpret_cast<float*>(f4 + 6 * ch::TRI_TILE);
+  for (int c = threadIdx.x; c < p.tile; c += THREADS) cp_async4(fz + c, src + c * PACK4 + 6);
+}
+
+// ch::test_block for RPT rays on the staged layout: the same terms in the
+// same order.
+__device__ __forceinline__ void test_rays(const float4* f4, int base, int tile,
+                                          const ch::Ray (&r)[RPT], const bool (&act)[RPT],
+                                          float (&best_t)[RPT], int (&best_i)[RPT]) {
+  const float* fz = reinterpret_cast<const float*>(f4 + 6 * ch::TRI_TILE);
+  for (int c = 0; c < tile; ++c) {
+    float f[ch::FEAT_ROWS];
+#pragma unroll
+    for (int v = 0; v < 6; ++v) {
+      const float4 x = f4[6 * c + v];
+      f[4 * v] = x.x;
+      f[4 * v + 1] = x.y;
+      f[4 * v + 2] = x.z;
+      f[4 * v + 3] = x.w;
+    }
+    f[24] = fz[c];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      float w[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        float acc = f[6 * e] * r[k].r6[0];
+#pragma unroll
+        for (int m = 1; m < 6; ++m) acc = acc + f[6 * e + m] * r[k].r6[m];
+        w[e] = acc;
+      }
+      const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
+                          (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
+      const float den = f[22] * r[k].d[0] + f[23] * r[k].d[1] + f[24] * r[k].d[2];
+      if (!act[k] || !inside || den == 0.0f) continue;
+      const float num = f[18] * r[k].o[0] + f[19] * r[k].o[1] + f[20] * r[k].o[2] + f[21];
+      const float t = num / den;
+      const int g = base + c;
+      if (t > ch::MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && g < best_i[k]))) {
+        best_t[k] = t;
+        best_i[k] = g;
+      }
+    }
+  }
+}
+
+// Test: work items from the device-side counter, the next block staged while
+// this one is tested.
+template <bool FRESH>
+__device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned long long& pairs,
+                           unsigned long long& stagings) {
+  const int tid = threadIdx.x;
+  const int items = __ldcg(&p.ctrl->items);
+  if (tid == 0) *s_work = next_item(p, items);
+  __syncthreads();
+  int4 cur = *s_work;
+  if (cur.x < items) stage_block(p, cur.y, smem);
+  cp_async_commit();
+  int buf = 0;
+  while (cur.x < items) {
+    __syncthreads();  // every thread has read *s_work and is done with the other buffer
+    if (tid == 0) *s_work = next_item(p, items);
+    __syncthreads();
+    const int4 nxt = *s_work;
+    if (nxt.x < items) stage_block(p, nxt.y, smem + (buf ^ 1) * BUF4);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // block cur.y is in buffer buf
+    if (tid == 0) ++stagings;
+
+    int ray[RPT];
+    bool act[RPT];
+    ch::Ray r[RPT];
+    float best_t[RPT];
+    int best_i[RPT];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int slot = tid + k * THREADS;
+      act[k] = slot < cur.w;
+      ray[k] = act[k] ? __ldcg(p.queue + cur.z + slot) : 0;
+      r[k] = load_ray<FRESH>(p, ray[k]);
+      best_t[k] = ch::MAX_DIST;
+      best_i[k] = 0;
+    }
+    if (act[0]) {  // slot tid + THREADS is live only if slot tid is
+      test_rays(smem + buf * BUF4, cur.y * p.tile, p.tile, r, act, best_t, best_i);
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        if (!act[k]) continue;
+        pairs += p.tile;
+        if (best_t[k] < ch::MAX_DIST) atomicMin(p.best + ray[k], hit_key(best_t[k], best_i[k]));
+      }
+    }
+    cur = nxt;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Every ray of slots [0, n) live, with no hit and no cursor; the per-block
+// counts zeroed.
+__device__ __forceinline__ void init_trace(const Queues& p, int n) {
+  const int gtid = blockIdx.x * THREADS + threadIdx.x;
+  const int stride = gridDim.x * THREADS;
+  for (int i = gtid; i < n; i += stride) {
+    p.best[i] = hit_key(ch::MAX_DIST, 0);
+    p.cursor[i] = NONE;
+    p.live[i] = i;
+  }
+  for (int j = gtid; j < p.nb; j += stride) p.cnt[j] = 0;
+  if (gtid == 0) {
+    p.ctrl->live[0] = n;
+    p.ctrl->live[1] = 0;
+  }
+}
+
+// The rounds, from ctrl->live[0] rays listed in live list 0 (their best and
+// cursor set, the per-block counts zero, ctrl->live[1] zero) until no ray is
+// live; every thread of the grid calls it after a grid sync.  On return both
+// live counts and the per-block counts are zero again, and every block has
+// passed the last round's sync: the hits in best are final.
+template <int K, bool FRESH>
+__device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem, int4* s_work,
+                             unsigned long long* s_scan, Tally& tally) {
+  const int gtid = blockIdx.x * THREADS + threadIdx.x;
+  for (int round = 0;; ++round) {
+    const int cur = round & 1;
+    const int n_live = __ldcg(&p.ctrl->live[cur]);
+    if (n_live == 0) break;  // the same value in every thread: no sync is left waiting
+    ++tally.rounds;
+    const int* live_in = p.live + cur * p.n;
+    select_round<K, FRESH>(p, n_live, live_in, p.live + (cur ^ 1) * p.n, &p.ctrl->live[cur ^ 1],
+                           smem, tally.slabs);
+    sync(grid, tally);
+    if (blockIdx.x == 0) scan_round(p, s_scan);
+    sync(grid, tally);
+    fill_round<K>(p, n_live, live_in);
+    sync(grid, tally);
+    test_round<FRESH>(p, smem, s_work, tally.pairs, tally.stagings);
+    if (gtid == 0) p.ctrl->live[cur] = 0;  // list cur takes the round after next's survivors
+    sync(grid, tally);
+  }
+}
+
+// (t, tri, hit) of slots [0, n) with the miss rule of ops/closest_hit.trace_plain.
+__device__ __forceinline__ void write_hits(const Queues& p, int n, float* out_t, long long* out_tri,
+                                           unsigned char* out_hit) {
+  const int gtid = blockIdx.x * THREADS + threadIdx.x;
+  for (int i = gtid; i < n; i += gridDim.x * THREADS) {
+    const unsigned long long key = __ldcg(p.best + i);
+    const float t = key_t(key);
+    const bool hit = t < ch::MISS_T;
+    out_t[i] = hit ? t : ch::MAX_DIST;
+    out_tri[i] = hit ? static_cast<long long>(key & 0xffffffffu) : 0;
+    out_hit[i] = hit;
+  }
+}
+
+// Each thread's tally added to stats [pairs tested, stagings, rounds, slab
+// tests] (rounds from one thread only).
+__device__ __forceinline__ void add_tally(unsigned long long* stats, Tally t) {
+  const unsigned long long pairs = warp_sum(t.pairs), stagings = warp_sum(t.stagings),
+                           slabs = warp_sum(t.slabs);
+  if ((threadIdx.x & 31) == 0) {
+    if (pairs) atomicAdd(&stats[0], pairs);
+    if (stagings) atomicAdd(&stats[1], stagings);
+    if (slabs) atomicAdd(&stats[3], slabs);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&stats[2], static_cast<unsigned long long>(t.rounds));
+}
+
+// The occupancy API's CUDA blocks per SM and the SMs for a cooperative launch
+// of `kern` with THREADS threads and SMEM_BYTES of dynamic shared memory.
+template <class Kernel>
+cudaError_t grid_size(Kernel kern, int* blocks_per_sm, int* sms) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, THREADS, SMEM_BYTES);
+  if (err == cudaSuccess && *blocks_per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
+  return err;
+}
+
+// Scratch layout of the queues for n ray slots, nb blocks and K picks, from
+// byte `at` on; each array 16-byte aligned.  Returns the end.
+struct QueueLayout {
+  size_t best, cursor, pairs, live, queue, cnt, qoff, qcnt, item_off, ctrl;
+};
+
+inline size_t take(size_t& at, size_t bytes) {
+  const size_t here = at;
+  at += (bytes + 15) & ~static_cast<size_t>(15);
+  return here;
+}
+
+inline QueueLayout queue_layout(long long n, long long nb, long long k, size_t& at) {
+  QueueLayout l{};
+  l.best = take(at, 8 * n);
+  l.cursor = take(at, 8 * n);
+  l.pairs = take(at, 8 * n * k);
+  l.live = take(at, 4 * 2 * n);
+  l.queue = take(at, 4 * n * k);
+  l.cnt = take(at, 4 * nb);
+  l.qoff = take(at, 4 * nb);
+  l.qcnt = take(at, 4 * nb);
+  l.item_off = take(at, 4 * (nb + 1));
+  l.ctrl = take(at, sizeof(Ctrl));
+  return l;
+}
+
+// The queues of n slots in scratch laid out by l (rays, features and bounds
+// set by the caller).
+inline Queues queues_at(char* s, const QueueLayout& l, int n, int nb, int tile) {
+  Queues q{};
+  q.n = n;
+  q.nb = nb;
+  q.tile = tile;
+  q.best = reinterpret_cast<unsigned long long*>(s + l.best);
+  q.cursor = reinterpret_cast<unsigned long long*>(s + l.cursor);
+  q.pairs = reinterpret_cast<int2*>(s + l.pairs);
+  q.live = reinterpret_cast<int*>(s + l.live);
+  q.queue = reinterpret_cast<int*>(s + l.queue);
+  q.cnt = reinterpret_cast<int*>(s + l.cnt);
+  q.qoff = reinterpret_cast<int*>(s + l.qoff);
+  q.qcnt = reinterpret_cast<int*>(s + l.qcnt);
+  q.item_off = reinterpret_cast<int*>(s + l.item_off);
+  q.ctrl = reinterpret_cast<Ctrl*>(s + l.ctrl);
+  return q;
+}
+
+}  // namespace bq

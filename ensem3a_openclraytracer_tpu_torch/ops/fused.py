@@ -3,15 +3,22 @@ kernel launch.
 
 Counterpart of the JAX package's ``ops/fused.py`` (``_make_kernel`` /
 ``sample_fused``), which runs the bounce loop of one sample for a tile of
-rays in VMEM.  On the card ``csrc/fused_sample.cu`` does the same with
-one thread per ray and all of the ray's state in registers: per bounce
-the emissive terminal, optional next-event estimation (NEE), Lambert,
-GGX or tint-glass sampling, the bounce trace, the escape record and the
-in-loop sun shadow with its glass tint.  Every trace is the block-culled
-closest-hit search of ``csrc/closest_hit.cuh`` (exact f32, ``t >
-MIN_HIT_DIST``); on a one-block scene the features stay in shared memory
-for the whole sample.  :func:`sample_fused_plain` computes the same
-function in plain torch, trace by trace with ``trace_plain``.
+rays in VMEM.  On the card two hand-written kernels do the same: per
+bounce the emissive terminal, optional next-event estimation (NEE),
+Lambert, GGX or tint-glass sampling, the bounce trace, the escape record
+and the in-loop sun shadow with its glass tint, every trace an exact f32
+closest hit (``t > MIN_HIT_DIST``, the answer of ``trace_plain``):
+
+* ``csrc/fused_sample.cu`` (:func:`sample_fused_blocks`, one-block
+  scenes): one thread per ray with all of its state in registers, the
+  block's features resident in shared memory for the whole sample;
+* ``csrc/fused_queue.cu`` (:func:`sample_fused_queue`, scenes of
+  ``QUEUE_MIN_BLOCKS`` blocks or more): one cooperative launch per
+  sample, the rays' state in device memory between the traces, each trace
+  the block-queue rounds of ``ops/pairs`` over the whole batch.
+
+:func:`sample_fused` picks between them by block count;
+:func:`sample_fused_plain` computes the same function in plain torch.
 
 The IBL lookup stays outside: a path escapes at most once, so the kernel
 writes ``(rad, esc_thr, esc_dir)`` and the sample's radiance is
@@ -51,6 +58,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
 )
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
     MAX_KERNEL_BLOCKS,
+    PACKED_ROWS,
     TriFeatures,
     _check,
     _expand_bits_10,
@@ -58,13 +66,31 @@ from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
     trace_plain,
 )
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sun_direction
-from ensem3a_openclraytracer_tpu_torch.ops.geometry import dot, sample_point_in_triangle, select
+from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
+    MAX_DIST,
+    dot,
+    sample_point_in_triangle,
+    select,
+)
+from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
+from ensem3a_openclraytracer_tpu_torch.ops.pairs import K as PAIRS_K
+from ensem3a_openclraytracer_tpu_torch.ops.pairs import _aligned, trace_pairs_plain
 from ensem3a_openclraytracer_tpu_torch.ops.rng import _check_key, uniforms_plain
 
 N_ATTR = 8
 
-# Launches of the CUDA kernel; only a launch on the card counts.
-LAUNCHES = {"sample_fused": 0}
+# Launches of the CUDA kernels (``csrc/fused_sample.cu``,
+# ``csrc/fused_queue.cu``); only a launch on the card counts.
+LAUNCHES = {"sample_fused": 0, "sample_fused_queue": 0}
+
+# Scenes of at least this many triangle blocks take ``csrc/fused_queue.cu``
+# on the card (:func:`sample_fused_queue`); one-block scenes keep
+# ``csrc/fused_sample.cu`` with the block's features resident in shared
+# memory (:func:`sample_fused_blocks`).  Measured by chip_smoke.py phase 5 on
+# an H100 80GB HBM3 at 700 W: at outdoor_1000's shape (47 blocks, 512^2
+# lanes, 4 bounces, sun) the queue kernel took 2.87 ms per sample and the
+# culled branch of fused_sample.cu 11.06 ms (2.60 / 10.97 ms with NEE).
+QUEUE_MIN_BLOCKS = 2
 
 
 def build_tri_attrs(face_n, face_mat, mtype, color, roughness, tp: int) -> torch.Tensor:
@@ -136,11 +162,23 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
                        primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
                        key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
                        sun_enabled: bool, uniforms: Optional[torch.Tensor] = None,
-                       nee: bool = False, lights=None, record: bool = False):
+                       nee: bool = False, lights=None, record: bool = False,
+                       stats: Optional[torch.Tensor] = None, traces: Optional[list] = None):
     """:func:`sample_fused` in plain torch on the inputs' device, built
-    from the scan estimator's ops, each trace through ``trace_plain``;
-    with ``uniforms=None`` it draws the kernel's stream with
-    ``uniforms_plain``."""
+    from the scan estimator's ops; with ``uniforms=None`` it draws the
+    kernel's stream with ``uniforms_plain``.
+
+    Each trace loop of the kernels, the bounce ray together with the NEE
+    shadow ray and then the sun ray, is one closest hit of the rays the
+    kernels trace (live lanes, NEE lanes that want the light, escaping
+    lanes; every lane in record mode), the others reading a miss:
+    ``trace_pairs_plain`` on scenes of more than one block, so ``stats``
+    (int64 ``[5]``, optional) receives what ``csrc/fused_queue.cu`` counts
+    there in its first four (pairs tested, block stagings, rounds, slab
+    tests; the plain version makes no grid syncs), and ``trace_plain`` on
+    one block (``stats`` untouched).  Both equal
+    ``trace_plain`` bit for bit.  ``traces`` (a list, optional) receives
+    each trace loop's ``(o, d, hit)``."""
     n_rays = primary_p.shape[0]
     n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays)
     if uniforms is None:
@@ -165,6 +203,20 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         u_rec = torch.zeros((mb1, n_rays, 2), dtype=torch.float32, device=dev)
         tri_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
         sun_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
+    multi = feats.block_bounds.shape[0] > 1
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+
+    def trace_loop(o, d, act):
+        idx = torch.nonzero(act).squeeze(1)
+        oa, da = o[idx].contiguous(), d[idx].contiguous()
+        h = trace_pairs_plain(feats, oa, da, stats=counts) if multi else trace_plain(feats, oa, da)
+        if traces is not None:
+            traces.append((oa, da, h))
+        m = o.shape[0]
+        t = torch.full((m,), MAX_DIST, dtype=torch.float32, device=dev).index_copy_(0, idx, h.t)
+        tri = torch.zeros((m,), dtype=torch.int64, device=dev).index_copy_(0, idx, h.tri)
+        hit = torch.zeros((m,), dtype=torch.bool, device=dev).index_copy_(0, idx, h.hit)
+        return Hit(t=t, tri=tri, hit=hit)
 
     def attrs_of(h):
         a = tri_attrs[h.tri]
@@ -175,7 +227,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         emis = live & (mtype == EMISSIVE)
         rad = rad + select((emis & emit_ok) if nee else emis, thr * rough[:, None], zero3)
         live = live & ~emis
-        if nee:  # one area-sampled light point and its shadow ray
+        if nee:  # one area-sampled light point; its shadow ray shares the bounce trace
             n_lights = lights.v0.shape[0]
             li = torch.clamp((u[:, 2] * n_lights).to(torch.int64), 0, n_lights - 1)
             xl = sample_point_in_triangle(lights.v0[li], lights.v1[li], lights.v2[li],
@@ -186,24 +238,29 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
             ldir = delta / dist[:, None]
             cos_s = dot(ldir, n)
             cos_l = torch.abs(dot(ldir, lights.n[li]))
-            visible = trace_plain(feats, p, ldir).t >= dist * (1.0 - 1e-3)
             brdf = select(mtype == GLOSSY, eval_ggx(color, rough, -in_d, ldir, n),
                           eval_lambert(color))
             sampled = live & (mtype != GLASS)
-            ok = sampled & visible & (cos_s > 0.0) & (cos_l > 1e-6)
+            want = sampled & (cos_s > 0.0) & (cos_l > 1e-6)
             weight = (float(n_lights) * lights.area[li]) * cos_l / dist2
             contrib = thr * brdf * (torch.clamp(cos_s, min=0.0) * weight * lights.power[li])[:, None]
-            rad = rad + select(ok, contrib, zero3)
             emit_ok = (live & ~sampled) | (~live & emit_ok)
 
         bdir, factor = sample_bounce(mtype, color, rough, in_d, n, u[:, 0], u[:, 1])
         thr = select(live, thr * factor, thr)
-        h = trace_plain(feats, p, bdir)
+        act = live | record  # record mode traces dead lanes too
+        if nee:
+            both = trace_loop(torch.cat([p, p]), torch.cat([bdir, ldir]), torch.cat([act, want]))
+            h = Hit(t=both.t[:n_rays], tri=both.tri[:n_rays], hit=both.hit[:n_rays])
+            visible = both.t[n_rays:] >= dist * (1.0 - 1e-3)
+            rad = rad + select(want & visible, contrib, zero3)
+        else:
+            h = trace_loop(p, bdir, act)
         miss = live & ~h.hit
         esc_thr = select(miss, thr, esc_thr)
         esc_dir = select(miss, bdir, esc_dir)
         if sun_enabled:  # the sun shadow ray of an escaping path, tinted by glass
-            sh = trace_plain(feats, p, sun_d)
+            sh = trace_loop(p, sun_d, miss | record)
             _, s_mtype, s_color, _ = attrs_of(sh)
             unocc = (~sh.hit) & (mtype != GLASS)
             glass_occ = sh.hit & (s_mtype == GLASS)
@@ -228,43 +285,20 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     if nee:
         final_emis = final_emis & emit_ok
     rad = rad + select(final_emis, thr * rough[:, None], zero3)
+    if stats is not None and multi:
+        stats[:4] += counts.to(stats.device)
     if record:
         return rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
     return rad, esc_thr, esc_dir
 
 
-_KERNEL_ARGTYPES = (
-    [ctypes.c_int] * 5  # n, max_bounce, sun_enabled, nee, record
-    + [ctypes.c_void_p] * 7  # p, n, mtype, color, rough, live, in_dir
-    + [ctypes.c_void_p] * 2  # sun_dir [3], sun_power [1]
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3  # edges, plane, normal_d, bounds; tp, tile, nb
-    + [ctypes.c_void_p]  # attrs
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int]  # light v0, v1, v2, n, power, area; count
-    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # uniforms, key, sample
-    + [ctypes.c_void_p] * 6  # rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
-    + [ctypes.c_void_p] * 2  # stats, stream
-)
-
-
-@functools.cache
-def _launcher():
-    """The kernel's C entry point, built and typed on first use."""
-    from ensem3a_openclraytracer_tpu_torch import _build
-
-    fn = _build.load("fused_sample").fused_sample_launch
-    fn.argtypes = _KERNEL_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def sample_fused(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
-                 primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
-                 key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
-                 sun_enabled: bool, uniforms: Optional[torch.Tensor] = None, nee: bool = False,
-                 lights=None, record: bool = False, stats: Optional[torch.Tensor] = None):
+def sample_fused(feats: TriFeatures, *args, **kw):
     """One Monte-Carlo sample for ``N`` rays from their cached primary
-    vertices (``p, n [N, 3]``, ``mtype [N]`` int, ``color [N, 3]``,
-    ``rough [N]``, ``live [N]`` bool, ``in_dir [N, 3]``).  Returns
+    vertices: ``sample_fused(feats, tri_attrs, p, n, mtype, color, rough,
+    live, in_dir, sun_dir, sun_power, key=None, sample=0, *, max_bounce,
+    sun_enabled, uniforms=None, nee=False, lights=None, record=False,
+    stats=None)`` with ``p, n [N, 3]``, ``mtype [N]`` int32, ``color [N,
+    3]``, ``rough [N]``, ``live [N]`` bool, ``in_dir [N, 3]``.  Returns
     ``(rad, esc_thr, esc_dir)``, each ``[N, 3]``; the sample's radiance is
     ``rad + esc_thr * ibl(esc_dir)``.  ``record=True`` (BSDF only) adds
     ``(u [mb+1, N, 2], tri [mb+1, N], sun_tri [mb+1, N])`` int32, -1 for a
@@ -272,78 +306,215 @@ def sample_fused(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mt
 
     Random numbers come from ``uniforms`` or, when it is None, from the
     Philox stream of ``key`` (``[2]`` int32 on the rays' device) for
-    ``sample`` (module docstring).  Rays on the card go through
-    ``csrc/fused_sample.cu``; rays on the CPU take
-    :func:`sample_fused_plain`.  With ``nee``, ``lights`` is a ``LightPack``
-    whose columns the kernel reads in place (its ``power`` is the snapshot
-    used, as the TPU kernel's).  ``stats`` (int64 ``[3]`` on the card,
+    ``sample`` (module docstring).  With ``nee``, ``lights`` is a
+    ``LightPack`` whose columns the kernels read in place (its ``power`` is
+    the snapshot used, as the TPU kernel's).  ``stats`` (int64 ``[5]``,
     optional) receives the (ray, triangle) pairs tested, the triangle-block
-    stagings and the ray-box slab tests, added to what it holds."""
+    stagings, the trace rounds, the ray-box slab tests (the first four in
+    ``ops/pairs``' order) and the grid syncs, added to what it holds.
+
+    Scenes of ``QUEUE_MIN_BLOCKS`` blocks or more go to
+    :func:`sample_fused_queue`, one-block scenes to
+    :func:`sample_fused_blocks`; each takes :func:`sample_fused_plain` for
+    rays on the CPU."""
+    run = (sample_fused_queue if feats.block_bounds.shape[0] >= QUEUE_MIN_BLOCKS
+           else sample_fused_blocks)
+    return run(feats, *args, **kw)
+
+
+class _Launch:
+    """The checked arguments and the outputs of one kernel launch, shared by
+    both wrappers: ``head`` (counts and the primary vertex), ``mid`` (the
+    attribute table, the lights and the random stream) and ``tail`` (the
+    outputs, stats and stream) of the C entry points' argument lists."""
+
+    def __init__(self, feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color,
+                 primary_rough, primary_live, in_dir, sun_dir, sun_power, key, sample, *,
+                 max_bounce, sun_enabled, uniforms, nee, lights, record, stats):
+        dev = primary_p.device
+        if dev.type != "cuda":
+            raise ValueError(f"sample_fused runs on cuda or cpu, not {dev}")
+        n = primary_p.shape[0]
+        n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n)
+        self.tp, self.tile, self.nb = check_features(feats, dev)
+        f32, i32 = torch.float32, torch.int32
+        sun_dir, sun_power = sun_dir.reshape(3), sun_power.reshape(1)
+        for x, name, shape, dt in (
+            (primary_p, "primary_p", (n, 3), f32), (primary_n, "primary_n", (n, 3), f32),
+            (primary_mtype, "primary_mtype", (n,), i32),
+            (primary_color, "primary_color", (n, 3), f32),
+            (primary_rough, "primary_rough", (n,), f32),
+            (primary_live, "primary_live", (n,), torch.bool), (in_dir, "in_dir", (n, 3), f32),
+            (tri_attrs, "tri_attrs", (self.tp, N_ATTR), f32), (sun_dir, "sun_dir", (3,), f32),
+            (sun_power, "sun_power", (1,), f32),
+        ):
+            _check(x, name, shape, dt, dev)
+        light_cols, n_lights = (None,) * 6, 0
+        if nee:  # the pack's columns, read in place
+            n_lights = lights.v0.shape[0]
+            light_cols = (lights.v0, lights.v1, lights.v2, lights.n, lights.power, lights.area)
+            for x, name, shape in zip(light_cols, ("v0", "v1", "v2", "n", "power", "area"),
+                                      ((n_lights, 3),) * 4 + ((n_lights,),) * 2):
+                _check(x, f"lights.{name}", shape, f32, dev)
+        if uniforms is not None:
+            _check(uniforms, "uniforms", (max_bounce + 1, n, n_u), f32, dev)
+        if key is not None:
+            _check(key, "key", (2,), i32, dev)
+        if stats is not None:
+            _check(stats, "stats", (5,), torch.int64, dev)
+        mb1 = max_bounce + 1
+        rad = torch.empty((n, 3), dtype=f32, device=dev)
+        esc_thr = torch.empty_like(rad)
+        esc_dir = torch.empty_like(rad)
+        self.out = (rad, esc_thr, esc_dir)
+        rec = (None, None, None)
+        if record:  # without sun the kernels write no sun record
+            rec = (torch.empty((mb1, n, 2), dtype=f32, device=dev),
+                   torch.empty((mb1, n), dtype=i32, device=dev),
+                   torch.empty((mb1, n), dtype=i32, device=dev) if sun_enabled
+                   else torch.full((mb1, n), -1, dtype=i32, device=dev))
+            self.out += rec
+        ptr = lambda x: None if x is None else x.data_ptr()
+        self.n, self.dev = n, dev
+        self.head = (n, max_bounce, int(sun_enabled), int(nee), int(record),
+                     *(x.data_ptr() for x in (primary_p, primary_n, primary_mtype, primary_color,
+                                              primary_rough, primary_live, in_dir, sun_dir,
+                                              sun_power)))
+        self.mid = (tri_attrs.data_ptr(), *(ptr(x) for x in light_cols), n_lights,
+                    ptr(uniforms), ptr(key), int(sample))
+        self.tail = (rad.data_ptr(), esc_thr.data_ptr(), esc_dir.data_ptr(), ptr(rec[0]),
+                     ptr(rec[1]), ptr(rec[2]) if sun_enabled else None,
+                     ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
+
+
+_ARGTYPES_HEAD = (
+    [ctypes.c_int] * 5  # n, max_bounce, sun_enabled, nee, record
+    + [ctypes.c_void_p] * 7  # p, n, mtype, color, rough, live, in_dir
+    + [ctypes.c_void_p] * 2  # sun_dir [3], sun_power [1]
+)
+_ARGTYPES_MID = (
+    [ctypes.c_void_p]  # attrs
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int]  # light v0, v1, v2, n, power, area; count
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # uniforms, key, sample
+)
+_ARGTYPES_TAIL = (
+    [ctypes.c_void_p] * 6  # rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
+    + [ctypes.c_void_p] * 2  # stats, stream
+)
+
+
+@functools.cache
+def _launcher():
+    """``csrc/fused_sample.cu``'s C entry point, built and typed on first use."""
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    fn = _build.load("fused_sample").fused_sample_launch
+    fn.argtypes = (_ARGTYPES_HEAD
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3  # edges, plane, normal_d, bounds; tp, tile, nb
+                   + _ARGTYPES_MID + _ARGTYPES_TAIL)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _queue_lib():
+    """``csrc/fused_queue.cu``'s library with its C entry points typed,
+    built on first use."""
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    lib = _build.load("fused_queue")
+    lib.fused_queue_launch.argtypes = (
+        _ARGTYPES_HEAD
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
+        + _ARGTYPES_MID + [ctypes.c_void_p] + _ARGTYPES_TAIL)  # scratch
+    lib.fused_queue_launch.restype = ctypes.c_int
+    lib.fused_queue_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_queue_scratch_bytes.restype = ctypes.c_longlong
+    lib.fused_queue_grid.argtypes = [ctypes.c_void_p]
+    lib.fused_queue_grid.restype = ctypes.c_int
+    return lib
+
+
+def queue_grid() -> dict:
+    """:func:`sample_fused_queue`'s grid on the current card: CUDA blocks
+    per SM (the occupancy API's count), SMs, registers per thread, threads
+    per CUDA block, dynamic shared memory per CUDA block, local memory
+    (spills and stack) per thread."""
+    out = (ctypes.c_int * 6)()
+    err = _queue_lib().fused_queue_grid(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_queue kernel: no cooperative grid (CUDA error {err})")
+    return dict(zip(("blocks_per_sm", "sms", "registers", "threads", "smem_bytes", "local_bytes"),
+                    out))
+
+
+def sample_fused_blocks(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                        primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                        key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
+                        sun_enabled: bool, uniforms: Optional[torch.Tensor] = None,
+                        nee: bool = False, lights=None, record: bool = False,
+                        stats: Optional[torch.Tensor] = None):
+    """:func:`sample_fused` through ``csrc/fused_sample.cu`` (one thread
+    per ray, its state in registers; each trace the CUDA block's cull ->
+    sort -> visit, or the resident block of a one-block scene) for rays on
+    the card, on up to ``MAX_KERNEL_BLOCKS`` blocks; rays on the CPU take
+    :func:`sample_fused_plain`.  ``stats`` receives no rounds and no grid
+    syncs."""
     kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
               lights=lights, record=record)
-    dev = primary_p.device
-    if dev.type == "cpu":
-        return sample_fused_plain(feats, tri_attrs, primary_p, primary_n, primary_mtype,
-                                  primary_color, primary_rough, primary_live, in_dir, sun_dir,
-                                  sun_power, key, sample, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"sample_fused runs on cuda or cpu, not {dev}")
-    n = primary_p.shape[0]
-    n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n)
+    args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
+            primary_live, in_dir, sun_dir, sun_power, key, sample)
+    if primary_p.device.type == "cpu":
+        return sample_fused_plain(*args, stats=stats, **kw)
     if feats.block_bounds.shape[0] > MAX_KERNEL_BLOCKS:
         raise ValueError(f"{feats.block_bounds.shape[0]} triangle blocks exceed the kernel's "
                          f"visit list ({MAX_KERNEL_BLOCKS} blocks)")
-    tp, tile, nb = check_features(feats, dev)
-    f32, i32 = torch.float32, torch.int32
-    sun_dir, sun_power = sun_dir.reshape(3), sun_power.reshape(1)
-    for x, name, shape, dt in (
-        (primary_p, "primary_p", (n, 3), f32), (primary_n, "primary_n", (n, 3), f32),
-        (primary_mtype, "primary_mtype", (n,), i32), (primary_color, "primary_color", (n, 3), f32),
-        (primary_rough, "primary_rough", (n,), f32), (primary_live, "primary_live", (n,), torch.bool),
-        (in_dir, "in_dir", (n, 3), f32), (tri_attrs, "tri_attrs", (tp, N_ATTR), f32),
-        (sun_dir, "sun_dir", (3,), f32), (sun_power, "sun_power", (1,), f32),
-    ):
-        _check(x, name, shape, dt, dev)
-    light_cols, n_lights = (None,) * 6, 0
-    if nee:  # the pack's columns, read in place
-        n_lights = lights.v0.shape[0]
-        light_cols = (lights.v0, lights.v1, lights.v2, lights.n, lights.power, lights.area)
-        for x, name, shape in zip(light_cols, ("v0", "v1", "v2", "n", "power", "area"),
-                                  ((n_lights, 3),) * 4 + ((n_lights,),) * 2):
-            _check(x, f"lights.{name}", shape, f32, dev)
-    if uniforms is not None:
-        _check(uniforms, "uniforms", (max_bounce + 1, n, n_u), f32, dev)
-    if key is not None:
-        _check(key, "key", (2,), i32, dev)
-    if stats is not None:
-        _check(stats, "stats", (3,), torch.int64, dev)
-    mb1 = max_bounce + 1
-    rad = torch.empty((n, 3), dtype=f32, device=dev)
-    esc_thr = torch.empty_like(rad)
-    esc_dir = torch.empty_like(rad)
-    if record:
-        u_rec = torch.empty((mb1, n, 2), dtype=f32, device=dev)
-        tri_rec = torch.empty((mb1, n), dtype=i32, device=dev)
-        sun_rec = torch.full((mb1, n), -1, dtype=i32, device=dev)
-    if n:
-        ptr = lambda x: None if x is None else x.data_ptr()
+    run = _Launch(*args, stats=stats, **kw)
+    if run.n:
         err = _launcher()(
-            n, max_bounce, int(sun_enabled), int(nee), int(record),
-            primary_p.data_ptr(), primary_n.data_ptr(), primary_mtype.data_ptr(),
-            primary_color.data_ptr(), primary_rough.data_ptr(), primary_live.data_ptr(),
-            in_dir.data_ptr(), sun_dir.data_ptr(), sun_power.data_ptr(),
-            feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
-            feats.block_bounds.data_ptr(), tp, tile, nb, tri_attrs.data_ptr(),
-            *(ptr(x) for x in light_cols), n_lights,
-            ptr(uniforms), ptr(key), int(sample),
-            rad.data_ptr(), esc_thr.data_ptr(), esc_dir.data_ptr(),
-            ptr(u_rec) if record else None, ptr(tri_rec) if record else None,
-            ptr(sun_rec) if record and sun_enabled else None,
-            ptr(stats), torch.cuda.current_stream(dev).cuda_stream,
-        )
+            *run.head, feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
+            feats.block_bounds.data_ptr(), run.tp, run.tile, run.nb, *run.mid, *run.tail)
         if err != 0:
             raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
         LAUNCHES["sample_fused"] += 1
-    if record:
-        return rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
-    return rad, esc_thr, esc_dir
+    return run.out
+
+
+def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                       primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                       key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
+                       sun_enabled: bool, uniforms: Optional[torch.Tensor] = None,
+                       nee: bool = False, lights=None, record: bool = False,
+                       stats: Optional[torch.Tensor] = None):
+    """:func:`sample_fused` through ``csrc/fused_queue.cu`` for rays on the
+    card: one cooperative launch per sample, every trace through block
+    queues (``ops/pairs``' rounds, on every ray of the batch at once), no
+    host sync, no limit on the blocks.  Needs ``feats.packed``.  Rays on
+    the CPU take :func:`sample_fused_plain`, whose counts on a multi-block
+    scene are the kernel's."""
+    kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
+              lights=lights, record=record)
+    args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
+            primary_live, in_dir, sun_dir, sun_power, key, sample)
+    if primary_p.device.type == "cpu":
+        return sample_fused_plain(*args, stats=stats, **kw)
+    if feats.packed is None:
+        raise ValueError("features lack their packed copy: build them with build_tri_features")
+    run = _Launch(*args, stats=stats, **kw)
+    _check(feats.packed, "packed", (run.tp, PACKED_ROWS), torch.float32, run.dev)
+    _aligned(feats.packed, "packed")
+    _aligned(feats.block_bounds, "block_bounds")
+    slots = run.n * (2 if nee else 1)  # a lane's NEE shadow ray shares the bounce trace
+    if slots * PAIRS_K >= 2 ** 31:
+        raise ValueError(f"{slots} rays x {PAIRS_K} picks overflow the kernel's int32 queue")
+    if run.n:
+        lib = _queue_lib()
+        scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
+                              dtype=torch.uint8, device=run.dev)
+        err = lib.fused_queue_launch(
+            *run.head, feats.packed.data_ptr(), feats.block_bounds.data_ptr(), run.tp, run.tile,
+            run.nb, *run.mid, scratch.data_ptr(), *run.tail)
+        if err != 0:
+            raise RuntimeError(f"fused_queue kernel launch failed: CUDA error {err}")
+        LAUNCHES["sample_fused_queue"] += 1
+    return run.out

@@ -2,12 +2,15 @@
 on the card: the closest-hit kernel (``trace_blocks`` against
 ``trace_plain``) in each of its three roles (1, 61 and 586 triangle
 blocks), the fused sample kernel (``sample_fused`` against
-``sample_fused_plain``), the Philox kernel (``uniforms`` against
+``sample_fused_plain``, and record mode of each branch), the Philox kernel (``uniforms`` against
 ``uniforms_plain``) and the two prototype closest-hit kernels
-(``trace_grouped`` and ``trace_compact`` against their plain versions)
-and the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
-``trace_blocks`` and its plain version's counts).  They skip without a card.  This file imports no JAX, so on a machine without JAX run it
-without the suite's conftest:
+(``trace_grouped`` and ``trace_compact`` against their plain versions),
+the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
+``trace_blocks`` and its plain version's counts) and the multi-block fused
+sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
+its counts, with NEE, in record mode, up to 586 blocks).  They skip
+without a card.  This file imports no JAX, so on a machine without JAX run
+it without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -126,24 +129,44 @@ def test_fused_kernel_matches_plain(cuda, role):
     u = torch.as_tensor(rng_.random((mb + 1, n, 5 if nee else 2)).astype(np.float32), device=cuda)
     kw = dict(max_bounce=mb, sun_enabled=sun, uniforms=u, nee=nee,
               lights=build_light_pack(g, m) if nee else None)
-    before = fu.LAUNCHES["sample_fused"]
-    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    kernel = "sample_fused_queue" if blocks >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
+    before = dict(fu.LAUNCHES)
+    stats = torch.zeros(5, dtype=torch.int64, device=cuda)
     k = _image(fu.sample_fused(*args, stats=stats, **kw), e)
     torch.cuda.synchronize()
-    assert fu.LAUNCHES["sample_fused"] == before + 1
+    assert fu.LAUNCHES == {**before, kernel: before[kernel] + 1}
     p = _image(fu.sample_fused_plain(*args, **kw), e)
     assert bool(torch.isfinite(k).all())
     diff = (k - p).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) < 0.02
     assert float(diff.median()) < 1e-5
-    assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[2]) > 0
+    assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[3]) > 0
 
 
-def test_fused_record_matches_plain(cuda):
-    g, m, e, args = _fused_inputs(lambda dev: tt.make_outdoor_scene(n_cubes=100, device=dev), cuda)
+RECORD = {  # role -> (scene maker, blocks, wrapper)
+    "one_block": (lambda dev: tt.make_cornell_scene(device=dev), 1, "sample_fused_blocks"),
+    "culled_multi_block": (lambda dev: tt.make_outdoor_scene(n_cubes=100, device=dev), None,
+                           "sample_fused_blocks"),
+    "queue_multi_block": (lambda dev: tt.make_outdoor_scene(n_cubes=100, device=dev), None,
+                          "sample_fused"),
+}
+
+
+@pytest.mark.parametrize("role", sorted(RECORD))
+def test_fused_record_matches_plain(cuda, role):
+    """Record mode of each branch against plain: ``fused_sample.cu`` on one
+    block (resident) and on several (culled), and the dispatch's queue
+    kernel on several."""
+    make, blocks, wrapper = RECORD[role]
+    g, m, e, args = _fused_inputs(make, cuda)
+    nb = g.feats.block_bounds.shape[0]
+    assert nb == blocks if blocks else nb >= fu.QUEUE_MIN_BLOCKS
     key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(1), cuda)
     kw = dict(max_bounce=3, sun_enabled=True, record=True)
-    k = fu.sample_fused(*args, key, 2, **kw)
+    kernel = "sample_fused_queue" if wrapper == "sample_fused" else "sample_fused"
+    before = dict(fu.LAUNCHES)
+    k = getattr(fu, wrapper)(*args, key, 2, **kw)
+    assert fu.LAUNCHES == {**before, kernel: before[kernel] + 1}
     p = fu.sample_fused_plain(*args, key, 2, **kw)
     assert torch.equal(k[3], p[3])
     for a, b in zip(k[4:], p[4:]):
@@ -286,3 +309,83 @@ def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
     plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
     pp.trace_pairs_plain(feats, o, d, stats=plain_stats)
     assert torch.equal(stats, plain_stats)
+
+
+QUEUE = {  # role -> (scene maker, expected blocks or None to read them, sun, nee)
+    "47_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, device=dev), 47, True, False),
+    "47_blocks_nee": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, emissive_panel=True,
+                                                        device=dev), None, True, True),
+    "61_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, device=dev), 61, True, False),
+    "586_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=12500, device=dev), 586, True,
+                   False),
+}
+
+
+@pytest.mark.parametrize("role", sorted(QUEUE))
+def test_queue_kernel_matches_plain(cuda, role):
+    """The multi-block fused kernel against its plain version on one
+    explicit stream (forks, median, counts within 1 %: shading float order
+    forks a few knife-edge rays), then record mode on the Philox stream
+    (BSDF only), which on 586 blocks is beyond the JAX recorder's 256."""
+    make, blocks, sun, nee = QUEUE[role]
+    g, m, e, args = _fused_inputs(make, cuda)
+    nb = g.feats.block_bounds.shape[0]
+    assert nb >= fu.QUEUE_MIN_BLOCKS and (blocks is None or nb == blocks)
+    n, mb = args[2].shape[0], 3
+    rng_ = np.random.default_rng(nb)
+    u = torch.as_tensor(rng_.random((mb + 1, n, 5 if nee else 2)).astype(np.float32), device=cuda)
+    kw = dict(max_bounce=mb, sun_enabled=sun, uniforms=u, nee=nee,
+              lights=build_light_pack(g, m) if nee else None)
+    before = dict(fu.LAUNCHES)
+    stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    k = _image(fu.sample_fused_queue(*args, stats=stats, **kw), e)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES == {**before, "sample_fused_queue": before["sample_fused_queue"] + 1}
+    plain_stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    p = _image(fu.sample_fused_plain(*args, stats=plain_stats, **kw), e)
+    assert bool(torch.isfinite(k).all())
+    diff = (k - p).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) < 0.02
+    assert float(diff.median()) < 1e-5
+    ks, ps = stats[:4].double(), plain_stats[:4].double()
+    assert bool((ps > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats, plain_stats)
+    # one sync to start, per bounce two around each trace loop, four per round
+    loops = 1 + int(sun)
+    assert int(stats[4]) == 1 + (mb + 1) * 2 * loops + 4 * int(stats[2]) and int(plain_stats[4]) == 0
+    if nb <= ch.MAX_KERNEL_BLOCKS:  # the culled branch of fused_sample.cu stays callable
+        b = _image(fu.sample_fused_blocks(*args, **kw), e)
+        assert float(((b - p).abs().amax(dim=-1) > 1e-3).float().mean()) < 0.02
+    if not nee:
+        key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(4), cuda)
+        rk = fu.sample_fused_queue(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)
+        rp = fu.sample_fused_plain(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)
+        assert torch.equal(rk[3], rp[3])
+        for a, b in zip(rk[4:], rp[4:]):
+            assert float((a == b).float().mean()) >= 0.995
+
+
+def test_queue_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):
+    """One multi-block sample through ``sample_fused`` under
+    ``set_sync_debug_mode("error")`` launches the queue kernel once and
+    nothing else; its own Philox draws equal the RNG kernel's stream fed in,
+    bit for bit, with NEE; an empty batch launches nothing."""
+    make = QUEUE["47_blocks_nee"][0]
+    g, m, e, args = _fused_inputs(make, cuda)
+    n, mb = args[2].shape[0], 3
+    key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(9), cuda)
+    kw = dict(max_bounce=mb, sun_enabled=True, nee=True, lights=build_light_pack(g, m))
+    before = dict(fu.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        own = fu.sample_fused(*args, key, 5, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fu.LAUNCHES == {**before, "sample_fused_queue": before["sample_fused_queue"] + 1}
+    fed = fu.sample_fused(*args, uniforms=rng.uniforms(key, (mb + 1, n, 5), 5), **kw)
+    for a, b in zip(own, fed):
+        assert torch.equal(a, b)
+    empty = [x[:0] for x in args[2:9]]
+    out = fu.sample_fused(*args[:2], *empty, *args[9:], key, 0, **kw)
+    assert out[0].shape == (0, 3)
+    assert fu.LAUNCHES["sample_fused_queue"] == before["sample_fused_queue"] + 2

@@ -28,6 +28,7 @@ from ensem3a_openclraytracer_tpu_torch.ops import fused as tf
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import trace
+from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs_plain as pairs_plain
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
 from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
@@ -41,6 +42,9 @@ CASES = {
                                  sun=True, blocks=2),
     "cornell_nee": dict(make=lambda: jt.make_cornell_scene(use_bvh=False), sun=False, blocks=1,
                         nee=True),
+    "outdoor24_multiblock_nee": dict(
+        make=lambda: jt.make_outdoor_scene(n_cubes=24, use_bvh=False, emissive_panel=True),
+        sun=True, blocks=2, nee=True),
 }
 
 
@@ -114,8 +118,10 @@ def test_sample_fused_plain_matches_jax(name):
     _assert_forks(img_t, img_j, name)
 
 
-def test_record_mode_matches_jax():
-    jg, jm, je, jc = jt.make_outdoor_scene(n_cubes=4, use_bvh=False)
+@pytest.mark.parametrize("n_cubes,blocks", [(4, 1), (24, 2)])
+def test_record_mode_matches_jax(n_cubes, blocks):
+    jg, jm, je, jc = jt.make_outdoor_scene(n_cubes=n_cubes, use_bvh=False)
+    assert jg.feats.block_bounds.shape[0] == blocks
     u = _uniforms(21, RES * RES, 2)
     ref, _, _ = _jax_sample(jg, jm, je, jc, u, sun=True, record=True)
     g, m, e, c = convert.scene(jg, jm, je, jc, device="cpu")
@@ -148,6 +154,61 @@ def test_fused_path_matches_scan_path(name):
     fused = _radiance(out, lambda x: sample_ibl(e.ibl, torch.as_tensor(x)) * e.ibl_power, d,
                       h.hit)
     _assert_forks(fused, scan, name)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_plain_traces_are_exact_and_counted(nee):
+    """On a multi-block scene the plain version traces each of the kernel's
+    trace loops (bounce + NEE, then sun) with ``trace_pairs_plain`` on the
+    rays the kernel traces: every trace equals ``trace_plain`` bit for bit,
+    and its counts add up to what ``stats`` receives."""
+    g, m, e, c = tt.make_outdoor_scene(n_cubes=24, emissive_panel=nee, device="cpu")
+    assert g.feats.block_bounds.shape[0] == 2
+    args, _, _ = _port_args(g, m, e, c, permute=True)
+    n = RES * RES
+    kw = dict(max_bounce=MB, sun_enabled=True, nee=nee,
+              lights=build_light_pack(g, m) if nee else None,
+              uniforms=torch.as_tensor(_uniforms(41, n, 5 if nee else 2)))
+    traces, stats = [], torch.zeros(5, dtype=torch.int64)
+    out = tf.sample_fused_plain(*args, stats=stats, traces=traces, **kw)
+    assert len(traces) == 2 * (MB + 1)  # bounce (+ NEE) and sun per bounce
+    total = torch.zeros(4, dtype=torch.int64)
+    for o, d, h in traces:
+        ref = trace(g, o, d)
+        assert torch.equal(h.t, ref.t) and torch.equal(h.tri, ref.tri) and torch.equal(h.hit, ref.hit)
+        pairs_plain(g.feats, o, d, stats=total)
+    assert traces[0][0].shape[0] > n if nee else traces[0][0].shape[0] <= n
+    assert torch.equal(stats[:4], total) and int(stats[4]) == 0  # no grid syncs in plain
+    assert bool((stats[:4] > 0).all()) and int(stats[2]) >= 1
+    again = tf.sample_fused_plain(*args, **kw)  # counting changes nothing
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+def test_sample_fused_dispatch_by_block_count():
+    """``sample_fused`` sends scenes of ``QUEUE_MIN_BLOCKS`` blocks or more
+    to the queue kernel's wrapper and one-block scenes to the resident
+    kernel's; on the CPU each wrapper takes the plain version."""
+    calls = []
+    real = {name: getattr(tf, name) for name in ("sample_fused_queue", "sample_fused_blocks")}
+    for name, fn in real.items():
+        setattr(tf, name, lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
+    try:
+        for n_cubes, want in ((4, "sample_fused_blocks"), (24, "sample_fused_queue")):
+            g, m, e, c = tt.make_outdoor_scene(n_cubes=n_cubes, device="cpu")
+            nb = g.feats.block_bounds.shape[0]
+            assert (nb >= tf.QUEUE_MIN_BLOCKS) == (want == "sample_fused_queue")
+            args, _, _ = _port_args(g, m, e, c)
+            key = rng.key_from_generator(torch.Generator().manual_seed(3), "cpu")
+            before = dict(tf.LAUNCHES)
+            out = tf.sample_fused(*args, key, 0, max_bounce=1, sun_enabled=True)
+            assert calls[-1] == want and tf.LAUNCHES == before
+            ref = tf.sample_fused_plain(*args, key, 0, max_bounce=1, sun_enabled=True)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    finally:
+        for name, fn in real.items():
+            setattr(tf, name, fn)
+    assert calls == ["sample_fused_blocks", "sample_fused_queue"]
 
 
 def test_fused_dispatch_on_cpu():
