@@ -9,48 +9,52 @@ and rendered at its ini settings with the default engine, on the card:
 
 1. environment and build: the card's name and power limit, versions, and
    the kernels' build time and ``-Xptxas -v`` report;
-2. block-culled closest-hit kernel against plain, once per role (1, 61
-   and 586 triangle blocks): ``trace_blocks`` against ``trace_plain`` on
-   the same 512^2 primary rays plus 65,536 bounce rays, with times, the
-   (ray, triangle) pairs tested and needed, and the least time the card
-   could take (from the needed pairs);
+2. closest-hit kernel against plain, once per role (1, 61 and 586 triangle
+   blocks; one block on the resident kernel, more on the block-culled one):
+   ``trace_blocks`` against ``trace_plain`` on the same 512^2 primary rays
+   plus 65,536 bounce rays, with times, the (ray, triangle) pairs tested and
+   needed, the least time the card could take (from the needed pairs), and
+   the resident kernel's registers;
 3. the main path at full size: ``Scene.load`` -> ``render_scene`` on six
-   renders.  Cornell (1 block) and Cornell with NEE take the fused engine
-   on ``csrc/fused_sample.cu`` (``closest_hit`` once, ``sample_fused``
-   once per sample); outdoor_1000 (47 blocks) and outdoor_1000 with a light
-   panel and NEE take it on ``csrc/fused_queue.cu`` (``pairs`` once,
-   ``sample_fused_queue`` once per sample, ``sample_fused`` never);
-   outdoor_1300 (61 blocks) and outdoor_12500 (586 blocks) take the scan
-   estimator (``pairs`` per trace, ``uniforms`` once per sample).  The
-   launch counts are set to 0 before each render and checked after it;
-   one more render of each is traced with ``torch.profiler`` (kernel time
-   by name, device idle share);
+   renders, all on the fused engine.  Cornell (1 block) and Cornell with NEE
+   take it on ``csrc/fused_sample.cu``'s whole-render launch (``closest_hit``
+   once, ``sample_fused`` once per render); outdoor_1000 (47 blocks),
+   outdoor_1000 with a light panel and NEE, outdoor_1300 (61 blocks) and
+   outdoor_12500 (586 blocks) on ``csrc/fused_queue.cu`` (``pairs`` once,
+   ``sample_fused_queue`` once per sample, ``sample_fused`` and ``uniforms``
+   never).  The launch counts are set to 0 before each render and checked
+   after it; one more render of each is traced with ``torch.profiler``
+   (kernel time by name, device idle share);
 4. the same explicit random stream through the scan path with the kernel
    and with the plain scan on the card, at 64^2, 2 spp, 3 bounces: pixel
    forks below 2 %;
-5. fused kernels against plain, per role (Cornell and Cornell with NEE on
-   ``fused_sample``; outdoor_1000 with sun + IBL, and with its light panel
-   and NEE, on ``fused_queue``), on arguments from the engine's own
-   ``fused_args``: on the same explicit uniforms at 64^2, 2 spp, 3
-   bounces, and at the main path's shape (512^2 rays, Morton-permuted on
-   47 blocks, 4 bounces, the kernel's own Philox stream), pixel forks
-   below 2 % and median difference below 1e-5 at both; record mode on
-   Cornell and outdoor_1000 at both shapes (on outdoor_1000 at 512^2 also
-   through the culled branch of ``fused_sample``); then the kernel's time,
-   pairs tested, its bound from the pairs its traces need (``needed_pairs``
-   over the traces the plain version logs) and the plain version's time
-   (of the compared call).  On the multi-block roles also: the kernel's
-   counts within 1 % of its plain version's, rounds, the grid syncs the
-   kernel counted, one sample under
-   ``set_sync_debug_mode("error")``, its grid (registers, CUDA blocks per
-   SM), the time of a sample with nothing to trace (every lane dead: the
-   passes and grid syncs alone), and the culled branch of ``fused_sample``
-   on the same arguments (against plain, its time and pairs tested);
-6. stream identity: the fused kernel's in-kernel Philox stream against the
+5. fused kernels against plain, per role, on arguments from the engine's
+   own ``fused_args``.  One block (Cornell and Cornell with NEE, on
+   ``fused_sample``): the whole-render launch against ``render_fused_plain``
+   on the same explicit uniforms at 64^2, 2 spp, 3 bounces, and the
+   one-sample launch against ``sample_fused_plain`` there; at the main
+   path's shape (512^2 rays, 4 bounces, 64 samples, the kernel's own Philox
+   stream) the whole-render launch against ``render_fused_plain`` and
+   against 64 one-sample launches with the IBL and the sum on the host (0
+   pixel forks at 1e-3); its time per render and per sample beside the
+   one-sample launch's and the per-sample path's, its bound (from the pairs
+   its traces need), ptxas registers and spills, its grid, items and
+   waves.  Several blocks (outdoor_1000 with sun + IBL, and with its light
+   panel and NEE, outdoor_1300 and outdoor_12500, on ``fused_queue``): one
+   sample at 64^2 on explicit uniforms and at the render's own ray count
+   (512^2; 256^2 on outdoor_12500; Morton-permuted, 4 bounces) on its own
+   stream,
+   its counts within 1 % of its plain version's, rounds, the grid syncs it
+   counted, one sample under ``set_sync_debug_mode("error")``, its grid,
+   and a sample with nothing to trace.  Pixel forks below 2 % and median
+   difference below 1e-5 against plain everywhere; record mode (one sample)
+   on Cornell and outdoor_1000 at both shapes;
+6. stream identity: the fused kernels' in-kernel Philox stream against the
    RNG kernel's stream fed in explicitly gives the same images (0 forks)
-   at the main path's shape; the RNG kernel is bit-equal to its plain
-   version at 2^24 values, with its time, bound and the plain version's
-   time;
+   at each phase-5 role's shape, per sample and (one block) per render; the
+   RNG kernel is bit-equal to its plain version at 2^24 values, with its
+   time, bound and the plain version's time (it is off the main path: the
+   scan estimator draws with it);
 7. the same scene at the same settings with ``fused=True`` and with
    ``fused=False`` (Cornell, outdoor_1000, outdoor_1300, outdoor_12500):
    render times;
@@ -122,6 +126,7 @@ FUSED_FLOPS_NEE = 80
 INT_OPS_PER_PHILOX = 10 * 4 + 9 * 2 + 4 * 3
 SMOKE_TRIES = (64, 2, 3)  # kernel-against-plain renders: res, spp, bounces
 MAIN_SHAPE = (512, 4)  # the fused kernel's rays per side and bounces on the main path
+MAIN_SPP = 64  # samples of the one-block renders on the main path
 
 
 class SmokeFailure(RuntimeError):
@@ -186,6 +191,31 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FP32):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def ptxas(log_text: str, kernel: str) -> dict:
+    """Registers and spills of the kernel whose mangled name holds
+    ``kernel``, from a build's ``-Xptxas -v`` report."""
+    import re
+
+    info, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or kernel not in cur:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                        spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info["registers"] = int(m.group(1))
+    check("registers" in info, f"no ptxas report for a kernel named like {kernel}")
+    return info
+
+
 def launch_counters():
     from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact, proto_grouped
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, pairs, rng
@@ -228,7 +258,7 @@ def role_rays(geom, cam, dev, seed: int, res: int = 512, n_bounce: int = 65536):
     return torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous()
 
 
-def phase_kernel_vs_plain(role, dev):
+def phase_kernel_vs_plain(role, dev, logs: dict):
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
@@ -272,7 +302,9 @@ def phase_kernel_vs_plain(role, dev):
     bound_ms, bound_by = bound(needed * FLOPS_PER_PAIR, nbytes)
     tested_bound_ms = bound(pairs * FLOPS_PER_PAIR + n * nb * FLOPS_PER_SLAB
                             + stagings * RAYS_PER_CTA * FLOPS_PER_SLAB, nbytes)[0]
-    log(f"[phase 2] {role['name']}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    kernel = "resident_hit_kernel" if nb == 1 else "closest_hit_kernel"
+    regs = ptxas(logs["closest_hit"], kernel)
+    log(f"[phase 2] {role['name']}: {kernel} {ms:.4f} ms (ptxas {regs}), plain {plain_ms:.3f} ms, "
         f"pairs tested {pairs} ({pairs / n:.1f} per ray, {pairs / (n * tp):.4f} of all), "
         f"needed {needed} ({needed / n:.1f} per ray), block stagings {stagings}, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({needed * FLOPS_PER_PAIR:.3e} FP32 ops on the needed "
@@ -283,7 +315,8 @@ def phase_kernel_vs_plain(role, dev):
         replaces=role["replaces"], launches=0, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         rays=n, pairs_tested=pairs, pairs_needed=needed, bound_tested_ms=tested_bound_ms,
-        tri_fork_fraction=1 - tri_frac, hit_fork_fraction=1 - hit_frac,
+        tri_fork_fraction=1 - tri_frac, hit_fork_fraction=1 - hit_frac, kernel=kernel,
+        block_stagings=stagings, ptxas=regs,
     )
 
 
@@ -318,7 +351,7 @@ def timed_render(scene, overrides: dict, seed: int = 0):
 def phase_main_path(scn, dev, workdir: Path, smi: str):
     import torch
 
-    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import FUSED_MAX_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import fused_by_default
     from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
     from ensem3a_openclraytracer_tpu_torch.ops.fused import QUEUE_MIN_BLOCKS
 
@@ -327,8 +360,8 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     nb = scene.geometry.feats.block_bounds.shape[0]
     sun = float(scene.env_params().sun_power) != 0.0
     check(sun == scn["sun"], f"{scn['scene']}: sun_enabled {sun}")
-    fused = nb <= FUSED_MAX_BLOCKS
-    check(fused == scn["fused"], f"{scn['scene']}: {nb} blocks, fused engine {fused}")
+    fused = fused_by_default(scene.geometry, dev)
+    check(fused, f"{scn['scene']}: {nb} blocks, the default engine is not the fused one")
     ov = dict(scn.get("overrides", {}))
     timed_render(scene, {**ov, "resolution": 64, "spp": 1}, seed=1)  # warm-up
 
@@ -336,15 +369,13 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     img, dt = timed_render(scene, ov)
     launches = read_launches()
 
-    # every trace of a multi-block scene goes through the pairs kernel, of a
-    # one-block scene through closest_hit; the fused sample of a multi-block
-    # scene through fused_queue, of a one-block scene through fused_sample
+    # the primary trace of a multi-block scene goes through the pairs kernel,
+    # of a one-block scene through closest_hit; the samples of a multi-block
+    # scene through fused_queue (once per sample), of a one-block scene through
+    # fused_sample (once per render)
     hit_kernel = "pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit"
-    if fused:
-        sample_kernel = "sample_fused_queue" if nb >= QUEUE_MIN_BLOCKS else "sample_fused"
-        expected = {hit_kernel: 1, sample_kernel: spp}
-    else:
-        expected = {hit_kernel: 1 + spp * (mb + 1 + int(sun)), "uniforms": spp}
+    queue = nb >= QUEUE_MIN_BLOCKS
+    expected = {hit_kernel: 1, "sample_fused_queue" if queue else "sample_fused": spp if queue else 1}
     expected = {"closest_hit": 0, "pairs": 0, "sample_fused": 0, "sample_fused_queue": 0,
                 "uniforms": 0, "grouped_pairs": 0, "pair_compact": 0,
                 **expected}  # the prototypes are off the render path
@@ -355,19 +386,29 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     check(launches == expected, f"{scn['name']}: launches {launches}, want {expected}")
     rays = res * res * (1 + spp * (mb + 1) * (2 if sun else 1))  # counted as bench.py counts
     log(f"[phase 3] {scn['name']} ({scene.num_tris} tris, {nb} blocks) {res}^2 {spp} spp {mb} "
-        f"bounces sun={sun} engine={'fused' if fused else 'scan'}: load {load_s:.2f} s, render "
+        f"bounces sun={sun} engine=fused: load {load_s:.2f} s, render "
         f"{dt:.3f} s, {rays / dt / 1e6:.1f} Mrays/s, mean {mean:.4f}, launches {launches} "
         f"[{smi}]")
     info = dict(name=scn["name"], res=res, spp=spp, max_bounce=mb, sun=sun, blocks=nb,
-                engine="fused" if fused else "scan", seconds=dt, mrays_per_s=rays / dt / 1e6,
+                engine="fused", seconds=dt, mrays_per_s=rays / dt / 1e6,
                 launches=launches, mean=mean)
     info.update(phase_profile(scene, scn["name"], ov))
     return scene, info
 
 
-# kernel-name substrings of the port's kernels in a profile: the two closest
-# hits, the two fused samples, the RNG
-KERNEL_GROUPS = ("closest_hit", "::pairs_kernel", "fused_sample", "fused_queue", "uniforms")
+# the port's kernels in a profile, by the kernel-name substrings of each
+# group: the one-block and block-culled closest hits, the block-queue closest
+# hit, the one-block fused kernels (a whole render; one sample: both count as
+# launches of sample_fused, and their times stand apart here), the
+# multi-block fused kernel, the RNG
+KERNEL_GROUPS = {
+    "closest_hit": ("resident_hit_kernel", "closest_hit_kernel"),
+    "pairs": ("::pairs_kernel",),
+    "fused_render": ("fused_render_kernel",),
+    "fused_sample": ("fused_sample_kernel",),
+    "fused_queue": ("fused_queue",),
+    "uniforms": ("uniforms",),
+}
 
 
 def phase_profile(scene, name: str, overrides: dict) -> dict:
@@ -402,10 +443,12 @@ def phase_profile(scene, name: str, overrides: dict) -> dict:
             busy += b - max(a, end)
             end = b
     total_us = sum(by_name.values())
-    group_us = {g: sum(v for k, v in by_name.items() if g in k) for g in KERNEL_GROUPS}
+    ours = lambda k, subs: any(x in k for x in subs)
+    group_us = {g: sum(v for k, v in by_name.items() if ours(k, subs))
+                for g, subs in KERNEL_GROUPS.items()}
     other_us = total_us - sum(group_us.values())
     top = sorted(((v, k) for k, v in by_name.items()
-                  if not any(g in k for g in KERNEL_GROUPS)), reverse=True)[:4]
+                  if not any(ours(k, subs) for subs in KERNEL_GROUPS.values())), reverse=True)[:4]
     log(f"[phase 3] {name} profiled render: wall {wall_us / 1e3:.1f} ms (profiler on), device "
         f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}; "
         + ", ".join(f"{g} {v / 1e3:.1f} ms = {v / total_us:.3f}" for g, v in group_us.items())
@@ -414,10 +457,9 @@ def phase_profile(scene, name: str, overrides: dict) -> dict:
     out = dict(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=1 - busy / wall_us, other_kernels_ms=other_us / 1e3)
     for g, v in group_us.items():
-        g = g.strip(":")
         out[f"{g}_ms"] = v / 1e3
         out[f"{g}_share"] = v / total_us
-    hit_us = group_us["closest_hit"] + group_us["::pairs_kernel"]
+    hit_us = group_us["closest_hit"] + group_us["pairs"]
     out["closest_hit_all_share"] = hit_us / total_us  # both closest-hit kernels
     log(f"[phase 3] {name}: closest-hit kernels {hit_us / 1e3:.1f} ms = {hit_us / total_us:.3f} "
         "of device time")
@@ -472,10 +514,10 @@ def fused_image(outs, e):
     return sum(o[0] + o[1] * sample_ibl(e.ibl, o[2]) * e.ibl_power for o in outs) / len(outs)
 
 
-def check_record(role, args, mb, seed, shape, wrappers=("sample_fused",)):
-    """Record mode, kernel (through each of ``ops/fused``'s ``wrappers``)
-    against plain on the kernel's own stream: the recorded uniforms equal,
-    ``tri`` and ``sun_tri`` agreeing on >= 99.5 %."""
+def check_record(role, args, mb, seed, shape):
+    """Record mode, kernel (through ``sample_fused``) against plain on the
+    kernel's own stream: the recorded uniforms equal, ``tri`` and
+    ``sun_tri`` agreeing on >= 99.5 %."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
@@ -485,25 +527,171 @@ def check_record(role, args, mb, seed, shape, wrappers=("sample_fused",)):
                                 args[2].device)
     kw = dict(max_bounce=mb, sun_enabled=role["sun"], record=True)
     rp = fu.sample_fused_plain(*args, key, 1, **kw)
-    for wrapper in wrappers:
-        rk = getattr(fu, wrapper)(*args, key, 1, **kw)
-        agree = [float((a == b).float().mean()) for a, b in zip(rk[4:], rp[4:])]
-        log(f"[phase 5] {role['name']} record mode through {wrapper} at {shape}: u equal "
-            f"{bool(torch.equal(rk[3], rp[3]))}, tri agrees {agree[0]:.5f}, sun_tri agrees "
-            f"{agree[1]:.5f}")
-        check(torch.equal(rk[3], rp[3]),
-              f"{role['name']}: {wrapper} recorded uniforms differ at {shape}")
-        check(min(agree) >= 0.995,
-              f"{role['name']}: {wrapper} record agreement {agree} < 0.995 at {shape}")
+    rk = fu.sample_fused(*args, key, 1, **kw)
+    agree = [float((a == b).float().mean()) for a, b in zip(rk[4:], rp[4:])]
+    log(f"[phase 5] {role['name']} record mode at {shape}: u equal "
+        f"{bool(torch.equal(rk[3], rp[3]))}, tri agrees {agree[0]:.5f}, sun_tri agrees "
+        f"{agree[1]:.5f}")
+    check(torch.equal(rk[3], rp[3]), f"{role['name']}: recorded uniforms differ at {shape}")
+    check(min(agree) >= 0.995, f"{role['name']}: record agreement {agree} < 0.995 at {shape}")
 
 
-def phase_fused_vs_plain(role, dev, smi: str):
-    """Fused kernel against its plain version on one explicit stream at a
-    small shape, then at the main path's shape on the kernel's own stream,
-    with its time and bound; on a multi-block role also its counts against
-    the plain version's, a sample under ``set_sync_debug_mode("error")``,
-    its grid, and the culled branch of ``fused_sample`` head to head.
-    Returns the role's ``kernels`` lines."""
+class NeededPairs:
+    """A ``traces`` list for ``sample_fused_plain`` that keeps only the
+    pairs each logged trace needs (``needed_pairs``), so a whole render's
+    traces need not stay in memory."""
+
+    def __init__(self, feats):
+        self.feats, self.pairs, self.loops, self.rays = feats, 0, 0, 0
+
+    def append(self, trace):
+        o, d, h = trace
+        self.pairs += needed_pairs(self.feats, o, d, h.t)
+        self.loops += 1
+        self.rays += o.shape[0]
+
+
+def fused_bytes(n, tp, nb, lights, out_per_ray):
+    """Bytes a fused launch must move: the primary state read once (57 per
+    lane), its outputs, the packed features and the attribute table, the
+    block bounds and the light columns."""
+    return (n * (57 + out_per_ray) + tp * (4 * 28 + 32) + 32 * nb
+            + (56 * lights.area.shape[0] if lights is not None else 0))
+
+
+def fused_flops(needed, lanes_samples, mb, sun, nee):
+    """FP32 operations of fused samples: the needed pairs of their traces
+    and the shading per lane, sample and bounce."""
+    per_bounce = FUSED_FLOPS_PER_BOUNCE + FUSED_FLOPS_SUN * int(sun) + FUSED_FLOPS_NEE * int(nee)
+    return needed * FLOPS_PER_PAIR + lanes_samples * (mb + 1) * per_bounce
+
+
+def phase_fused_resident(role, dev, smi: str, logs: dict):
+    """Phase 5 on a one-block role: the whole-render launch
+    (``render_fused_resident``) and the one-sample launch against their plain
+    versions at a small shape on explicit uniforms, then at the main path's
+    shape on the kernel's own stream against ``render_fused_plain`` and
+    against one launch per sample with the IBL and the sum on the host, with
+    times, bound, registers, grid and waves.  Returns the role's
+    ``kernels`` line."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+    from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
+
+    res, spp, mb = SMOKE_TRIES
+    g, m, e, c = role["make"](dev)
+    nb = g.feats.block_bounds.shape[0]
+    check(nb == 1, f"{role['name']}: {nb} blocks, want 1")
+    nee = role.get("nee", False)
+    lights = build_light_pack(g, m) if nee else None
+    n_u = 5 if nee else 2
+    ibl = dict(ibl=e.ibl, ibl_power=e.ibl_power)
+    args = fused_inputs(g, m, e, c, res)
+    n = args[2].shape[0]
+    rng = np.random.default_rng(11 + 5 * int(nee))
+    u = torch.as_tensor(rng.random((spp, mb + 1, n, n_u)).astype(np.float32), device=dev)
+    kw = dict(max_bounce=mb, sun_enabled=role["sun"], nee=nee, lights=lights)
+    render_k = fu.render_fused_resident(*args, None, 0, spp, uniforms=u, **ibl, **kw) / spp
+    render_p = fu.render_fused_plain(*args, None, 0, spp, uniforms=u, **ibl, **kw) / spp
+    sample_k = fused_image([fu.sample_fused(*args, uniforms=u[s], **kw) for s in range(spp)], e)
+    sample_p = fused_image([fu.sample_fused_plain(*args, uniforms=u[s], **kw)
+                            for s in range(spp)], e)
+    torch.cuda.synchronize()
+    frac, med, max_err = image_forks(render_k, render_p)
+    frac_s, med_s, max_s = image_forks(sample_k, sample_p)
+    log(f"[phase 5] {role['name']} (1 block) {res}^2 {spp} spp {mb} bounces, explicit uniforms: "
+        f"whole-render launch vs render_fused_plain pixel forks {frac:.5f}, median diff "
+        f"{med:.3e}, max diff {max_err:.3e}; one-sample launches vs sample_fused_plain forks "
+        f"{frac_s:.5f}, median {med_s:.3e}, max {max_s:.3e}")
+    for name, img, f_, m_ in (("render", render_k, frac, med), ("sample", sample_k, frac_s, med_s)):
+        check(bool(torch.isfinite(img).all()), f"{role['name']}: non-finite {name} pixels")
+        check(f_ < 0.02, f"{role['name']}: {name} pixel forks {f_:.5f} >= 0.02")
+        check(m_ < 1e-5, f"{role['name']}: {name} median diff {m_:.3e} >= 1e-5")
+    if role.get("record"):
+        check_record(role, args, mb, 4, f"{res}^2")
+
+    # the main path's shape and stream: 512^2 rays, 4 bounces, the render's
+    # 64 samples on the kernel's own Philox stream
+    (res_t, mb_t), spp_t = MAIN_SHAPE, MAIN_SPP
+    args = fused_inputs(g, m, e, c, res_t)
+    n = args[2].shape[0]
+    key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)
+    kw = dict(max_bounce=mb_t, sun_enabled=role["sun"], nee=nee, lights=lights)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    out_k = fu.render_fused_resident(*args, key, 0, spp_t, stats=stats, **ibl, **kw) / spp_t
+    pairs, stagings, _, slabs, _ = (int(x) for x in stats.cpu())
+    traces = NeededPairs(g.feats)
+    out_p, plain_ms = timed_once(lambda: fu.render_fused_plain(
+        *args, key, 0, spp_t, traces=traces, **ibl, **kw))
+    out_p = out_p / spp_t
+
+    def per_sample_path():
+        acc = torch.zeros((n, 3), device=dev)
+        for s in range(spp_t):
+            rad, esc_thr, esc_dir = fu.sample_fused_blocks(*args, key, s, **kw)
+            acc = acc + rad + esc_thr * (sample_ibl(e.ibl, esc_dir) * e.ibl_power)
+        return acc
+
+    out_s = per_sample_path() / spp_t
+    torch.cuda.synchronize()
+    frac_t, med_t, max_t = image_forks(out_k, out_p)
+    forks_s = int(((out_k - out_s).abs().amax(dim=-1) > 1e-3).sum())
+    max_s = float((out_k - out_s).abs().max())
+    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces, {spp_t} samples, own stream: "
+        f"whole-render launch vs render_fused_plain pixel forks {frac_t:.5f}, median diff "
+        f"{med_t:.3e}, max diff {max_t:.3e}; vs {spp_t} one-sample launches + host IBL and sum: "
+        f"{forks_s} pixel forks at 1e-3, max diff {max_s:.3e}")
+    check(bool(torch.isfinite(out_k).all()), f"{role['name']}: non-finite outputs at {res_t}^2")
+    check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
+    check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
+    check(forks_s == 0, f"{role['name']}: {forks_s} pixel forks against the per-sample launches")
+    if role.get("record"):
+        check_record(role, args, mb_t, 6, f"{res_t}^2")
+
+    ms = cuda_ms(lambda: fu.render_fused_resident(*args, key, 0, spp_t, **ibl, **kw),
+                 iters=role["iters"])
+    sample_ms = cuda_ms(lambda: fu.sample_fused_blocks(*args, key, 0, **kw), iters=role["iters"])
+    path_ms = cuda_ms(per_sample_path, iters=2)
+    plan = fu.render_plan(n, spp_t)
+    regs = {k: ptxas(logs["fused_sample"], k) for k in ("fused_render_kernel", "fused_sample_kernel")}
+    waves = plan["grid"] / (plan["blocks_per_sm"] * plan["sms"])
+    flops = fused_flops(traces.pairs, n * spp_t, mb_t, role["sun"], nee)
+    nbytes = fused_bytes(n, g.feats.edges.shape[-1], nb, lights, 12) + e.ibl.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces, {spp_t} samples: fused_sample "
+        f"whole-render launch {ms:.4f} ms per render = {ms / spp_t:.4f} ms per sample; one-sample "
+        f"launch {sample_ms:.4f} ms; per-sample path ({spp_t} launches + host IBL and sum) "
+        f"{path_ms:.4f} ms; plain {plain_ms:.1f} ms; {traces.loops} trace loops, {traces.rays} rays "
+        f"traced; pairs tested {pairs} ({pairs / (n * spp_t):.1f} per lane and sample), needed "
+        f"{traces.pairs} (tested / needed {pairs / max(traces.pairs, 1):.4f}), slab tests {slabs}, "
+        f"block stagings {stagings}; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
+        f"{nbytes} bytes); {traces.pairs * FLOPS_PER_PAIR / ms / 1e9:.2f} TFLOP/s on the needed "
+        f"pairs; plan {plan} ({waves:.2f} resident waves, {plan['items'] / plan['grid']:.1f} items "
+        f"per CUDA block); ptxas {regs} [{smi}]")
+    return dict(
+        name=role["name"], route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/fused_sample.cu",
+        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0,
+        max_abs_err=max(max_err, max_t), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, unit="one render of 64 samples", samples=spp_t,
+        ms_per_sample=ms / spp_t, bound_ms_per_sample=bound_ms / spp_t, sample_launch_ms=sample_ms,
+        per_sample_path_ms=path_ms, rays=n, pairs_tested=pairs, pairs_needed=traces.pairs,
+        slab_tests=slabs, block_stagings=stagings, plan=plan, waves=waves, ptxas=regs,
+        pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t,
+        sample_pixel_fork_fraction=frac_s, forks_vs_per_sample_launches=forks_s,
+    )
+
+
+def phase_fused_queue(role, dev, smi: str):
+    """Phase 5 on a multi-block role: the queue kernel against its plain
+    version on one explicit stream at a small shape, then at the main path's
+    shape on the kernel's own stream, with its time and bound, its counts
+    against the plain version's, a sample under
+    ``set_sync_debug_mode("error")``, its grid, and a sample with nothing
+    to trace.  Returns the role's ``kernels`` line."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
@@ -514,7 +702,7 @@ def phase_fused_vs_plain(role, dev, smi: str):
     g, m, e, c = role["make"](dev)
     nb = g.feats.block_bounds.shape[0]
     check(nb == role["blocks"], f"{role['name']}: {nb} blocks, want {role['blocks']}")
-    queue = nb >= fu.QUEUE_MIN_BLOCKS
+    check(nb >= fu.QUEUE_MIN_BLOCKS, f"{role['name']}: {nb} blocks do not take the queue kernel")
     nee = role.get("nee", False)
     lights = build_light_pack(g, m) if nee else None
     args = fused_inputs(g, m, e, c, res)
@@ -535,9 +723,9 @@ def phase_fused_vs_plain(role, dev, smi: str):
     if role.get("record"):
         check_record(role, args, mb, 4, f"{res}^2")
 
-    # the main path's shape and stream: 512^2 rays (Morton-permuted on more
-    # than one block), 4 bounces, the kernel's own Philox stream
-    res_t, mb_t = MAIN_SHAPE
+    # the shape and stream of the role's render on the main path: its rays
+    # (Morton-permuted), 4 bounces, the kernel's own Philox stream
+    res_t, mb_t = role.get("res", MAIN_SHAPE[0]), MAIN_SHAPE[1]
     args = fused_inputs(g, m, e, c, res_t)
     n = args[2].shape[0]
     key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)
@@ -545,7 +733,7 @@ def phase_fused_vs_plain(role, dev, smi: str):
     stats = torch.zeros(5, dtype=torch.int64, device=dev)
     out_k = fu.sample_fused(*args, key, 0, stats=stats, **kw)
     pairs, stagings, rounds, slabs, syncs = (int(x) for x in stats.cpu())
-    traces, plain_stats = [], torch.zeros(5, dtype=torch.int64, device=dev)
+    traces, plain_stats = NeededPairs(g.feats), torch.zeros(5, dtype=torch.int64, device=dev)
     out_p, plain_ms = timed_once(lambda: fu.sample_fused_plain(
         *args, key, 0, stats=plain_stats, traces=traces, **kw))
     frac_t, med_t, max_t = image_forks(fused_image([out_k], e), fused_image([out_p], e))
@@ -555,45 +743,26 @@ def phase_fused_vs_plain(role, dev, smi: str):
           f"{role['name']}: non-finite outputs at {res_t}^2")
     check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
     check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
-    if queue:  # shading float order forks a few knife-edge rays, so the counts may differ a little
-        ks, ps = stats[:4].tolist(), plain_stats[:4].tolist()
-        gap = [abs(a - b) / max(b, 1) for a, b in zip(ks, ps)]
-        log(f"[phase 5] {role['name']}: kernel counts (pairs, stagings, rounds, slab tests) "
-            f"{ks}, plain {ps}, relative gaps {[round(x, 6) for x in gap]}; grid syncs {syncs}")
-        check(max(gap) <= 0.01, f"{role['name']}: counts {ks} vs plain {ps} differ by more "
-              f"than 1 %")
-        check(syncs > 0, f"{role['name']}: the kernel counted no grid syncs")
-    if role.get("record"):  # and on several blocks the culled branch of fused_sample.cu
-        check_record(role, args, mb_t, 6, f"{res_t}^2",
-                     ("sample_fused", "sample_fused_blocks") if queue else ("sample_fused",))
+    # shading float order forks a few knife-edge rays, so the counts may differ a little
+    ks, ps = stats[:4].tolist(), plain_stats[:4].tolist()
+    gap = [abs(a - b) / max(b, 1) for a, b in zip(ks, ps)]
+    log(f"[phase 5] {role['name']}: kernel counts (pairs, stagings, rounds, slab tests) "
+        f"{ks}, plain {ps}, relative gaps {[round(x, 6) for x in gap]}; grid syncs {syncs}")
+    check(max(gap) <= 0.01, f"{role['name']}: counts {ks} vs plain {ps} differ by more than 1 %")
+    check(syncs > 0, f"{role['name']}: the kernel counted no grid syncs")
+    if role.get("record"):
+        check_record(role, args, mb_t, 6, f"{res_t}^2")
     ms = cuda_ms(lambda: fu.sample_fused(*args, key, 0, **kw), iters=role["iters"])
-    tp = g.feats.edges.shape[-1]
-    needed = sum(needed_pairs(g.feats, o, d, h.t) for o, d, h in traces)
-    traced = sum(o.shape[0] for o, _, _ in traces)
-    per_bounce = (FUSED_FLOPS_PER_BOUNCE + FUSED_FLOPS_SUN * int(role["sun"])
-                  + FUSED_FLOPS_NEE * int(nee))
-    flops = needed * FLOPS_PER_PAIR + n * (mb_t + 1) * per_bounce
-    nbytes = n * (57 + 36) + tp * (100 + 32) + 32 * nb + (56 * lights.area.shape[0] if nee else 0)
+    flops = fused_flops(traces.pairs, n, mb_t, role["sun"], nee)
+    nbytes = fused_bytes(n, g.feats.edges.shape[-1], nb, lights, 36)
     bound_ms, bound_by = bound(flops, nbytes)
-    source = "fused_queue" if queue else "fused_sample"
-    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces: {source} kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms; {len(traces)} trace loops, {traced} rays traced; pairs tested "
-        f"{pairs} ({pairs / n:.1f} per lane), needed {needed} ({needed / n:.1f} per lane, tested / "
-        f"needed {pairs / max(needed, 1):.4f}), slab tests {slabs}, block stagings {stagings}, "
-        f"rounds {rounds}; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
-        f"{nbytes} bytes); {needed * FLOPS_PER_PAIR / ms / 1e9:.2f} TFLOP/s on the needed pairs "
-        f"[{smi}]")
-    line = dict(
-        name=role["name"], route="cuda",
-        source=f"ensem3a_openclraytracer_tpu_torch/csrc/{source}.cu",
-        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0,
-        max_abs_err=max(max_err, max_t), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None, rays=n, pairs_tested=pairs, pairs_needed=needed,
-        slab_tests=slabs, block_stagings=stagings, rounds=rounds,
-        pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t,
-    )
-    if not queue:
-        return [line]
+    log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces: fused_queue kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms; {traces.loops} trace loops, {traces.rays} rays traced; pairs "
+        f"tested {pairs} ({pairs / n:.1f} per lane), needed {traces.pairs} ({traces.pairs / n:.1f} "
+        f"per lane, tested / needed {pairs / max(traces.pairs, 1):.4f}), slab tests {slabs}, block "
+        f"stagings {stagings}, rounds {rounds}; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} "
+        f"FP32 ops, {nbytes} bytes); {traces.pairs * FLOPS_PER_PAIR / ms / 1e9:.2f} TFLOP/s on the "
+        f"needed pairs [{smi}]")
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -603,14 +772,6 @@ def phase_fused_vs_plain(role, dev, smi: str):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     grid = fu.queue_grid()
-    # the culled branch of fused_sample.cu on the same arguments: the engine before the queues
-    cstats = torch.zeros(5, dtype=torch.int64, device=dev)
-    out_c = fu.sample_fused_blocks(*args, key, 0, stats=cstats, **kw)
-    frac_c, med_c, max_c = image_forks(fused_image([out_c], e), fused_image([out_p], e))
-    check(frac_c < 0.02 and med_c < 1e-5,
-          f"{role['name']}: culled branch vs plain forks {frac_c:.5f}, median {med_c:.3e}")
-    culled_ms = cuda_ms(lambda: fu.sample_fused_blocks(*args, key, 0, **kw), iters=3)
-    c_pairs, c_stagings, _, c_slabs, _ = (int(x) for x in cstats.cpu())
     # a sample with nothing to trace (every lane dead): the launch's fixed cost, its lane
     # passes and the grid syncs around empty trace loops
     dead = args[:7] + (torch.zeros_like(args[7]),) + args[8:]
@@ -619,22 +780,18 @@ def phase_fused_vs_plain(role, dev, smi: str):
     empty_syncs = int(estats[4])
     empty_ms = cuda_ms(lambda: fu.sample_fused(*dead, key, 0, **kw), iters=role["iters"])
     log(f"[phase 5] {role['name']}: one sample under set_sync_debug_mode('error') passed; grid "
-        f"{grid}; culled branch (fused_sample) {culled_ms:.4f} ms vs fused_queue {ms:.4f} ms "
-        f"({culled_ms / ms:.2f}x), its pairs tested {c_pairs} ({c_pairs / n:.1f} per lane), "
-        f"stagings {c_stagings}, forks vs plain {frac_c:.5f}; a sample with nothing to trace "
-        f"{empty_ms:.4f} ms ({empty_syncs} grid syncs counted; the full sample counted "
-        f"{syncs}) [{smi}]")
-    line.update(grid=grid, culled_ms=culled_ms, culled_pairs_tested=c_pairs,
-                empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs)
-    culled = dict(
-        name=role["name"].replace("sample_fused:", "sample_fused_culled:"), route="cuda",
-        source="ensem3a_openclraytracer_tpu_torch/csrc/fused_sample.cu",
-        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0, max_abs_err=max_c,
-        ms=culled_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        rays=n, pairs_tested=c_pairs, pairs_needed=needed, slab_tests=c_slabs,
-        block_stagings=c_stagings, pixel_fork_fraction_main_shape=frac_c,
+        f"{grid}; a sample with nothing to trace {empty_ms:.4f} ms ({empty_syncs} grid syncs "
+        f"counted; the full sample counted {syncs}) [{smi}]")
+    return dict(
+        name=role["name"], route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/fused_queue.cu",
+        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=0,
+        max_abs_err=max(max_err, max_t), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, unit="one sample", rays=n, pairs_tested=pairs,
+        pairs_needed=traces.pairs, slab_tests=slabs, block_stagings=stagings, rounds=rounds,
+        pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t, grid=grid,
+        empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs,
     )
-    return [line, culled]
 
 
 def phase_stream_identity(roles, dev):
@@ -647,8 +804,9 @@ def phase_stream_identity(roles, dev):
     from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
     from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
-    (res, mb), spp = MAIN_SHAPE, 2
+    mb, spp = MAIN_SHAPE[1], 2
     for role in roles:
+        res = role.get("res", MAIN_SHAPE[0])
         g, m, e, c = role["make"](dev)
         nee = role.get("nee", False)
         args = fused_inputs(g, m, e, c, res)
@@ -656,14 +814,23 @@ def phase_stream_identity(roles, dev):
         key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(8), dev)
         kw = dict(max_bounce=mb, sun_enabled=role["sun"], nee=nee,
                   lights=build_light_pack(g, m) if nee else None)
+        fed_u = [rg.uniforms(key, (mb + 1, n, 5 if nee else 2), s) for s in range(spp)]
         own = fused_image([fu.sample_fused(*args, key, s, **kw) for s in range(spp)], e)
-        fed = fused_image([fu.sample_fused(*args, uniforms=rg.uniforms(
-            key, (mb + 1, n, 5 if nee else 2), s), **kw) for s in range(spp)], e)
-        forks = int(((own - fed).abs().amax(dim=-1) > 1e-3).sum())
-        log(f"[phase 6] {role['name']} at {res}^2, {mb} bounces, {spp} samples: in-kernel "
-            f"stream vs RNG-kernel stream: {forks} pixel forks, bit-equal "
-            f"{bool(torch.equal(own, fed))}")
-        check(forks == 0, f"{role['name']}: {forks} pixel forks between the two streams")
+        fed = fused_image([fu.sample_fused(*args, uniforms=fed_u[s], **kw) for s in range(spp)], e)
+        pairs = [("one-sample launches", own, fed)]
+        if g.feats.block_bounds.shape[0] == 1:  # and the whole-render launch
+            ibl = dict(ibl=e.ibl, ibl_power=e.ibl_power)
+            pairs.append(("whole-render launch",
+                          fu.render_fused_resident(*args, key, 0, spp, **ibl, **kw),
+                          fu.render_fused_resident(*args, None, 0, spp,
+                                                   uniforms=torch.stack(fed_u), **ibl, **kw)))
+        for what, a, b in pairs:
+            forks = int(((a - b).abs().amax(dim=-1) > 1e-3).sum())
+            log(f"[phase 6] {role['name']} {what} at {res}^2, {mb} bounces, {spp} samples: "
+                f"in-kernel stream vs RNG-kernel stream: {forks} pixel forks, bit-equal "
+                f"{bool(torch.equal(a, b))}")
+            check(forks == 0, f"{role['name']}: {forks} pixel forks between the two streams "
+                  f"({what})")
 
     n = 1 << 24
     key = torch.tensor([0x2545F491, -0x61C88647], dtype=torch.int32, device=dev)
@@ -1071,21 +1238,20 @@ def main() -> int:
              make=outdoor(12500), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:330",
              render_res=256),
     ]
-    kernels = [phase_kernel_vs_plain(r, dev) for r in roles]
+    kernels = [phase_kernel_vs_plain(r, dev, logs) for r in roles]
 
     scenes = [  # the main path: renders at the scene's ini settings, default engine
-        dict(name="cornell", scene="cornell", make=cornell, render=(512, 64, 4), sun=False,
-             fused=True),
-        dict(name="cornell_nee", scene="cornell", make=cornell, render=(512, 64, 4), sun=False,
-             fused=True, overrides={"nee": True}),
+        dict(name="cornell", scene="cornell", make=cornell, render=(512, MAIN_SPP, 4), sun=False),
+        dict(name="cornell_nee", scene="cornell", make=cornell, render=(512, MAIN_SPP, 4),
+             sun=False, overrides={"nee": True}),
         dict(name="outdoor_1000", scene="outdoor_1000", make=outdoor(1000), render=(512, 16, 4),
-             sun=True, fused=True),
+             sun=True),
         dict(name="outdoor_1000_nee", scene="outdoor_1000_panel", make=outdoor_panel,
-             render=(512, 16, 4), sun=True, fused=True, overrides={"nee": True}),
+             render=(512, 16, 4), sun=True, overrides={"nee": True}),
         dict(name="outdoor_1300", scene="outdoor_1300", make=outdoor(1300), render=(512, 16, 4),
-             sun=True, fused=False),
+             sun=True),
         dict(name="outdoor_12500", scene="outdoor_12500", make=outdoor(12500),
-             render=(256, 16, 4), sun=True, fused=False),
+             render=(256, 16, 4), sun=True),
     ]
     (ROOT / "build").mkdir(exist_ok=True)
     renders, loaded = [], {}
@@ -1098,7 +1264,7 @@ def main() -> int:
         # 0 on the multi-block renders: their traces go through the pairs kernel
         k["launches"] = by_render[scene_name]["closest_hit"]
         k["role_on_main_path"] = k["launches"] > 0
-    for kern in ("closest_hit", "pairs", "sample_fused", "sample_fused_queue", "uniforms"):
+    for kern in ("closest_hit", "pairs", "sample_fused", "sample_fused_queue"):
         total = sum(r[kern] for r in by_render.values())
         check(total > 0, f"the main path launched no {kern} kernel")
 
@@ -1114,18 +1280,23 @@ def main() -> int:
              make=cornell, iters=20, nee=True),
         dict(name="sample_fused:outdoor_1000_nee", render="outdoor_1000_nee", blocks=panel_blocks,
              sun=True, make=outdoor_panel, iters=10, nee=True),
+        # the queue kernel at the other block counts and ray counts of the main path
+        dict(name="sample_fused:outdoor_1300", render="outdoor_1300", blocks=61, sun=True,
+             make=outdoor(1300), iters=10),
+        dict(name="sample_fused:outdoor_12500", render="outdoor_12500", blocks=586, sun=True,
+             make=outdoor(12500), iters=5, res=256),
     ]
     for fr in fused_roles:
-        for line in phase_fused_vs_plain(fr, dev, smi):
-            # each kernel's launches in the role's render; the culled branch is off the path
-            kern = {"fused_queue": "sample_fused_queue",
-                    "fused_sample": "sample_fused"}[Path(line["source"]).stem]
-            line["launches"] = by_render[fr["render"]][kern]
-            if "culled" in line["name"]:
-                check(line["launches"] == 0, f"{fr['render']}: the culled branch ran on the path")
-            kernels.append(line)
+        if fr["blocks"] == 1:
+            line, kern = phase_fused_resident(fr, dev, smi, logs), "sample_fused"
+        else:
+            line, kern = phase_fused_queue(fr, dev, smi), "sample_fused_queue"
+        line["launches"] = by_render[fr["render"]][kern]  # in the role's render
+        kernels.append(line)
     rng_line = phase_stream_identity(fused_roles, dev)
-    rng_line["launches"] = by_render["outdoor_1300"]["uniforms"]
+    # the scan estimator's stream: off the main path, whose renders all take the fused engine
+    rng_line["launches"] = sum(r["uniforms"] for r in by_render.values())
+    rng_line["on_main_path"] = rng_line["launches"] > 0
     kernels.append(rng_line)
 
     versus = [phase_fused_vs_scan(scn, loaded[scn["name"]]) for scn in scenes

@@ -1,11 +1,21 @@
-// Block-culled closest hit for one CUDA block of rays, shared by
-// csrc/closest_hit.cu (one trace per launch) and csrc/fused_sample.cu (up to
-// three traces per bounce).  Exact f32, as ops/closest_hit.trace_plain:
+// Closest hit of rays on triangle blocks, shared by every closest-hit and
+// fused kernel of the port.  Exact f32, as ops/closest_hit.trace_plain:
 //   w_e = sum_k edges[e][k] * [d, d x o][k]  (e = AB, BC, CA)
 //   inside = all w >= 0 or all w <= 0;  t = ([o,1] . plane) / (d . n)
 //   hit = inside && d.n != 0 && t > MIN_HIT_DIST; closest (t, tri) in
 //   lexicographic order, so ties keep the lowest triangle index whatever the
 //   visit order.  t >= 0.999 * MAX_DIST is a miss (t = MAX_DIST, tri = 0).
+//
+// Two layouts of one block's features in shared memory:
+//   * packed (stage_packed / test_packed): per triangle the 25 feature rows
+//     of TriFeatures.packed as 6 float4s, then row 24 (the normal's z) of every
+//     triangle as a float; one 16-byte broadcast read feeds 4 of a pair test's
+//     ~45 FP32 operations, and each read of a triangle serves R rays.  The
+//     one-block roles (csrc/closest_hit.cu on one block, csrc/fused_sample.cu)
+//     stage their block once per CUDA block and keep it; csrc/pairs.cuh
+//     stages queued blocks in the same layout.
+//   * row-major [FEAT_ROWS][TRI_TILE] (stage_block / test_block): 25 scalar
+//     reads per triangle, used by trace_culled and the two prototypes.
 //
 // trace_culled (any number of triangle blocks; every thread of the CUDA block
 // must call it, inactive lanes included, since it holds barriers):
@@ -22,8 +32,6 @@
 //      t tests its ray against the block's triangles (broadcast reads, no bank
 //      conflicts).  The CUDA block stops once every lane's best t is below the
 //      next block's entry distance.
-// test_block alone serves a one-block scene whose features stay resident in
-// shared memory (no barrier at all).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +44,11 @@ constexpr float MAX_DIST = 1000.0f;
 constexpr float MIN_HIT_DIST = 1e-4f;
 constexpr float MISS_T = MAX_DIST * 0.999f;
 constexpr unsigned long long NO_KEY = ~0ull;
+constexpr int PACK4 = 7;  // float4s per triangle in TriFeatures.packed [tp, 28]
+// One staged block in the packed layout: 6 float4s per triangle, then row 24
+// of each triangle as a float (25,600 bytes); rows 25-27 are padding and stay
+// in device memory.
+constexpr int PACKED_BUF4 = TRI_TILE * 6 + TRI_TILE / 4;
 
 struct Ray {
   float o[3], d[3], inv[3], r6[6];
@@ -128,6 +141,62 @@ __device__ __forceinline__ void test_block(const Ray& r, const float* feat, int 
     if (t > MIN_HIT_DIST && (t < best_t || (t == best_t && g < best_i))) {
       best_t = t;
       best_i = g;
+    }
+  }
+}
+
+// Copy the `tile` triangles of packed features from `src` (the block's first
+// row) into f4 in the packed layout, with plain read-only loads (all threads
+// of the CUDA block take part; the caller puts the barrier after it).
+__device__ __forceinline__ void stage_packed(const float4* __restrict__ src, int tile, float4* f4) {
+  for (int k = threadIdx.x; k < 6 * tile; k += blockDim.x) {
+    const int c = k / 6;
+    f4[k] = __ldg(src + c * PACK4 + (k - 6 * c));
+  }
+  float* fz = reinterpret_cast<float*>(f4 + 6 * TRI_TILE);
+  for (int c = threadIdx.x; c < tile; c += blockDim.x)
+    fz[c] = __ldg(reinterpret_cast<const float*>(src + c * PACK4 + 6));
+}
+
+// test_block for R rays on a block staged in the packed layout: the same
+// terms in the same order.  Rays with act[k] false keep their best.
+template <int R>
+__device__ __forceinline__ void test_packed(const float4* f4, int base, int tile,
+                                            const Ray (&r)[R], const bool (&act)[R],
+                                            float (&best_t)[R], int (&best_i)[R]) {
+  const float* fz = reinterpret_cast<const float*>(f4 + 6 * TRI_TILE);
+  for (int c = 0; c < tile; ++c) {
+    float f[FEAT_ROWS];
+#pragma unroll
+    for (int v = 0; v < 6; ++v) {
+      const float4 x = f4[6 * c + v];
+      f[4 * v] = x.x;
+      f[4 * v + 1] = x.y;
+      f[4 * v + 2] = x.z;
+      f[4 * v + 3] = x.w;
+    }
+    f[24] = fz[c];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float w[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        float acc = f[6 * e] * r[k].r6[0];
+#pragma unroll
+        for (int m = 1; m < 6; ++m) acc = acc + f[6 * e + m] * r[k].r6[m];
+        w[e] = acc;
+      }
+      const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
+                          (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
+      const float den = f[22] * r[k].d[0] + f[23] * r[k].d[1] + f[24] * r[k].d[2];
+      if (!act[k] || !inside || den == 0.0f) continue;
+      const float num = f[18] * r[k].o[0] + f[19] * r[k].o[1] + f[20] * r[k].o[2] + f[21];
+      const float t = num / den;
+      const int g = base + c;
+      if (t > MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && g < best_i[k]))) {
+        best_t[k] = t;
+        best_i[k] = g;
+      }
     }
   }
 }

@@ -18,8 +18,9 @@
 //   test    CUDA blocks take work items (block, up to CHUNK rays) from a
 //           device-side counter.  The next item's block is staged with
 //           cp.async into the second of two shared-memory buffers while this
-//           one is tested; each thread tests RPT rays, so each shared-memory
-//           read of a triangle's features feeds RPT pair tests.  A ray's best
+//           one is tested; each thread tests RPT rays (ch::test_packed), so
+//           each shared-memory read of a triangle's features feeds RPT pair
+//           tests.  A ray's best
 //           hit is folded with a 64-bit atomicMin on (float bits of t) << 32 |
 //           tri, which orders (t, tri) lexicographically for t > 0: the fold
 //           is exact whatever order the items run in.
@@ -40,11 +41,8 @@ namespace cg = cooperative_groups;
 constexpr int THREADS = 128;
 constexpr int RPT = 2;                  // rays per thread in the test phase
 constexpr int CHUNK = THREADS * RPT;    // queued rays per work item
-constexpr int PACK4 = 7;                // float4s per triangle in the packed features [tp, 28]
-// One staged block: rows 0-23 of each triangle as 6 float4s, then row 24 (the
-// normal's z) of each triangle as a float; rows 25-27 are padding and stay in
-// device memory.
-constexpr int BUF4 = ch::TRI_TILE * 6 + ch::TRI_TILE / 4;
+constexpr int PACK4 = ch::PACK4;        // float4s per triangle in the packed features [tp, 28]
+constexpr int BUF4 = ch::PACKED_BUF4;   // one staged block in ch's packed layout
 constexpr int SMEM_BYTES = 2 * BUF4 * 16;  // two buffers: 51,200 bytes
 constexpr int SEL_BLOCKS = 2 * BUF4 / 2;   // bounds rows (two float4s each) per select chunk
 constexpr unsigned long long NONE = ~0ull;  // cursor of a ray that queued nothing yet
@@ -288,48 +286,6 @@ __device__ __forceinline__ void stage_block(const Queues& p, int blk, float4* f4
   for (int c = threadIdx.x; c < p.tile; c += THREADS) cp_async4(fz + c, src + c * PACK4 + 6);
 }
 
-// ch::test_block for RPT rays on the staged layout: the same terms in the
-// same order.
-__device__ __forceinline__ void test_rays(const float4* f4, int base, int tile,
-                                          const ch::Ray (&r)[RPT], const bool (&act)[RPT],
-                                          float (&best_t)[RPT], int (&best_i)[RPT]) {
-  const float* fz = reinterpret_cast<const float*>(f4 + 6 * ch::TRI_TILE);
-  for (int c = 0; c < tile; ++c) {
-    float f[ch::FEAT_ROWS];
-#pragma unroll
-    for (int v = 0; v < 6; ++v) {
-      const float4 x = f4[6 * c + v];
-      f[4 * v] = x.x;
-      f[4 * v + 1] = x.y;
-      f[4 * v + 2] = x.z;
-      f[4 * v + 3] = x.w;
-    }
-    f[24] = fz[c];
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      float w[3];
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        float acc = f[6 * e] * r[k].r6[0];
-#pragma unroll
-        for (int m = 1; m < 6; ++m) acc = acc + f[6 * e + m] * r[k].r6[m];
-        w[e] = acc;
-      }
-      const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
-                          (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
-      const float den = f[22] * r[k].d[0] + f[23] * r[k].d[1] + f[24] * r[k].d[2];
-      if (!act[k] || !inside || den == 0.0f) continue;
-      const float num = f[18] * r[k].o[0] + f[19] * r[k].o[1] + f[20] * r[k].o[2] + f[21];
-      const float t = num / den;
-      const int g = base + c;
-      if (t > ch::MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && g < best_i[k]))) {
-        best_t[k] = t;
-        best_i[k] = g;
-      }
-    }
-  }
-}
-
 // Test: work items from the device-side counter, the next block staged while
 // this one is tested.
 template <bool FRESH>
@@ -369,7 +325,7 @@ __device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned
       best_i[k] = 0;
     }
     if (act[0]) {  // slot tid + THREADS is live only if slot tid is
-      test_rays(smem + buf * BUF4, cur.y * p.tile, p.tile, r, act, best_t, best_i);
+      ch::test_packed(smem + buf * BUF4, cur.y * p.tile, p.tile, r, act, best_t, best_i);
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
         if (!act[k]) continue;

@@ -3,7 +3,9 @@
 // (any number of blocks, state in device memory between the traces).  Term for
 // term as ops/fused.sample_fused_plain: the random draws, the NEE light point
 // and its contribution, Lambert / GGX / tint-glass bounce sampling
-// (ops/bsdf.sample_bounce) and the sun's glass tint.
+// (ops/bsdf.sample_bounce) and the sun's glass tint; and the escape's lat-long
+// IBL lookup (ops/envmap.sample_ibl) for csrc/fused_sample.cu's whole-render
+// launch.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -15,6 +17,10 @@ namespace shade {
 constexpr float PI = 3.14159265358979323846f;
 constexpr float SQRT_2_OVER_PI = 0.79788456080286535588f;
 constexpr int EMISSIVE = 0, GLOSSY = 2, GLASS = 3;
+// float32 constants of ops/envmap.spherical_uv: 0.5 / PI and 1 / PI with PI
+// the float32 pi of ops/sampling
+constexpr float HALF_INV_PI = static_cast<float>(0.5 / 3.14159274101257324219);
+constexpr float INV_PI = static_cast<float>(1.0 / 3.14159274101257324219);
 constexpr int N_ATTR = 8;  // [nx, ny, nz, material type, r, g, b, roughness] per triangle
 
 // The emissive triangles of ops/fused.sample_fused's LightPack, one pointer
@@ -187,6 +193,50 @@ __device__ __forceinline__ void add_sun(const float* __restrict__ attrs, bool sh
     const float sun_light = (unocc ? 1.0f : 0.0f) * sun_power +
                             (glass_occ ? 1.0f : 0.0f) * sa[4 + k] * sun_power;
     rad[k] += thr[k] * sun_light;
+  }
+}
+
+// The environment image seen along d, times its power: ops/envmap.sample_ibl
+// (ibl, d, bilinear) * ibl_power, operation for operation (the products and
+// sums rounded one at a time, as the tensor ops round them: no fused
+// multiply-add).  tex is the [h, w, 3] f32 image, read in place through the
+// read-only path (an 8k map is ~400 MB, so nothing is staged).  Indices
+// truncate toward zero and clamp to the edge, as .to(int64) and clamp do.
+__device__ __forceinline__ void ibl(const float* __restrict__ tex, int h, int w, bool bilinear,
+                                    float power, const float d[3], float out[3]) {
+  const float ss = __fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+                             __fmul_rn(d[2], d[2]));
+  const float inv = __fdiv_rn(1.0f, __fsqrt_rn(fmaxf(ss, 1e-20f)));
+  const float rx = __fmul_rn(d[1], inv), ry = -__fmul_rn(d[2], inv), rz = -__fmul_rn(d[0], inv);
+  const float u = __fadd_rn(__fmul_rn(atan2f(rz, rx), HALF_INV_PI), 0.5f);
+  const float v = __fadd_rn(__fmul_rn(asinf(fminf(fmaxf(ry, -1.0f), 1.0f)), INV_PI), 0.5f);
+  float x = __fmul_rn(u, static_cast<float>(w));
+  float y = __fmul_rn(v, static_cast<float>(h));
+  auto texel = [&](long long yi, long long xi, int k) {
+    return __ldg(tex + (yi * w + xi) * 3 + k);
+  };
+  if (!bilinear) {
+    const long long xi = min(max(static_cast<long long>(x), 0ll), static_cast<long long>(w - 1));
+    const long long yi = min(max(static_cast<long long>(y), 0ll), static_cast<long long>(h - 1));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[k] = __fmul_rn(texel(yi, xi, k), power);
+    return;
+  }
+  x = __fsub_rn(x, 0.5f);
+  y = __fsub_rn(y, 0.5f);
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = __fsub_rn(x, x0), fy = __fsub_rn(y, y0);
+  const long long wm = w - 1, hm = h - 1;
+  const long long x0i = min(max(static_cast<long long>(x0), 0ll), wm);
+  const long long x1i = min(max(x0i + 1, 0ll), wm);
+  const long long y0i = min(max(static_cast<long long>(y0), 0ll), hm);
+  const long long y1i = min(max(y0i + 1, 0ll), hm);
+  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float top = __fadd_rn(__fmul_rn(texel(y0i, x0i, k), gx), __fmul_rn(texel(y0i, x1i, k), fx));
+    const float bot = __fadd_rn(__fmul_rn(texel(y1i, x0i, k), gx), __fmul_rn(texel(y1i, x1i, k), fx));
+    out[k] = __fmul_rn(__fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy)), power);
   }
 }
 

@@ -21,11 +21,14 @@ additions):
   * output: mean over spp (``render_image``/``render_scene`` clamp).
 
 Engines: the scan estimator above, or the fused sample engine
-(``ops/fused.sample_fused``: one CUDA kernel launch per sample runs the
-whole bounce loop).  As in the JAX package, ``fused=None`` picks the
-fused engine for forward renders on the card of scenes up to
-``FUSED_MAX_BLOCKS`` triangle blocks, without explicit uniforms, MIS or
-refraction; the CPU stays on the scan path.
+(``ops/fused``): on a one-block scene one CUDA kernel launch runs the
+whole render (``render_fused_resident``: every sample's bounce loop, the
+IBL of each escape and the sum over samples), on more blocks one launch
+per sample runs its bounce loop (``sample_fused``) and the IBL and the sum
+follow outside.  ``fused=None`` picks the fused engine for forward renders
+on the card, without explicit uniforms, MIS, refraction or a tensor that
+needs a gradient, at any number of triangle blocks
+(:func:`fused_by_default`); the CPU stays on the scan path.
 
 Random numbers: ``uniforms [spp, max_bounce+1, N, 2]`` (plus
 ``light_uniforms [..., 3]`` for NEE) from the caller, or the Philox
@@ -67,13 +70,6 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
 )
 from ensem3a_openclraytracer_tpu_torch.scene.scene import GeometryPack, LightPack
 
-# The JAX package's dispatch rule (its models/pathtracer.py
-# _FUSED_MAX_BLOCKS): up to this many triangle blocks the fused engine is
-# the forward engine.  The port keeps the rule; where the cutover lies on
-# the card is an open measurement (PERF.md).
-FUSED_MAX_BLOCKS = 48
-
-
 class _Escape(NamedTuple):
     """Per-lane escape record: a path leaves the scene at most once."""
 
@@ -111,6 +107,20 @@ def _gather_surface(geom: GeometryPack, materials: MaterialParams, origin, direc
 def _needs_grad(*groups) -> bool:
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for g in groups if g is not None for t in g)
+
+
+def fused_by_default(geom: GeometryPack, device, *, uniforms=None, glass_mode: str = "tint",
+                     mis: bool = False, needs_grad: bool = False) -> bool:
+    """The engine that ``fused=None`` picks: the fused engine for forward
+    renders on the card of any scene with triangle features, unless the
+    caller gives explicit uniforms, refract glass, MIS or a tensor that
+    needs a gradient (the fused engine's refusals); the scan estimator
+    otherwise, and always on the CPU.  The JAX package also caps the fused
+    engine at 48 triangle blocks, a TPU rule that the port does not keep:
+    on the card the fused engine beat the scan estimator at 47, 61 and 586
+    blocks (PERF.md)."""
+    return (torch.device(device).type == "cuda" and geom.feats is not None
+            and uniforms is None and glass_mode == "tint" and not mis and not needs_grad)
 
 
 def radiance_for_rays(
@@ -151,11 +161,9 @@ def radiance_for_rays(
         )
     dev = ray_o.device
     n_rays = ray_o.shape[0]
-    n_blocks = None if geom.feats is None else geom.feats.block_bounds.shape[0]
     if fused is None:
-        fused = (dev.type == "cuda" and n_blocks is not None and n_blocks <= FUSED_MAX_BLOCKS
-                 and uniforms is None and glass_mode == "tint" and not mis
-                 and not _needs_grad(materials, env, lights))
+        fused = fused_by_default(geom, dev, uniforms=uniforms, glass_mode=glass_mode, mis=mis,
+                                 needs_grad=_needs_grad(materials, env, lights))
     if fused:  # the JAX package's refusals
         if mis:
             raise ValueError("mis runs on the scan estimator (fused=False)")
@@ -186,12 +194,18 @@ def radiance_for_rays(
         # the Morton order of their primary hit (one sort for every sample)
         f_args, order = fused_ops.fused_args(geom, materials, env, ray_o, ray_d, primary_hit,
                                              primary_surf)
-        run = fused_ops.sample_fused_plain if engine == "plain" else fused_ops.sample_fused
-        acc = torch.zeros_like(ray_d)
-        for s in range(spp):
-            rad, esc_thr, esc_dir = run(*f_args, key, s, max_bounce=max_bounce,
-                                        sun_enabled=sun_enabled, nee=nee, lights=lights)
-            acc = acc + rad + esc_thr * env_radiance(esc_dir)
+        kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, nee=nee, lights=lights)
+        if geom.feats.block_bounds.shape[0] == 1:  # the whole render in one launch
+            run = (fused_ops.render_fused_plain if engine == "plain"
+                   else fused_ops.render_fused_resident)
+            acc = run(*f_args, key, 0, spp, ibl=env.ibl.contiguous(), ibl_power=env.ibl_power,
+                      ibl_bilinear=ibl_bilinear, **kw)
+        else:  # one launch per sample; the IBL and the sum here
+            run = fused_ops.sample_fused_plain if engine == "plain" else fused_ops.sample_fused
+            acc = torch.zeros_like(ray_d)
+            for s in range(spp):
+                rad, esc_thr, esc_dir = run(*f_args, key, s, **kw)
+                acc = acc + rad + esc_thr * env_radiance(esc_dir)
         if order is not None:
             acc = torch.empty_like(acc).index_copy_(0, order, acc)
         return acc / spp + primary_miss_rad

@@ -5,10 +5,11 @@ Counterpart of the JAX package's ``ops/intersect_mxu.py`` (features and
 the exact ``trace_mxu`` scan).  On the TPU three Pallas kernels carry
 closest-hit queries, one per scene size: ``intersect_mxu._mxu_kernel``
 (one 256-triangle block), ``pairs._tile_loop_kernel`` (2-64 blocks) and
-``pairs._tile_stream_kernel`` (more).  Here the block-culled kernel
-``csrc/closest_hit.cu`` (:func:`trace_blocks`) takes any scene size and
-carries one-block scenes; :func:`trace` sends multi-block scenes to the
-block-queue kernel of ``ops/pairs.py``.
+``pairs._tile_stream_kernel`` (more).  Here ``csrc/closest_hit.cu``
+(:func:`trace_blocks`) takes any scene size: one block with its packed
+features resident in shared memory (the role of ``_mxu_kernel``), more
+blocks with a block-culled trace; :func:`trace` sends multi-block scenes
+to the block-queue kernel of ``ops/pairs.py``.
 
 A ray hits triangle ``A, B, C`` when its Plucker side tests
 ``w = e . [d, d x o]`` against the three edge features share a sign
@@ -32,9 +33,9 @@ from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 
 TRI_TILE = 256  # triangles per culling block (the TPU kernels' TRI_TILE)
 MISS_T = MAX_DIST * 0.999
-# Dynamic shared memory of the kernel: 25 feature rows of TRI_TILE floats
-# plus one 8-byte sort key per block, rounded up to a power of two; a
-# Hopper block may use 232,448 bytes.
+# Dynamic shared memory of the block-culled kernel: 25 feature rows of
+# TRI_TILE floats plus one 8-byte sort key per block, rounded up to a power
+# of two; a Hopper block may use 232,448 bytes.
 MAX_KERNEL_BLOCKS = 16384
 
 # Launches of the CUDA kernel, by kernel name.  Only a launch on the card
@@ -268,7 +269,7 @@ def coherent_order(p: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 _KERNEL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # ray_o, ray_d, n
-    + [ctypes.c_void_p] * 4  # edges, plane, normal_d, block_bounds
+    + [ctypes.c_void_p] * 5  # edges, plane, normal_d, packed, block_bounds
     + [ctypes.c_int] * 3  # tp, tile, nb
     + [ctypes.c_void_p] * 4  # out_t, out_tri, stats, stream
 )
@@ -293,6 +294,19 @@ def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype, dev) -> No
         )
 
 
+def check_packed(feats: TriFeatures, tp: int, dev: torch.device) -> torch.Tensor:
+    """``feats.packed``, checked for a kernel that stages it with 16-byte
+    loads: contiguous f32 ``[tp, 28]`` on ``dev``, it and the block bounds
+    16-byte aligned; raises otherwise."""
+    if feats.packed is None:
+        raise ValueError("features lack their packed copy: build them with build_tri_features")
+    _check(feats.packed, "packed", (tp, PACKED_ROWS), torch.float32, dev)
+    for x, name in ((feats.packed, "packed"), (feats.block_bounds, "block_bounds")):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return feats.packed
+
+
 def check_features(feats: TriFeatures, dev: torch.device) -> Tuple[int, int, int]:
     """``(tp, tile, nb)`` of features that a closest-hit kernel can take on
     ``dev`` (contiguous f32, whole triangle blocks); raises otherwise."""
@@ -311,10 +325,11 @@ def check_features(feats: TriFeatures, dev: torch.device) -> Tuple[int, int, int
 def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
                  stats: torch.Tensor | None = None):
     """Closest hit ``(t [N] f32, tri [N] int32)`` through the CUDA kernel
-    ``csrc/closest_hit.cu`` for rays on the card; rays on the CPU take
-    the plain version.  ``stats`` (int64 ``[2]`` on the card, optional)
-    receives the (ray, triangle) pairs tested and the triangle-block
-    stagings, added to what it holds."""
+    ``csrc/closest_hit.cu`` for rays on the card: on one block the resident
+    kernel (needs ``feats.packed``), on more the block-culled one.  Rays on
+    the CPU take the plain version.  ``stats`` (int64 ``[2]`` on the card,
+    optional) receives the (ray, triangle) pairs tested and the
+    triangle-block stagings, added to what it holds."""
     if ray_o.device.type == "cpu":
         h = trace_plain(feats, ray_o, ray_d)
         return h.t, h.tri.to(torch.int32)
@@ -329,6 +344,7 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
             f"({MAX_KERNEL_BLOCKS} blocks)"
         )
     tp, tile, nb = check_features(feats, dev)
+    packed = check_packed(feats, tp, dev) if nb == 1 else None
     _check(ray_o, "ray_o", (n, 3), torch.float32, dev)
     _check(ray_d, "ray_d", (n, 3), torch.float32, dev)
     if stats is not None:
@@ -340,7 +356,7 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     err = _launcher()(
         ray_o.data_ptr(), ray_d.data_ptr(), n,
         feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
-        feats.block_bounds.data_ptr(), tp, tile, nb,
+        None if packed is None else packed.data_ptr(), feats.block_bounds.data_ptr(), tp, tile, nb,
         out_t.data_ptr(), out_tri.data_ptr(),
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -352,8 +368,8 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
 
 
 # Scenes of at least this many triangle blocks trace through
-# ``ops/pairs.trace_pairs`` on the card; fewer (one block: the features stay
-# resident in shared memory) through ``trace_blocks``.
+# ``ops/pairs.trace_pairs`` on the card; fewer (one block: its packed
+# features stay resident in shared memory) through ``trace_blocks``.
 PAIRS_MIN_BLOCKS = 2
 
 

@@ -1,4 +1,4 @@
-"""The fused sample engine: one whole Monte-Carlo sample per ray in one
+"""The fused sample engine: whole Monte-Carlo samples per ray in one
 kernel launch.
 
 Counterpart of the JAX package's ``ops/fused.py`` (``_make_kernel`` /
@@ -9,20 +9,23 @@ Lambert, GGX or tint-glass sampling, the bounce trace, the escape record
 and the in-loop sun shadow with its glass tint, every trace an exact f32
 closest hit (``t > MIN_HIT_DIST``, the answer of ``trace_plain``):
 
-* ``csrc/fused_sample.cu`` (:func:`sample_fused_blocks`, one-block
-  scenes): one thread per ray with all of its state in registers, the
-  block's features resident in shared memory for the whole sample;
+* ``csrc/fused_sample.cu``, one-block scenes: one thread per ray with all
+  of its state in registers, the block's packed features resident in
+  shared memory.  :func:`render_fused_resident` runs a whole render in one
+  launch (every sample, the IBL of each escape and the sum over samples);
+  :func:`sample_fused_blocks` runs one sample (and record mode);
 * ``csrc/fused_queue.cu`` (:func:`sample_fused_queue`, scenes of
   ``QUEUE_MIN_BLOCKS`` blocks or more): one cooperative launch per
   sample, the rays' state in device memory between the traces, each trace
   the block-queue rounds of ``ops/pairs`` over the whole batch.
 
-:func:`sample_fused` picks between them by block count;
-:func:`sample_fused_plain` computes the same function in plain torch.
+:func:`sample_fused` picks between the per-sample kernels by block count;
+:func:`sample_fused_plain` and :func:`render_fused_plain` compute the same
+functions in plain torch.
 
-The IBL lookup stays outside: a path escapes at most once, so the kernel
-writes ``(rad, esc_thr, esc_dir)`` and the sample's radiance is
-``rad + esc_thr * ibl(esc_dir)``.
+A sample's kernel writes ``(rad, esc_thr, esc_dir)``: a path escapes at
+most once, and its radiance is ``rad + esc_thr * ibl(esc_dir)``, which the
+caller adds (the whole-render launch adds it in the kernel).
 
 Random numbers: an explicit ``uniforms [mb + 1, N, n_u]`` (``n_u`` = 2,
 or 5 with NEE: ``u1, u2`` for the bounce, ``u3, u4, u5`` for the light
@@ -30,9 +33,10 @@ pick and the area sample), or the in-kernel Philox stream of
 ``ops/rng.py`` under ``key`` for sample ``sample``, in which lane ``r``
 draws flat index ``(b N + r) n_u + k`` at bounce ``b``: exactly the
 explicit layout, so ``uniforms(key, (mb + 1, N, n_u), sample)`` fed in
-explicitly gives the same paths.  A lane's index is its position in the
-batch given, which on multi-block scenes is the Morton-permuted order of
-``models/pathtracer``.
+explicitly gives the same paths, and a whole-render launch draws for its
+sample ``s`` what a one-sample launch for ``s`` draws.  A lane's index is
+its position in the batch given, which on multi-block scenes is the
+Morton-permuted order of ``models/pathtracer``.
 
 Attribute table (:func:`build_tri_attrs`): ``[Tp, 8]`` float32, row
 major, one row per triangle ``[nx, ny, nz, material type, r, g, b,
@@ -57,15 +61,14 @@ from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
     sample_bounce,
 )
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
-    MAX_KERNEL_BLOCKS,
-    PACKED_ROWS,
     TriFeatures,
     _check,
     _expand_bits_10,
     check_features,
+    check_packed,
     trace_plain,
 )
-from ensem3a_openclraytracer_tpu_torch.ops.envmap import sun_direction
+from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl, sun_direction
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
     MAX_DIST,
     dot,
@@ -74,22 +77,26 @@ from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
 )
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 from ensem3a_openclraytracer_tpu_torch.ops.pairs import K as PAIRS_K
-from ensem3a_openclraytracer_tpu_torch.ops.pairs import _aligned, trace_pairs_plain
+from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs_plain
 from ensem3a_openclraytracer_tpu_torch.ops.rng import _check_key, uniforms_plain
 
 N_ATTR = 8
 
-# Launches of the CUDA kernels (``csrc/fused_sample.cu``,
-# ``csrc/fused_queue.cu``); only a launch on the card counts.
+# Launches of the CUDA kernels, by kernel source: ``sample_fused`` counts
+# ``csrc/fused_sample.cu`` (a whole render through
+# :func:`render_fused_resident`, or one sample through
+# :func:`sample_fused_blocks`), ``sample_fused_queue`` counts
+# ``csrc/fused_queue.cu``.  Only a launch on the card counts.
 LAUNCHES = {"sample_fused": 0, "sample_fused_queue": 0}
 
 # Scenes of at least this many triangle blocks take ``csrc/fused_queue.cu``
 # on the card (:func:`sample_fused_queue`); one-block scenes keep
 # ``csrc/fused_sample.cu`` with the block's features resident in shared
-# memory (:func:`sample_fused_blocks`).  Measured by chip_smoke.py phase 5 on
-# an H100 80GB HBM3 at 700 W: at outdoor_1000's shape (47 blocks, 512^2
-# lanes, 4 bounces, sun) the queue kernel took 2.87 ms per sample and the
-# culled branch of fused_sample.cu 11.06 ms (2.60 / 10.97 ms with NEE).
+# memory.  Measured by chip_smoke.py phase 5 on an H100 80GB HBM3 at 700 W:
+# at outdoor_1000's shape (47 blocks, 512^2 lanes, 4 bounces, sun) the queue
+# kernel took 2.87 ms per sample and the block-culled trace that
+# fused_sample.cu then had for several blocks 11.06 ms (2.60 / 10.97 ms with
+# NEE).
 QUEUE_MIN_BLOCKS = 2
 
 
@@ -140,22 +147,31 @@ def fused_args(geom, materials, env, ray_o, ray_d, hit, surf, permute: Optional[
     return args, order
 
 
-def _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays):
+def _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays, ns=None):
+    """``n_u``; raises on a bad combination.  ``uniforms`` is one sample's
+    ``[mb + 1, N, n_u]``, or ``[ns, mb + 1, N, n_u]`` with ``ns``."""
     if nee and lights is None:
         raise ValueError("nee=True requires lights")
     if record and nee:
         raise ValueError("record mode is BSDF-only (replay has no NEE)")
     if max_bounce < 0:
         raise ValueError(f"max_bounce {max_bounce} < 0")
+    if ns is not None and ns < 1:
+        raise ValueError(f"ns {ns} < 1")
     n_u = 5 if nee else 2
     if uniforms is None:
         if key is None:
             raise ValueError("give uniforms [max_bounce + 1, N, n_u] or a Philox key")
         _check_key(key)
-    elif tuple(uniforms.shape) != (max_bounce + 1, n_rays, n_u):
-        raise ValueError(f"uniforms: want shape {(max_bounce + 1, n_rays, n_u)}, "
+    elif tuple(uniforms.shape) != _u_shape(max_bounce, n_rays, n_u, ns):
+        raise ValueError(f"uniforms: want shape {_u_shape(max_bounce, n_rays, n_u, ns)}, "
                          f"got {tuple(uniforms.shape)}")
     return n_u
+
+
+def _u_shape(max_bounce, n_rays, n_u, ns=None):
+    one = (max_bounce + 1, n_rays, n_u)
+    return one if ns is None else (ns, *one)
 
 
 def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
@@ -292,6 +308,37 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     return rad, esc_thr, esc_dir
 
 
+def render_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                       primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                       key: Optional[torch.Tensor] = None, s0: int = 0, ns: int = 1, *,
+                       ibl: torch.Tensor, ibl_power: torch.Tensor, ibl_bilinear: bool = True,
+                       max_bounce: int, sun_enabled: bool,
+                       uniforms: Optional[torch.Tensor] = None, nee: bool = False, lights=None,
+                       stats: Optional[torch.Tensor] = None,
+                       traces: Optional[list] = None) -> torch.Tensor:
+    """Samples ``s0 .. s0 + ns - 1`` of every ray, summed: ``[N, 3]``, the
+    sum of ``rad + esc_thr * (sample_ibl(ibl, esc_dir) * ibl_power)`` over
+    :func:`sample_fused_plain`'s samples, added in the order the estimator
+    adds them (``acc + rad + ...`` from zero).  ``uniforms``, when given,
+    is ``[ns, mb + 1, N, n_u]``, else sample ``s`` draws the Philox stream
+    of ``key`` for ``s``.  ``stats`` and ``traces`` go to every sample.
+    The estimator renders from ``s0 = 0``; an offset renders a later run of
+    samples of the same stream, as a render split into sample chunks (the
+    replay estimator's) draws them."""
+    n_rays = primary_p.shape[0]
+    _check_args(max_bounce, uniforms, key, nee, lights, False, n_rays, ns)
+    args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
+            primary_live, in_dir, sun_dir, sun_power)
+    acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=primary_p.device)
+    for j in range(ns):
+        rad, esc_thr, esc_dir = sample_fused_plain(
+            *args, key, s0 + j, max_bounce=max_bounce, sun_enabled=sun_enabled,
+            uniforms=None if uniforms is None else uniforms[j], nee=nee, lights=lights,
+            stats=stats, traces=traces)
+        acc = acc + rad + esc_thr * (sample_ibl(ibl, esc_dir, bilinear=ibl_bilinear) * ibl_power)
+    return acc
+
+
 def sample_fused(feats: TriFeatures, *args, **kw):
     """One Monte-Carlo sample for ``N`` rays from their cached primary
     vertices: ``sample_fused(feats, tri_attrs, p, n, mtype, color, rough,
@@ -316,27 +363,30 @@ def sample_fused(feats: TriFeatures, *args, **kw):
     Scenes of ``QUEUE_MIN_BLOCKS`` blocks or more go to
     :func:`sample_fused_queue`, one-block scenes to
     :func:`sample_fused_blocks`; each takes :func:`sample_fused_plain` for
-    rays on the CPU."""
+    rays on the CPU.  :func:`render_fused_resident` runs every sample of a
+    one-block render in one launch."""
     run = (sample_fused_queue if feats.block_bounds.shape[0] >= QUEUE_MIN_BLOCKS
            else sample_fused_blocks)
     return run(feats, *args, **kw)
 
 
 class _Launch:
-    """The checked arguments and the outputs of one kernel launch, shared by
-    both wrappers: ``head`` (counts and the primary vertex), ``mid`` (the
-    attribute table, the lights and the random stream) and ``tail`` (the
-    outputs, stats and stream) of the C entry points' argument lists."""
+    """The checked arguments of one kernel launch, shared by the three
+    wrappers: ``head`` (counts and the primary vertex), ``feat`` (the packed
+    features: ``packed, bounds, tp, tile, nb``) and ``mid`` (the attribute
+    table, the lights and the random stream) of the C entry points'
+    argument lists; ``tail()`` adds one sample's outputs."""
 
     def __init__(self, feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color,
                  primary_rough, primary_live, in_dir, sun_dir, sun_power, key, sample, *,
-                 max_bounce, sun_enabled, uniforms, nee, lights, record, stats):
+                 max_bounce, sun_enabled, uniforms, nee, lights, record, stats, ns=None):
         dev = primary_p.device
         if dev.type != "cuda":
-            raise ValueError(f"sample_fused runs on cuda or cpu, not {dev}")
+            raise ValueError(f"the fused kernels run on cuda or cpu, not {dev}")
         n = primary_p.shape[0]
-        n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n)
+        n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n, ns)
         self.tp, self.tile, self.nb = check_features(feats, dev)
+        check_packed(feats, self.tp, dev)
         f32, i32 = torch.float32, torch.int32
         sun_dir, sun_power = sun_dir.reshape(3), sun_power.reshape(1)
         for x, name, shape, dt in (
@@ -357,34 +407,42 @@ class _Launch:
                                       ((n_lights, 3),) * 4 + ((n_lights,),) * 2):
                 _check(x, f"lights.{name}", shape, f32, dev)
         if uniforms is not None:
-            _check(uniforms, "uniforms", (max_bounce + 1, n, n_u), f32, dev)
+            _check(uniforms, "uniforms", _u_shape(max_bounce, n, n_u, ns), f32, dev)
         if key is not None:
             _check(key, "key", (2,), i32, dev)
         if stats is not None:
             _check(stats, "stats", (5,), torch.int64, dev)
-        mb1 = max_bounce + 1
-        rad = torch.empty((n, 3), dtype=f32, device=dev)
-        esc_thr = torch.empty_like(rad)
-        esc_dir = torch.empty_like(rad)
-        self.out = (rad, esc_thr, esc_dir)
-        rec = (None, None, None)
-        if record:  # without sun the kernels write no sun record
-            rec = (torch.empty((mb1, n, 2), dtype=f32, device=dev),
-                   torch.empty((mb1, n), dtype=i32, device=dev),
-                   torch.empty((mb1, n), dtype=i32, device=dev) if sun_enabled
-                   else torch.full((mb1, n), -1, dtype=i32, device=dev))
-            self.out += rec
         ptr = lambda x: None if x is None else x.data_ptr()
-        self.n, self.dev = n, dev
+        self.n, self.dev, self.mb1, self.sun, self.stats = n, dev, max_bounce + 1, sun_enabled, stats
         self.head = (n, max_bounce, int(sun_enabled), int(nee), int(record),
                      *(x.data_ptr() for x in (primary_p, primary_n, primary_mtype, primary_color,
                                               primary_rough, primary_live, in_dir, sun_dir,
                                               sun_power)))
+        self.feat = (feats.packed.data_ptr(), feats.block_bounds.data_ptr(), self.tp, self.tile,
+                     self.nb)
         self.mid = (tri_attrs.data_ptr(), *(ptr(x) for x in light_cols), n_lights,
                     ptr(uniforms), ptr(key), int(sample))
-        self.tail = (rad.data_ptr(), esc_thr.data_ptr(), esc_dir.data_ptr(), ptr(rec[0]),
-                     ptr(rec[1]), ptr(rec[2]) if sun_enabled else None,
-                     ptr(stats), torch.cuda.current_stream(dev).cuda_stream)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def tail(self, record):
+        """One sample's outputs ``(rad, esc_thr, esc_dir[, u, tri, sun_tri])``
+        and the last arguments of a one-sample entry point."""
+        n, mb1, dev, f32, i32 = self.n, self.mb1, self.dev, torch.float32, torch.int32
+        rad = torch.empty((n, 3), dtype=f32, device=dev)
+        esc_thr = torch.empty_like(rad)
+        esc_dir = torch.empty_like(rad)
+        out = (rad, esc_thr, esc_dir)
+        rec = (None, None, None)
+        if record:  # without sun the kernels write no sun record
+            rec = (torch.empty((mb1, n, 2), dtype=f32, device=dev),
+                   torch.empty((mb1, n), dtype=i32, device=dev),
+                   torch.empty((mb1, n), dtype=i32, device=dev) if self.sun
+                   else torch.full((mb1, n), -1, dtype=i32, device=dev))
+            out += rec
+        ptr = lambda x: None if x is None else x.data_ptr()
+        args = (rad.data_ptr(), esc_thr.data_ptr(), esc_dir.data_ptr(), ptr(rec[0]), ptr(rec[1]),
+                ptr(rec[2]) if self.sun else None, ptr(self.stats), self.stream)
+        return out, args
 
 
 _ARGTYPES_HEAD = (
@@ -392,28 +450,41 @@ _ARGTYPES_HEAD = (
     + [ctypes.c_void_p] * 7  # p, n, mtype, color, rough, live, in_dir
     + [ctypes.c_void_p] * 2  # sun_dir [3], sun_power [1]
 )
+_ARGTYPES_FEAT = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
 _ARGTYPES_MID = (
     [ctypes.c_void_p]  # attrs
     + [ctypes.c_void_p] * 6 + [ctypes.c_int]  # light v0, v1, v2, n, power, area; count
-    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # uniforms, key, sample
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # uniforms, key, sample (or s0)
 )
 _ARGTYPES_TAIL = (
     [ctypes.c_void_p] * 6  # rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
     + [ctypes.c_void_p] * 2  # stats, stream
 )
+_PLAN_KEYS = ("chunks", "per_chunk", "grid", "blocks_per_sm", "sms", "registers", "threads",
+              "smem_bytes", "local_bytes", "items")
 
 
 @functools.cache
-def _launcher():
-    """``csrc/fused_sample.cu``'s C entry point, built and typed on first use."""
+def _sample_lib():
+    """``csrc/fused_sample.cu``'s library with its C entry points typed,
+    built on first use."""
     from ensem3a_openclraytracer_tpu_torch import _build
 
-    fn = _build.load("fused_sample").fused_sample_launch
-    fn.argtypes = (_ARGTYPES_HEAD
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3  # edges, plane, normal_d, bounds; tp, tile, nb
-                   + _ARGTYPES_MID + _ARGTYPES_TAIL)
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("fused_sample")
+    lib.fused_sample_launch.argtypes = (_ARGTYPES_HEAD + _ARGTYPES_FEAT + _ARGTYPES_MID
+                                        + _ARGTYPES_TAIL)
+    lib.fused_sample_launch.restype = ctypes.c_int
+    lib.fused_render_launch.argtypes = (
+        _ARGTYPES_HEAD[:4] + _ARGTYPES_HEAD[5:]  # no record
+        + _ARGTYPES_FEAT + _ARGTYPES_MID
+        + [ctypes.c_int]  # ns
+        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]  # ibl, h, w, bilinear, power
+        + [ctypes.c_int] * 3  # chunks, per, grid
+        + [ctypes.c_void_p] * 5)  # partial, ctrl, out, stats, stream
+    lib.fused_render_launch.restype = ctypes.c_int
+    lib.fused_render_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fused_render_plan.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache
@@ -423,10 +494,8 @@ def _queue_lib():
     from ensem3a_openclraytracer_tpu_torch import _build
 
     lib = _build.load("fused_queue")
-    lib.fused_queue_launch.argtypes = (
-        _ARGTYPES_HEAD
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
-        + _ARGTYPES_MID + [ctypes.c_void_p] + _ARGTYPES_TAIL)  # scratch
+    lib.fused_queue_launch.argtypes = (_ARGTYPES_HEAD + _ARGTYPES_FEAT + _ARGTYPES_MID
+                                       + [ctypes.c_void_p] + _ARGTYPES_TAIL)  # scratch
     lib.fused_queue_launch.restype = ctypes.c_int
     lib.fused_queue_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.fused_queue_scratch_bytes.restype = ctypes.c_longlong
@@ -448,36 +517,59 @@ def queue_grid() -> dict:
                     out))
 
 
+def render_plan(n_rays: int, ns: int) -> dict:
+    """:func:`render_fused_resident`'s launch on the current card for
+    ``n_rays`` rays and ``ns`` samples: sample chunks and samples per chunk,
+    the grid (one resident wave), the occupancy API's CUDA blocks per SM,
+    SMs, registers per thread, threads per CUDA block, static shared memory,
+    local memory (spills and stack) per thread, and the work items (tiles of
+    128 lanes times chunks).  Asked of the card once per (card, rays,
+    samples)."""
+    return dict(zip(_PLAN_KEYS, _plan(torch.cuda.current_device(), int(n_rays), int(ns))))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device: int, n_rays: int, ns: int) -> tuple:
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = _sample_lib().fused_render_plan(n_rays, ns, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_sample render kernel: no launch plan (CUDA error {err})")
+    return tuple(out)
+
+
+def _one_block(feats: TriFeatures, what: str) -> None:
+    nb = feats.block_bounds.shape[0]
+    if nb != 1:
+        raise ValueError(f"{what} takes one triangle block, not {nb}: sample_fused sends "
+                         f"scenes of {QUEUE_MIN_BLOCKS} blocks or more to sample_fused_queue")
+
+
 def sample_fused_blocks(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
                         primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
                         key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
                         sun_enabled: bool, uniforms: Optional[torch.Tensor] = None,
                         nee: bool = False, lights=None, record: bool = False,
                         stats: Optional[torch.Tensor] = None):
-    """:func:`sample_fused` through ``csrc/fused_sample.cu`` (one thread
-    per ray, its state in registers; each trace the CUDA block's cull ->
-    sort -> visit, or the resident block of a one-block scene) for rays on
-    the card, on up to ``MAX_KERNEL_BLOCKS`` blocks; rays on the CPU take
-    :func:`sample_fused_plain`.  ``stats`` receives no rounds and no grid
-    syncs."""
+    """:func:`sample_fused` on a one-block scene through
+    ``csrc/fused_sample.cu`` (one thread per ray, its state in registers,
+    the block's packed features resident in shared memory) for rays on the
+    card; rays on the CPU take :func:`sample_fused_plain`.  Raises on more
+    than one block.  ``stats`` receives no rounds and no grid syncs."""
+    _one_block(feats, "sample_fused_blocks")
     kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
               lights=lights, record=record)
     args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
             primary_live, in_dir, sun_dir, sun_power, key, sample)
     if primary_p.device.type == "cpu":
         return sample_fused_plain(*args, stats=stats, **kw)
-    if feats.block_bounds.shape[0] > MAX_KERNEL_BLOCKS:
-        raise ValueError(f"{feats.block_bounds.shape[0]} triangle blocks exceed the kernel's "
-                         f"visit list ({MAX_KERNEL_BLOCKS} blocks)")
     run = _Launch(*args, stats=stats, **kw)
+    out, tail = run.tail(record)
     if run.n:
-        err = _launcher()(
-            *run.head, feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
-            feats.block_bounds.data_ptr(), run.tp, run.tile, run.nb, *run.mid, *run.tail)
+        err = _sample_lib().fused_sample_launch(*run.head, *run.feat, *run.mid, *tail)
         if err != 0:
             raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {err}")
         LAUNCHES["sample_fused"] += 1
-    return run.out
+    return out
 
 
 def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
@@ -498,12 +590,8 @@ def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
             primary_live, in_dir, sun_dir, sun_power, key, sample)
     if primary_p.device.type == "cpu":
         return sample_fused_plain(*args, stats=stats, **kw)
-    if feats.packed is None:
-        raise ValueError("features lack their packed copy: build them with build_tri_features")
     run = _Launch(*args, stats=stats, **kw)
-    _check(feats.packed, "packed", (run.tp, PACKED_ROWS), torch.float32, run.dev)
-    _aligned(feats.packed, "packed")
-    _aligned(feats.block_bounds, "block_bounds")
+    out, tail = run.tail(record)
     slots = run.n * (2 if nee else 1)  # a lane's NEE shadow ray shares the bounce trace
     if slots * PAIRS_K >= 2 ** 31:
         raise ValueError(f"{slots} rays x {PAIRS_K} picks overflow the kernel's int32 queue")
@@ -511,10 +599,58 @@ def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         lib = _queue_lib()
         scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
                               dtype=torch.uint8, device=run.dev)
-        err = lib.fused_queue_launch(
-            *run.head, feats.packed.data_ptr(), feats.block_bounds.data_ptr(), run.tp, run.tile,
-            run.nb, *run.mid, scratch.data_ptr(), *run.tail)
+        err = lib.fused_queue_launch(*run.head, *run.feat, *run.mid, scratch.data_ptr(), *tail)
         if err != 0:
             raise RuntimeError(f"fused_queue kernel launch failed: CUDA error {err}")
         LAUNCHES["sample_fused_queue"] += 1
-    return run.out
+    return out
+
+
+def render_fused_resident(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                          primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                          key: Optional[torch.Tensor] = None, s0: int = 0, ns: int = 1, *,
+                          ibl: torch.Tensor, ibl_power: torch.Tensor, ibl_bilinear: bool = True,
+                          max_bounce: int, sun_enabled: bool,
+                          uniforms: Optional[torch.Tensor] = None, nee: bool = False,
+                          lights=None, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`render_fused_plain` on a one-block scene in one launch of
+    ``csrc/fused_sample.cu`` for rays on the card: ``[N, 3]``, the sum over
+    samples ``s0 .. s0 + ns - 1`` of ``rad + esc_thr * ibl(esc_dir) *
+    ibl_power``, each sample drawing what :func:`sample_fused_blocks` draws
+    for it.  The launch is persistent (:func:`render_plan`); a chunk of
+    samples sums into a scratch ``[chunks, N, 3]`` that the kernel adds up
+    in chunk order.  Rays on the CPU take :func:`render_fused_plain`.
+    Raises on more than one block.  ``stats`` (int64 ``[5]``) receives
+    pairs tested, stagings (one per CUDA block) and slab tests.  ``s0`` is
+    as :func:`render_fused_plain`'s."""
+    _one_block(feats, "render_fused_resident")
+    kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
+              lights=lights)
+    args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
+            primary_live, in_dir, sun_dir, sun_power, key, s0)
+    if primary_p.device.type == "cpu":
+        return render_fused_plain(*args, ns, ibl=ibl, ibl_power=ibl_power,
+                                  ibl_bilinear=ibl_bilinear, stats=stats, **kw)
+    run = _Launch(*args, record=False, stats=stats, ns=ns, **kw)
+    ibl_power = ibl_power.reshape(1)
+    _check(ibl_power, "ibl_power", (1,), torch.float32, run.dev)
+    if ibl.dim() != 3 or ibl.shape[-1] != 3:
+        raise ValueError(f"ibl: want [H, W, 3], got {tuple(ibl.shape)}")
+    _check(ibl, "ibl", tuple(ibl.shape), torch.float32, run.dev)
+    out = torch.empty((run.n, 3), dtype=torch.float32, device=run.dev)
+    if run.n:
+        plan = render_plan(run.n, ns)
+        chunks = plan["chunks"]
+        partial = (torch.empty((chunks, run.n, 3), dtype=torch.float32, device=run.dev)
+                   if chunks > 1 else None)
+        ctrl = torch.zeros(1 + (run.n + 127) // 128, dtype=torch.int32, device=run.dev)
+        head = run.head[:4] + run.head[5:]  # no record
+        err = _sample_lib().fused_render_launch(
+            *head, *run.feat, *run.mid, int(ns), ibl.data_ptr(), ibl.shape[0], ibl.shape[1],
+            int(ibl_bilinear), ibl_power.data_ptr(), chunks, plan["per_chunk"], plan["grid"],
+            None if partial is None else partial.data_ptr(), ctrl.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), run.stream)
+        if err != 0:
+            raise RuntimeError(f"fused_sample render kernel launch failed: CUDA error {err}")
+        LAUNCHES["sample_fused"] += 1
+    return out

@@ -154,11 +154,6 @@ def kernel_grid(k: int = K) -> dict:
     return dict(zip(("blocks_per_sm", "sms", "registers", "threads", "smem_bytes"), out))
 
 
-def _aligned(x: torch.Tensor, name: str) -> None:
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
                 stats: torch.Tensor | None = None, k: int = K) -> Hit:
     """Closest hit ``(t, tri, hit)`` through the CUDA kernel
@@ -176,13 +171,9 @@ def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     dev = ray_o.device
     n = ray_o.shape[0]
     tp, tile, nb = ch.check_features(feats, dev)
-    if feats.packed is None:
-        raise ValueError("features lack their packed copy: build them with build_tri_features")
-    ch._check(feats.packed, "packed", (tp, ch.PACKED_ROWS), torch.float32, dev)
+    ch.check_packed(feats, tp, dev)
     ch._check(ray_o, "ray_o", (n, 3), torch.float32, dev)
     ch._check(ray_d, "ray_d", (n, 3), torch.float32, dev)
-    _aligned(feats.packed, "packed")
-    _aligned(feats.block_bounds, "block_bounds")
     if stats is not None:
         ch._check(stats, "stats", (4,), torch.int64, dev)
     if n * k >= 2 ** 31:

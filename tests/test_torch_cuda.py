@@ -1,9 +1,12 @@
 """Card-only tests of the port's CUDA kernels against their plain versions
 on the card: the closest-hit kernel (``trace_blocks`` against
 ``trace_plain``) in each of its three roles (1, 61 and 586 triangle
-blocks), the fused sample kernel (``sample_fused`` against
-``sample_fused_plain``, and record mode of each branch), the Philox kernel (``uniforms`` against
-``uniforms_plain``) and the two prototype closest-hit kernels
+blocks; one block on the resident kernel), the one-block fused sample
+kernel (``sample_fused`` against ``sample_fused_plain``, record mode, and
+its whole-render launch ``render_fused_resident`` against
+``render_fused_plain`` and against one launch per sample), the Philox
+kernel (``uniforms`` against ``uniforms_plain``) and the two prototype
+closest-hit kernels
 (``trace_grouped`` and ``trace_compact`` against their plain versions),
 the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
 ``trace_blocks`` and its plain version's counts) and the multi-block fused
@@ -36,6 +39,7 @@ pytestmark = pytest.mark.cuda
 
 ROLES = {  # role -> (scene maker, expected triangle blocks)
     "one_block": (lambda dev: tt.make_cornell_scene(device=dev), 1),
+    "one_block_outdoor": (lambda dev: tt.make_outdoor_scene(n_cubes=4, device=dev), 1),
     "61_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, device=dev), 61),
     "586_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=12500, device=dev), 586),
 }
@@ -68,9 +72,13 @@ def test_kernel_matches_plain(cuda, role):
     order = ch.coherent_order(o, d)
     o, d = o[order].contiguous(), d[order].contiguous()
     before = ch.LAUNCHES["closest_hit"]
-    t, tri = ch.trace_blocks(g.feats, o, d)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    t, tri = ch.trace_blocks(g.feats, o, d, stats=stats)
     torch.cuda.synchronize()
     assert ch.LAUNCHES["closest_hit"] == before + 1
+    if blocks == 1:  # the resident kernel: one staging per CUDA block of 256 rays
+        assert int(stats[1]) == -(-o.shape[0] // 256)
+        assert 0 < int(stats[0]) <= o.shape[0] * g.feats.edges.shape[-1]
     ref = ch.trace_plain(g.feats, o, d)
     hit = t < ch.MISS_T
     same = tri.to(torch.int64) == ref.tri
@@ -145,8 +153,6 @@ def test_fused_kernel_matches_plain(cuda, role):
 
 RECORD = {  # role -> (scene maker, blocks, wrapper)
     "one_block": (lambda dev: tt.make_cornell_scene(device=dev), 1, "sample_fused_blocks"),
-    "culled_multi_block": (lambda dev: tt.make_outdoor_scene(n_cubes=100, device=dev), None,
-                           "sample_fused_blocks"),
     "queue_multi_block": (lambda dev: tt.make_outdoor_scene(n_cubes=100, device=dev), None,
                           "sample_fused"),
 }
@@ -154,9 +160,8 @@ RECORD = {  # role -> (scene maker, blocks, wrapper)
 
 @pytest.mark.parametrize("role", sorted(RECORD))
 def test_fused_record_matches_plain(cuda, role):
-    """Record mode of each branch against plain: ``fused_sample.cu`` on one
-    block (resident) and on several (culled), and the dispatch's queue
-    kernel on several."""
+    """Record mode of each kernel against plain: ``fused_sample.cu`` on one
+    block, and the dispatch's queue kernel on several."""
     make, blocks, wrapper = RECORD[role]
     g, m, e, args = _fused_inputs(make, cuda)
     nb = g.feats.block_bounds.shape[0]
@@ -171,6 +176,78 @@ def test_fused_record_matches_plain(cuda, role):
     assert torch.equal(k[3], p[3])
     for a, b in zip(k[4:], p[4:]):
         assert float((a == b).float().mean()) >= 0.995
+
+
+RENDER = {  # role -> (scene maker, sun, nee, bilinear IBL)
+    "cornell": (lambda dev: tt.make_cornell_scene(device=dev), False, False, True),
+    "cornell_nee": (lambda dev: tt.make_cornell_scene(device=dev), False, True, True),
+    "outdoor4_sun_ibl": (lambda dev: tt.make_outdoor_scene(n_cubes=4, device=dev), True, False,
+                         True),
+    "outdoor4_sun_ibl_nearest": (lambda dev: tt.make_outdoor_scene(n_cubes=4, device=dev), True,
+                                 False, False),
+}
+
+
+def _render_kw(g, m, e, role):
+    _, sun, nee, bilinear = RENDER[role]
+    return dict(ibl=e.ibl, ibl_power=e.ibl_power, ibl_bilinear=bilinear, max_bounce=3,
+                sun_enabled=sun, nee=nee, lights=build_light_pack(g, m) if nee else None)
+
+
+@pytest.mark.parametrize("role", sorted(RENDER))
+def test_render_kernel_matches_plain(cuda, role):
+    """The whole-render launch against ``render_fused_plain`` at 64^2, 2
+    spp, on explicit uniforms: one launch, pixel forks below 2 %, median
+    |diff| below 1e-5."""
+    g, m, e, args = _fused_inputs(RENDER[role][0], cuda)
+    assert g.feats.block_bounds.shape[0] == 1
+    kw = _render_kw(g, m, e, role)
+    n, spp = args[2].shape[0], 2
+    rng_ = np.random.default_rng(17)
+    u = torch.as_tensor(rng_.random((spp, 4, n, 5 if kw["nee"] else 2)).astype(np.float32),
+                        device=cuda)
+    before = dict(fu.LAUNCHES)
+    stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    k = fu.render_fused_resident(*args, None, 0, spp, uniforms=u, stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES == {**before, "sample_fused": before["sample_fused"] + 1}
+    p = fu.render_fused_plain(*args, None, 0, spp, uniforms=u, **kw)
+    assert k.shape == (n, 3) and bool(torch.isfinite(k).all()) and float(k.mean()) > 0.0
+    diff = (k - p).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) < 0.02
+    assert float(diff.median()) < 1e-5
+    assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[3]) > 0
+
+
+@pytest.mark.parametrize("role", sorted(RENDER))
+def test_render_kernel_matches_per_sample_launches(cuda, role):
+    """On the kernel's own Philox stream, the whole-render launch (64
+    samples, chunked) against 64 one-sample launches plus the IBL and the
+    sum on the host: 0 pixel forks at 1e-3; one sample (one chunk) the
+    same; and the launch draws what the RNG kernel's stream fed in draws."""
+    g, m, e, args = _fused_inputs(RENDER[role][0], cuda)
+    kw = _render_kw(g, m, e, role)
+    n, spp = args[2].shape[0], 64
+    key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(21), cuda)
+    s_kw = {k: kw[k] for k in ("max_bounce", "sun_enabled", "nee", "lights")}
+    env = lambda d: sample_ibl(e.ibl, d, bilinear=kw["ibl_bilinear"]) * e.ibl_power
+    before = dict(fu.LAUNCHES)
+    acc = torch.zeros((n, 3), device=cuda)
+    for s in range(spp):
+        rad, esc_thr, esc_dir = fu.sample_fused_blocks(*args, key, s, **s_kw)
+        acc = acc + rad + esc_thr * env(esc_dir)
+    assert fu.LAUNCHES["sample_fused"] == before["sample_fused"] + spp
+    assert fu.render_plan(n, spp)["chunks"] > 1
+    whole = fu.render_fused_resident(*args, key, 0, spp, **kw)
+    assert fu.LAUNCHES["sample_fused"] == before["sample_fused"] + spp + 1
+    assert int(((whole - acc).abs().amax(dim=-1) > 1e-3).sum()) == 0
+    assert float(whole.mean()) > 0.0
+    one = fu.render_fused_resident(*args, key, 5, 1, **kw)
+    rad, esc_thr, esc_dir = fu.sample_fused_blocks(*args, key, 5, **s_kw)
+    assert int(((one - (rad + esc_thr * env(esc_dir))).abs().amax(dim=-1) > 1e-3).sum()) == 0
+    u = torch.stack([rng.uniforms(key, (4, n, 5 if kw["nee"] else 2), s) for s in range(3)])
+    assert torch.equal(fu.render_fused_resident(*args, key, 0, 3, **kw),
+                       fu.render_fused_resident(*args, None, 0, 3, uniforms=u, **kw))
 
 
 def test_in_kernel_stream_matches_rng_kernel(cuda):
@@ -352,9 +429,6 @@ def test_queue_kernel_matches_plain(cuda, role):
     # one sync to start, per bounce two around each trace loop, four per round
     loops = 1 + int(sun)
     assert int(stats[4]) == 1 + (mb + 1) * 2 * loops + 4 * int(stats[2]) and int(plain_stats[4]) == 0
-    if nb <= ch.MAX_KERNEL_BLOCKS:  # the culled branch of fused_sample.cu stays callable
-        b = _image(fu.sample_fused_blocks(*args, **kw), e)
-        assert float(((b - p).abs().amax(dim=-1) > 1e-3).float().mean()) < 0.02
     if not nee:
         key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(4), cuda)
         rk = fu.sample_fused_queue(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)
