@@ -5,7 +5,8 @@
 
 Builds every CUDA kernel of the port from ``ensem3a_openclraytracer_tpu_torch/csrc``
 and drives the port's main path, a scene loaded from an ``.obj`` + ``.ini``
-and rendered at its ini settings with the default engine, on the card:
+and rendered at its ini settings with the default engine, and its
+gradient path (record, replay, train step, optimisation) on the card:
 
 1. environment and build: the card's name and power limit, versions, and
    the kernels' build time and ``-Xptxas -v`` report;
@@ -79,7 +80,28 @@ and rendered at its ini settings with the default engine, on the card:
    ``set_sync_debug_mode("error")`` (no host sync), times beside
    ``trace_blocks`` and the sorted ``trace_blocks`` path, k = 4 beside
    k = 8, pairs tested against needed, rounds, bound from the needed
-   pairs.  Phases 8-9 also time it on the prototypes' rays.
+   pairs.  Phases 8-9 also time it on the prototypes' rays;
+11. the gradient path (``models/replay.py``, ``models/optimize.py``):
+   (1) the fused recorder at the training shapes, Cornell 512^2, 100 spp,
+   4 bounces (``fused_sample``'s record mode, one launch per sample) and
+   outdoor_1000 512^2, 16 spp, sun + IBL (``fused_queue``'s): launches
+   (= spp, no scan trace), time per sample, record bytes, and the record
+   launch alone against its plain version with its bound; (2) the replay of
+   those records against ``render_radiance(fused=None)`` at the same seed
+   (forks < 2 %, median < 1e-5); (3) the replay's gradients on the card
+   (scan recorder on the kernels, explicit uniforms, 64^2, 2 spp, 3
+   bounces; Cornell, outdoor_1000, the glass-light scene with NEE) against
+   the same call on the CPU (1e-4 relative per parameter) and chunked
+   (``spp_chunk=1``) against unchunked (1e-5); (4) value+grad of
+   ``image_loss`` through ``render_for_grad`` at bench.py's fwd+bwd shape
+   (Cornell 512^2, 100 spp) and texel-gradient shape (outdoor with 64
+   cubes, a 4096x8192 sky, 128^2, 4 spp, sun): s per step, Mrays/s, peak
+   memory, launches (the backward launches none of the port's kernels), a
+   profile split into record kernels, the port's other kernels, replay
+   forward, backward and idle share, and one ``make_train_step`` step;
+   (5) ``run_optimization`` on Cornell at 128^2, 8 spp, 12 iterations from
+   perturbed colors: the loss falls, and a run stopped after 6 iterations
+   and resumed from its checkpoint gives the same losses bit for bit.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -1196,6 +1218,481 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the gradient path (models/replay.py, models/optimize.py)
+# ---------------------------------------------------------------------------
+
+GRAD_SHAPE = (512, 100, 4)  # bench.py's fwd+bwd shape: res, spp, bounces (Cornell, no sun)
+TEXEL_SHAPE = (128, 4, 4)  # bench.py's texel-gradient shape (outdoor, 64 cubes, sun + IBL)
+TEXEL_IBL = (4096, 8192)  # its default_sky
+GRAD_TRIES = (64, 2, 3)  # card against CPU gradients: res, spp, bounces
+# the trainer: the CLI's resolution cap (cli.py:253), 8 spp, 4 bounces
+TRAIN = dict(res=128, spp=8, max_bounce=4, iters=12, every=4, stop=6, lr=5e-2)
+# a profile's device kernels: the record launches, the port's other kernels
+RECORD_SUBS = KERNEL_GROUPS["fused_render"] + KERNEL_GROUPS["fused_sample"] + KERNEL_GROUPS["fused_queue"]
+OTHER_PORT_SUBS = KERNEL_GROUPS["closest_hit"] + KERNEL_GROUPS["pairs"] + KERNEL_GROUPS["uniforms"]
+
+
+def no_launches(**want) -> dict:
+    out = {k: 0 for counts in launch_counters() for k in counts}
+    out.update(want)
+    return out
+
+
+def phase_records(role, dev, smi: str) -> dict:
+    """11.1-11.2 on one role: the fused recorder at the training shape (its
+    launches, time per sample, bytes), the replay of its records against
+    the fused forward render at the same generator seed, and the record
+    launch alone against its plain version.  Returns the ``kernels`` line."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import radiance_for_rays
+    from ensem3a_openclraytracer_tpu_torch.models.replay import record_paths, replay_radiance
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+    from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
+
+    name, (res, spp, mb), sun = role["name"], role["shape"], role["sun"]
+    g, m, e, c = role["make"](dev)
+    nb = g.feats.block_bounds.shape[0]
+    o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, res, res)
+    gen = lambda: torch.Generator(device=dev).manual_seed(role["seed"])
+    key = rg.key_from_generator(gen(), dev)
+    rec_kw = dict(spp=spp, max_bounce=mb, sun_enabled=sun)
+    record_paths(g, m, e, o, d, key, **{**rec_kw, "spp": 1})  # warm-up
+    kern = "sample_fused_queue" if nb >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
+    want = no_launches(**{"pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit": 1, kern: spp})
+    reset_launches()
+    rec, rec_ms = timed_once(lambda: record_paths(g, m, e, o, d, key, **rec_kw))
+    launches = read_launches()
+    check(launches == want, f"[phase 11] {name}: record launches {launches}, want {want}")
+    rec_bytes = sum(x.numel() * x.element_size() for x in rec if x is not None)
+    log(f"[phase 11] {name} ({nb} blocks) fused records at {res}^2, {spp} spp, {mb} bounces, "
+        f"sun={sun}: {rec_ms:.1f} ms = {rec_ms / spp:.3f} ms per sample (scatter to pixel order "
+        f"included), {rec_bytes / 1e9:.3f} GB of records, launches {launches} [{smi}]")
+
+    with torch.no_grad():
+        img_r = replay_radiance(rec, g, m, e, d, sun_enabled=sun)
+        img_f = radiance_for_rays(g, m, e, o, d, gen(), spp=spp, max_bounce=mb, sun_enabled=sun)
+    torch.cuda.synchronize()
+    frac, med, max_img = image_forks(img_r, img_f)
+    log(f"[phase 11] {name}: replay of the fused records vs render_radiance(fused=None) at the "
+        f"same seed: pixel forks {frac:.5f}, median diff {med:.3e}, max diff {max_img:.3e}")
+    check(bool(torch.isfinite(img_r).all()), f"{name}: non-finite replay pixels")
+    check(frac < 0.02, f"{name}: replay pixel forks {frac:.5f} >= 0.02")
+    check(med < 1e-5, f"{name}: replay median diff {med:.3e} >= 1e-5")
+    del rec, img_r, img_f
+
+    # the record launch alone (one sample on the engine's own arguments), kernel vs plain
+    args = fused_inputs(g, m, e, c, res)
+    n = args[2].shape[0]
+    kw = dict(max_bounce=mb, sun_enabled=sun, record=True)
+    rk = fu.sample_fused(*args, key, 1, **kw)
+    traces = NeededPairs(g.feats)
+    rp, plain_ms = timed_once(lambda: fu.sample_fused_plain(*args, key, 1, traces=traces, **kw))
+    u_equal = bool(torch.equal(rk[3], rp[3]))
+    agree = [float((a == b).float().mean()) for a, b in zip(rk[4:], rp[4:])]
+    # float differences on the lanes whose records agree; a lane whose trace forked on a
+    # knife edge (a different triangle) follows another path
+    same = ((rk[4] == rp[4]) & (rk[5] == rp[5])).all(dim=0)
+    forked = int((~same).sum())
+    max_err = max(float((a - b)[same].abs().max()) for a, b in zip(rk[:3], rp[:3]))
+    check(u_equal, f"{name}: recorded uniforms differ from plain")
+    check(min(agree) >= 0.995, f"{name}: record agreement {agree} < 0.995")
+    check(max_err < 1e-3, f"{name}: kernel vs plain max diff {max_err:.3e} on unforked lanes")
+    ms = cuda_ms(lambda: fu.sample_fused(*args, key, 1, **kw), iters=role["iters"])
+    out_per_ray = 36 + (mb + 1) * (8 + 4 + 4 * int(sun))  # rad, esc_thr, esc_dir; u, tri, sun_tri
+    flops = fused_flops(traces.pairs, n, mb, sun, False)
+    nbytes = fused_bytes(n, g.feats.edges.shape[-1], nb, None, out_per_ray)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[phase 11] {name} record launch ({kern}) at {res}^2, {mb} bounces: {ms:.4f} ms per "
+        f"sample, plain {plain_ms:.1f} ms; u equal {u_equal}, tri / sun_tri agree {agree}, "
+        f"{forked} forked lanes, max diff (rad, esc) on the others {max_err:.3e}; "
+        f"{traces.loops} trace loops, {traces.rays} rays traced, "
+        f"needed pairs {traces.pairs}; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 "
+        f"ops, {nbytes} bytes) [{smi}]")
+    src = "fused_queue.cu" if kern == "sample_fused_queue" else "fused_sample.cu"
+    return dict(
+        name=f"sample_fused:record:{name}", route="cuda",
+        source=f"ensem3a_openclraytracer_tpu_torch/csrc/{src}",
+        replaces="ensem3a_openclraytracer_tpu/ops/fused.py:125", launches=launches[kern],
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, unit="one sample in record mode", rays=n, samples=spp,
+        record_ms_per_sample=rec_ms / spp, record_bytes=rec_bytes, pairs_needed=traces.pairs,
+        record_agreement=agree, forked_lanes=forked, replay_pixel_fork_fraction=frac,
+        replay_median_diff=med,
+    )
+
+
+def phase_gather_backward(dev, smi: str) -> list:
+    """The backward pass of a replay gather (a scatter-add of every lane's
+    row gradient into the table) at the replay's shapes, with the lanes
+    spread evenly or concentrated on a few rows (Zipf): ``gather_rows``'s
+    (``ops/gathers.scatter_rows``) beside autograd's ``index_put_(accumulate=True)``, the embedding
+    backward and ``index_add_``, each run three times on the same inputs between other
+    allocations: its time, whether the results are bit-equal, and its
+    largest difference from a float64 sum (relative to the largest entry).
+    ``gather_rows``'s must be bit-equal."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops.gathers import scatter_rows
+
+    rng = np.random.default_rng(51)
+    shapes = (  # faces of Cornell, materials, an 8k sky, the IBL pass of one Cornell env group
+        ("even", 262144, 36, 9), ("even", 262144, 6, 4), ("even", 262144, 4096 * 8192, 3),
+        ("zipf", 262144, 36, 9), ("zipf", 8388608, 512, 3))
+    methods = {
+        "gather_rows": scatter_rows,
+        "index_put": lambda g, i, r: torch.zeros((r, g.shape[1]), device=dev).index_put_(
+            (i,), g, accumulate=True),
+        "embedding": lambda g, i, r: torch.ops.aten.embedding_dense_backward(g, i, r, -1, False),
+        "index_add": lambda g, i, r: torch.zeros((r, g.shape[1]), device=dev).index_add_(0, i, g),
+    }
+    out = []
+    for spread, n, rows, cols in shapes:
+        raw = rng.integers(0, rows, n) if spread == "even" else rng.zipf(1.5, n) - 1
+        idx = torch.as_tensor(np.minimum(raw, rows - 1), device=dev)
+        grad = torch.as_tensor(rng.standard_normal((n, cols)).astype(np.float32), device=dev)
+        exact = torch.zeros((rows, cols), dtype=torch.float64, device=dev).index_add_(
+            0, idx, grad.to(torch.float64))
+        scale = max(float(exact.abs().max()), 1e-30)
+        line = dict(spread=spread, lanes=n, rows=rows, cols=cols)
+        for name, fn in methods.items():
+            ref = fn(grad, idx, rows)
+            same = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                junk = torch.empty(int(rng.integers(1, 1 << 22)), device=dev)  # move the allocator
+                same &= bool(torch.equal(fn(grad, idx, rows), ref))
+            torch.cuda.synchronize()
+            del junk
+            err = float((ref.to(torch.float64) - exact).abs().max()) / scale
+            line[name] = dict(ms=(time.perf_counter() - t0) / 3 * 1e3, deterministic=same,
+                              rel_err=err)
+        log(f"[phase 11] gather backward, {n} lanes ({spread}) into [{rows}, {cols}]: "
+            + "; ".join(f"{k} {v['ms']:.3f} ms, bit-equal {v['deterministic']}, error "
+                        f"{v['rel_err']:.1e}" for k, v in line.items() if isinstance(v, dict))
+            + f" [{smi}]")
+        check(line["gather_rows"]["deterministic"], f"gather_rows backward is not deterministic at "
+              f"{n} lanes into {rows} rows")
+        check(line["gather_rows"]["rel_err"] < 1e-6, f"gather_rows backward error "
+              f"{line['gather_rows']['rel_err']:.2e} at {n} lanes into {rows} rows")
+        out.append(line)
+    return out
+
+
+def phase_grad_parity(case, dev, smi: str) -> dict:
+    """11.3 on one scene: the replay's gradients of ``mean(img^2)`` on the
+    card (scan recorder on the kernels, explicit uniforms) against the same
+    call on the CPU, and a chunked call (``spp_chunk=1``) against an
+    unchunked one on the card."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.replay import render_radiance_replay
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
+
+    res, spp, mb = GRAD_TRIES
+    name, sun, nee = case["name"], case["sun"], case.get("nee", False)
+    rng = np.random.default_rng(case["seed"])
+    u = rng.random((spp, mb + 1, res * res, 2)).astype(np.float32)
+    lu = rng.random((spp, mb + 1, res * res, 3)).astype(np.float32) if nee else None
+
+    def grads(device, spp_chunk=None):
+        g, m, e, c = case["make"](device)
+        lights = build_light_pack(g, m) if nee else None
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (m.color, m.roughness, e.sun_power, e.ibl_power, e.ibl)]
+        m2 = m._replace(color=leaves[0], roughness=leaves[1])
+        e2 = e._replace(sun_power=leaves[2], ibl_power=leaves[3], ibl=leaves[4])
+        img = render_radiance_replay(
+            g, m2, e2, c, height=res, width=res, spp=spp, max_bounce=mb, sun_enabled=sun,
+            uniforms=torch.as_tensor(u, device=device),
+            light_uniforms=None if lu is None else torch.as_tensor(lu, device=device),
+            nee=nee, lights=lights, spp_chunk=spp_chunk)
+        loss = torch.mean(img ** 2)
+        gr = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.item(), [(torch.zeros_like(x) if gx is None else gx).cpu()
+                             for gx, x in zip(gr, leaves)]
+
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    names = ("color", "roughness", "sun_power", "ibl_power", "ibl")
+    reset_launches()
+    (loss_k, g_k), ms = timed_once(lambda: grads(dev))
+    launches = read_launches()
+    check(launches["closest_hit"] + launches["pairs"] > 0, f"{name}: the card made no trace launch")
+    t0 = time.perf_counter()
+    loss_c, g_c = grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_ch, g_ch = grads(dev, spp_chunk=1)
+    card_cpu = {n_: rel(a, b) for n_, a, b in zip(names, g_k, g_c)}
+    chunked = {n_: rel(a, b) for n_, a, b in zip(names, g_ch, g_k)}
+    log(f"[phase 11] {name} gradients at {res}^2, {spp} spp, {mb} bounces, explicit uniforms: "
+        f"loss card {loss_k:.7e}, cpu {loss_c:.7e}; card vs cpu relative "
+        + ", ".join(f"{k} {v:.2e}" for k, v in card_cpu.items())
+        + "; chunked (spp_chunk=1) vs unchunked "
+        + ", ".join(f"{k} {v:.2e}" for k, v in chunked.items())
+        + f"; card {ms:.1f} ms (launches {launches}), cpu {cpu_s:.1f} s [{smi}]")
+    check(all(np.isfinite(x.numpy()).all() for x in g_k), f"{name}: non-finite card gradients")
+    check(float(g_k[0].abs().max()) > 0.0, f"{name}: zero color gradient")
+    check(max(card_cpu.values()) <= 1e-4, f"{name}: card vs cpu gradients {card_cpu} > 1e-4")
+    check(max(chunked.values()) <= 1e-5, f"{name}: chunked vs unchunked {chunked} > 1e-5")
+    return dict(name=name, card_vs_cpu=card_cpu, chunked_vs_unchunked=chunked, card_ms=ms,
+                cpu_s=cpu_s)
+
+
+def grad_profile(forward, seed: int) -> dict:
+    """One value+grad under torch.profiler, the forward and the backward
+    each ended by a synchronize: device time of the record kernels, of the
+    port's other kernels, of the rest of the forward (the replay) and of
+    the backward, and the device's idle share of the profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("grad:forward"):
+            loss, leaves = forward(seed)
+            torch.cuda.synchronize()
+        with record_function("grad:backward"):
+            torch.autograd.grad(loss, leaves, allow_unused=True)
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    bwd_start = min(ev.start_ns() for ev in events
+                    if ev.name() == "grad:backward" and ev.device_type() != cuda)
+    groups = dict(record=0.0, other_port=0.0, replay_forward=0.0, backward=0.0)
+    spans, backward_by_name = [], {}
+    for ev in events:
+        if ev.device_type() != cuda or ev.is_user_annotation() or ev.name().startswith("grad:"):
+            continue
+        start, dur, k = ev.start_ns(), ev.duration_ns(), ev.name()
+        spans.append((start, start + dur))
+        if any(x in k for x in RECORD_SUBS):
+            groups["record"] += dur
+        elif any(x in k for x in OTHER_PORT_SUBS):
+            groups["other_port"] += dur
+        elif start >= bwd_start:
+            groups["backward"] += dur
+            backward_by_name[k] = backward_by_name.get(k, 0) + dur
+        else:
+            groups["replay_forward"] += dur
+    if not spans:
+        return dict(profile="not measured")
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_us = busy / 1e3
+    out = {f"{k}_ms": v / 1e6 for k, v in groups.items()}
+    top = sorted(backward_by_name.items(), key=lambda kv: -kv[1])[:3]
+    out.update(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               idle_share=1 - busy_us / wall_us, device_events=len(spans),
+               backward_top={k[:80]: v / 1e6 for k, v in top})
+    return out
+
+
+def phase_train_step(role, dev, smi: str) -> dict:
+    """11.4 on one shape: value+grad of ``image_loss`` through
+    ``render_for_grad`` (as bench.py times it, target zeros), its launches
+    with the backward's apart (it must launch none of the port's kernels),
+    peak memory, s per step and Mrays/s, the profile split, and one
+    ``make_train_step`` step (Adam and the clamps) at the same width."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import (
+        Adam,
+        TrainableParams,
+        image_loss,
+        make_train_step,
+        render_for_grad,
+    )
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.scene.materials import default_sky
+
+    name, (res, spp, mb), sun = role["name"], role["shape"], role["sun"]
+    g, m, e, c = role["make"](dev)
+    if "ibl" in role:
+        e = e._replace(ibl=torch.as_tensor(default_sky(*role["ibl"]), device=dev))
+    nb = g.feats.block_bounds.shape[0]
+    params = TrainableParams.from_scene_params(m, e)
+    target = torch.zeros((res, res, 3), dtype=torch.float32, device=dev)
+    kw = dict(height=res, width=res, spp=spp, max_bounce=mb, sun_enabled=sun)
+
+    def forward(seed):
+        leaves = [x.detach().requires_grad_(True) for x in params]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        img = render_for_grad(TrainableParams(*leaves), g, m, e, c, gen, **kw)
+        return image_loss(img, target), leaves
+
+    def value_and_grad(seed):
+        loss, leaves = forward(seed)
+        return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    # one value+grad with the counts and peak memory (and the warm-up), one timed as bench.py
+    # times it, one profiled, then one step of make_train_step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, leaves = forward(1)
+    torch.cuda.synchronize()
+    fwd = read_launches()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    bwd = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    kern = "sample_fused_queue" if nb >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
+    want = no_launches(**{"pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit": 1, kern: spp})
+    check(fwd == want, f"{name}: forward launches {fwd}, want {want}")
+    check(bwd == fwd, f"{name}: the backward launched port kernels: {fwd} -> {bwd}")
+    check(bool(torch.isfinite(loss)), f"{name}: non-finite loss")
+    check(all(gx is None or bool(torch.isfinite(gx).all()) for gx in grads),
+          f"{name}: non-finite gradients")
+    check(float(grads[0].abs().max()) > 0.0, f"{name}: zero color gradient")
+    texel_grad = None if grads[4] is None else float(grads[4].abs().max())
+    del loss, leaves, grads
+    _, step_ms = timed_once(lambda: value_and_grad(2))
+    step_s = step_ms / 1e3
+    rays = res * res * (1 + spp * (mb + 1) * (2 if sun else 1))  # counted as bench.py counts
+    n = res * res
+    rec_bytes, esc_bytes = spp * (mb + 1) * n * 16, spp * n * 12
+    ibl_bytes = e.ibl.numel() * 4
+    prof = grad_profile(forward, 4)
+    init, step = make_train_step(g, m, e, c, Adam(5e-2), **kw)
+    p, st = init()
+    (p2, _, loss2), train_ms = timed_once(
+        lambda: step(p, st, target, torch.Generator(device=dev).manual_seed(5)))
+    check(bool(torch.isfinite(loss2)), f"{name}: non-finite train-step loss")
+    check(not torch.equal(p2.color, p.color), f"{name}: the train step left the colors alone")
+    check(float(p2.color.min()) >= 0.0 and float(p2.color.max()) <= 1.0,
+          f"{name}: colors outside [0, 1] after the clamp")
+    log(f"[phase 11] {name} ({nb} blocks) value+grad at {res}^2, {spp} spp, {mb} bounces, "
+        f"sun={sun}, IBL {tuple(e.ibl.shape)}: {step_s:.4f} s per step, "
+        f"{rays / step_s / 1e6:.1f} Mrays/s; launches forward {fwd}, backward added none; peak "
+        f"memory {peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held before: records "
+        f"{rec_bytes / 1e9:.3f} GB + {(peak - rec_bytes - ibl_bytes) / esc_bytes:.1f} [spp*N, 3] "
+        f"escape tensors of {esc_bytes / 1e9:.4f} GB + one IBL-sized texel gradient of "
+        f"{ibl_bytes / 1e9:.3f} GB; max |texel grad| {texel_grad}; train step (Adam, clamps) "
+        f"{train_ms / 1e3:.4f} s [{smi}]")
+    if "max_escape_tensors" in role:  # the replay keeps records and escapes, not every bounce
+        limit = rec_bytes + role["max_escape_tensors"] * esc_bytes
+        check(peak <= limit, f"{name}: peak memory {peak} B above records + "
+              f"{role['max_escape_tensors']} escape tensors ({limit} B)")
+    if "record_ms" in prof:
+        log(f"[phase 11] {name} profiled value+grad: wall {prof['profile_wall_ms']:.1f} ms "
+            f"(profiler on), device busy {prof['device_busy_ms']:.1f} ms, idle share "
+            f"{prof['idle_share']:.3f}; record kernels {prof['record_ms']:.2f} ms, other port "
+            f"kernels {prof['other_port_ms']:.2f} ms, replay forward "
+            f"{prof['replay_forward_ms']:.2f} ms, backward {prof['backward_ms']:.2f} ms "
+            f"({prof['device_events']} device events); largest backward kernels (ms) "
+            f"{prof['backward_top']}")
+    else:
+        log(f"[phase 11] {name}: profiler saw no device time: breakdown not measured")
+    return dict(name=name, res=res, spp=spp, max_bounce=mb, sun=sun, blocks=nb,
+                ibl=list(e.ibl.shape), step_s=step_s, mrays_per_s=rays / step_s / 1e6,
+                launches=fwd, peak_bytes=peak, base_bytes=base, record_bytes=rec_bytes,
+                escape_bytes=esc_bytes, ibl_bytes=ibl_bytes, train_step_s=train_ms / 1e3, **prof)
+
+
+def phase_trainer(dev, smi: str, workdir: Path) -> dict:
+    """11.5: ``run_optimization`` on Cornell from perturbed colors toward a
+    target rendered at the true ones, checkpointing every 4 iterations; the
+    loss must fall, and a run stopped after 6 iterations and resumed from
+    its checkpoint must give the same loss trajectory bit for bit."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import (
+        Adam,
+        make_train_step,
+        run_optimization,
+    )
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
+
+    res, spp, mb = TRAIN["res"], TRAIN["spp"], TRAIN["max_bounce"]
+    g, m, e, c = tt.make_cornell_scene(device=dev)
+    target = render_radiance(g, m, e, c, torch.Generator(device=dev).manual_seed(0), height=res,
+                             width=res, spp=64, max_bounce=mb, sun_enabled=False)
+    rng = np.random.default_rng(21)
+    scale = torch.as_tensor(rng.uniform(0.5, 1.5, size=tuple(m.color.shape)).astype(np.float32),
+                            device=dev)
+    m0 = m._replace(color=torch.clamp(m.color * scale, 0.0, 1.0))
+    init, step = make_train_step(g, m0, e, c, Adam(TRAIN["lr"]), height=res, width=res, spp=spp,
+                                 max_bounce=mb, sun_enabled=False)
+    kw = dict(checkpoint_every=TRAIN["every"])
+    full, resumed = [], []
+    t0 = time.perf_counter()
+    params, _, _ = run_optimization(init, step, target, 5, iters=TRAIN["iters"],
+                                    checkpoint_path=str(workdir / "full.npz"),
+                                    log=lambda i, x: full.append(x), **kw)
+    run_s = time.perf_counter() - t0
+    stop = str(workdir / "stopped.npz")
+    run_optimization(init, step, target, 5, iters=TRAIN["stop"], checkpoint_path=stop,
+                     log=lambda i, x: resumed.append(x), **kw)
+    run_optimization(init, step, target, 5, iters=TRAIN["iters"], checkpoint_path=stop,
+                     log=lambda i, x: resumed.append(x), **kw)
+    err0 = float((m0.color - m.color).abs().mean())
+    err1 = float((params.color - m.color).abs().mean())
+    log(f"[phase 11] trainer: Cornell {res}^2, {spp} spp, {mb} bounces, {TRAIN['iters']} "
+        f"iterations of Adam at lr {TRAIN['lr']}: losses {[f'{x:.6e}' for x in full]}; "
+        f"{run_s:.2f} s ({run_s / TRAIN['iters']:.3f} s per iteration, checkpoints every "
+        f"{TRAIN['every']}); mean color error {err0:.4f} -> {err1:.4f}; stopped after "
+        f"{TRAIN['stop']} and resumed: trajectory bit-equal {resumed == full} [{smi}]")
+    check(len(full) == TRAIN["iters"] and all(np.isfinite(full)), f"trainer losses {full}")
+    check(full[-1] < full[0], f"trainer: the loss did not fall ({full[0]} -> {full[-1]})")
+    check(resumed == full, f"trainer: resumed trajectory {resumed} != uninterrupted {full}")
+    return dict(losses=full, seconds=run_s, color_error=[err0, err1], resume_bit_equal=True)
+
+
+def phase_gradients(dev, smi: str, workdir: Path) -> tuple:
+    """Phase 11, the gradient path on the card: ``(kernels lines, summary)``."""
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+
+    cornell = lambda d: tt.make_cornell_scene(device=d)
+    outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
+    t0 = time.perf_counter()
+    records = [
+        dict(name="cornell", make=cornell, shape=GRAD_SHAPE, sun=False, seed=31, iters=20),
+        dict(name="outdoor_1000", make=outdoor(1000), shape=(512, 16, 4), sun=True, seed=32,
+             iters=10),
+    ]
+    lines = [phase_records(r, dev, smi) for r in records]
+    gathers = phase_gather_backward(dev, smi)
+    t1 = time.perf_counter()
+    cases = [
+        dict(name="cornell", make=cornell, sun=False, seed=41),
+        dict(name="outdoor_1000", make=outdoor(1000), sun=True, seed=42),
+        dict(name="glass_light_nee", make=lambda d: tt.make_glass_light_scene(device=d),
+             sun=False, nee=True, seed=43),
+    ]
+    parity = [phase_grad_parity(cs, dev, smi) for cs in cases]
+    t2 = time.perf_counter()
+    steps = [
+        phase_train_step(dict(name="cornell_fwdbwd", make=cornell, shape=GRAD_SHAPE, sun=False,
+                              max_escape_tensors=8), dev, smi),
+        phase_train_step(dict(name="outdoor64_texelgrad", make=outdoor(64), shape=TEXEL_SHAPE,
+                              sun=True, ibl=TEXEL_IBL), dev, smi),
+    ]
+    t3 = time.perf_counter()
+    trainer = phase_trainer(dev, smi, workdir)
+    t4 = time.perf_counter()
+    log(f"[phase 11] wall: records {t1 - t0:.1f} s, gradient parity {t2 - t1:.1f} s, train steps "
+        f"{t3 - t2:.1f} s, trainer {t4 - t3:.1f} s")
+    # each record line's kernel in the train step that records on it (Cornell's fwd+bwd step on
+    # fused_sample, the texel-gradient step on fused_queue), beside its launches in 11.1
+    for line, st in zip(lines, steps):
+        kern = "sample_fused_queue" if "fused_queue" in line["source"] else "sample_fused"
+        line.update(train_step=st["name"], train_step_launches=st["launches"][kern])
+    return lines, dict(gather_backward=gathers, grad_parity=parity, train_steps=steps,
+                       trainer=trainer)
+
+
 def main() -> int:
     import torch
 
@@ -1322,7 +1819,14 @@ def main() -> int:
         kernels.append(line)
     log(f"[phase 10] wall {time.perf_counter() - t10:.1f} s")
 
-    log(f"[summary] {json.dumps({'card': smi, 'renders': renders, 'fused_vs_scan': versus})}")
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        grad_lines, gradients = phase_gradients(dev, smi, Path(tmp))
+    kernels += grad_lines
+    log(f"[phase 11] wall {time.perf_counter() - t11:.1f} s")
+
+    summary = {"card": smi, "renders": renders, "fused_vs_scan": versus, "gradients": gradients}
+    log(f"[summary] {json.dumps(summary)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@
 The JAX package keeps scenes as pytrees of arrays.  These functions read
 them by attribute access and ``numpy.asarray`` only (duck-typed; nothing
 here imports JAX) and build the port's tensors on ``device``, so the
-tests can render one scene through both packages.
+tests can render one scene through both packages.  An inverse-rendering
+run carries across too: :func:`trainable_params` and
+:func:`optimizer_checkpoint`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,11 @@ import numpy as np
 import torch
 
 from ensem3a_openclraytracer_tpu_torch._device import DeviceLike, resolve_device
+from ensem3a_openclraytracer_tpu_torch.models.optimize import (
+    AdamState,
+    TrainableParams,
+    save_optimizer_checkpoint,
+)
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
     TriFeatures,
     build_tri_features,
@@ -88,3 +95,30 @@ def lights(lp, device: DeviceLike = None) -> Optional[LightPack]:
 def scene(geom, mats, e, cam, device: DeviceLike = None):
     """``(geom, materials, env, camera)`` of a JAX ``testing.make_*`` scene."""
     return geometry(geom, device), materials(mats, device), env(e, device), camera(cam, device)
+
+
+def trainable_params(p, device: DeviceLike = None) -> TrainableParams:
+    """A JAX ``TrainableParams``."""
+    dev = resolve_device(device)
+    return TrainableParams(*(_t(x, dev) for x in (p.color, p.roughness, p.sun_power, p.ibl_power,
+                                                   p.ibl)))
+
+
+def optimizer_checkpoint(path_in, path_out, seed: int = 0) -> None:
+    """Rewrite a JAX optimizer checkpoint (``models/optimize.py``'s
+    ``save_optimizer_checkpoint`` with ``optax.adam``: leaves ``p0..p4`` of
+    ``TrainableParams``, then ``o0`` = the step count, ``o1..o5`` = ``mu``
+    and ``o6..o10`` = ``nu`` in flatten order, ``iteration``, ``key``) in
+    the port's format, with equal parameters, moments, step count and
+    iteration.  The JAX run's random key cannot carry over, since the two
+    packages draw different streams (threefry there, Philox here): the
+    port's checkpoint gets ``seed`` as its base seed, and a run resumed
+    from it draws the port's stream for that seed."""
+    with np.load(path_in) as z:
+        tree = lambda prefix, first: TrainableParams(*(
+            torch.as_tensor(np.array(z[f"{prefix}{first + i}"], np.float32)) for i in range(5)))
+        params = tree("p", 0)
+        opt_state = AdamState(count=torch.as_tensor(np.array(z["o0"], np.int32)), mu=tree("o", 1),
+                              nu=tree("o", 6))
+        iteration = int(z["iteration"])
+    save_optimizer_checkpoint(path_out, params, opt_state, iteration, seed)

@@ -1,0 +1,265 @@
+"""Inverse rendering: gradient-based optimization of scene parameters.
+
+Counterpart of the JAX package's ``models/optimize.py``: render, an image
+loss against a target, gradients by ``torch.autograd`` through the
+path-replay engine (``models/replay.py``), an Adam update and the clamps
+that keep the parameters physical.  The differentiable parameters are
+material colors, roughness (emissive power for emissive materials), sun
+and IBL powers and the IBL texels; geometry and visibility are detached.
+
+Adam is written out (:class:`Adam`) as ``optax.adam`` computes it, and its
+state is plain tensors, so a run stopped at iteration k resumes from an
+``.npz`` checkpoint with the same loss trajectory bit for bit: iteration
+``i`` renders with the generator :func:`iteration_generator` makes from
+(base seed, ``i``).  The JAX package's ``fold_in(key, i)`` plays that part
+there; the two packages' streams differ.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ensem3a_openclraytracer_tpu_torch._device import DeviceLike, resolve_device
+from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
+from ensem3a_openclraytracer_tpu_torch.models.replay import render_radiance_replay
+from ensem3a_openclraytracer_tpu_torch.ops import rng
+from ensem3a_openclraytracer_tpu_torch.scene.materials import EnvParams, MaterialParams
+
+
+class TrainableParams(NamedTuple):
+    """The differentiable leaves of the material table and the
+    environment (material types and geometry stay fixed)."""
+
+    color: torch.Tensor  # [M, 3]
+    roughness: torch.Tensor  # [M] (emissive power for type-0 materials)
+    sun_power: torch.Tensor  # []
+    ibl_power: torch.Tensor  # []
+    ibl: torch.Tensor  # [H, W, 3]
+
+    @staticmethod
+    def from_scene_params(materials: MaterialParams, env: EnvParams) -> "TrainableParams":
+        return TrainableParams(color=materials.color, roughness=materials.roughness,
+                               sun_power=env.sun_power, ibl_power=env.ibl_power, ibl=env.ibl)
+
+    def apply(self, materials: MaterialParams,
+              env: EnvParams) -> Tuple[MaterialParams, EnvParams]:
+        """The full parameter structs with these leaves grafted on."""
+        m = materials._replace(color=self.color, roughness=self.roughness)
+        e = env._replace(sun_power=self.sun_power, ibl_power=self.ibl_power, ibl=self.ibl)
+        return m, e
+
+
+def image_loss(rendered: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error in linear radiance."""
+    return torch.mean((rendered - target) ** 2)
+
+
+_NO_MESH = ("sharded rendering is not ported yet (ROADMAP.md, queue 1 item 7, "
+            "'Parallelism'); render on one device with mesh=None")
+
+
+def render_for_grad(params: TrainableParams, geom, materials: MaterialParams, env: EnvParams,
+                    camera, gen: Optional[torch.Generator] = None, *, height: int, width: int,
+                    spp: int, max_bounce: int, sun_enabled: bool = True, mesh=None,
+                    nee: bool = False, lights=None, mis: bool = False) -> torch.Tensor:
+    """Differentiable radiance image from :class:`TrainableParams`: the one
+    entry point of every gradient consumer.  It renders with the
+    path-replay engine; ``nee=True`` (with ``lights``) switches it to the
+    next-event estimator, and ``mis=True`` (implies NEE) renders with the
+    scan estimator, since the recorder has no MIS mode.  ``mesh`` (sharded
+    rendering) is not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    m, e = params.apply(materials, env)
+    kw = dict(height=height, width=width, spp=spp, max_bounce=max_bounce,
+              sun_enabled=sun_enabled)
+    if mis:
+        return render_radiance(geom, m, e, camera, gen, fused=False, nee=True, lights=lights,
+                               mis=True, **kw)
+    return render_radiance_replay(geom, m, e, camera, gen, nee=nee, lights=lights, **kw)
+
+
+class AdamState(NamedTuple):
+    """``optax.adam``'s state: the step count and the two moments."""
+
+    count: torch.Tensor  # [] int32
+    mu: TrainableParams
+    nu: TrainableParams
+
+
+class Adam(NamedTuple):
+    """``optax.adam(learning_rate)`` written out (Kingma and Ba's
+    Algorithm 1, ``eps`` outside the square root), in optax's order of
+    operations, on float32 tensors."""
+
+    learning_rate: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: TrainableParams) -> AdamState:
+        zeros = lambda: TrainableParams(*(torch.zeros_like(x) for x in params))
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=params.color.device),
+                         mu=zeros(), nu=zeros())
+
+    def update(self, grads: TrainableParams, state: AdamState,
+               params: TrainableParams) -> Tuple[TrainableParams, AdamState]:
+        """``(params + updates, state)``."""
+        b1, b2 = self.b1, self.b2
+        mu = TrainableParams(*((1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)))
+        nu = TrainableParams(*((1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)))
+        count = state.count + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.full_like(c, b1) ** c
+        bc2 = 1 - torch.full_like(c, b2) ** c
+        new = TrainableParams(*(
+            p + (-self.learning_rate) * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
+            for p, m, v in zip(params, mu, nu)))
+        return new, AdamState(count=count, mu=mu, nu=nu)
+
+
+def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, optimizer: Adam, *,
+                    height: int, width: int, spp: int, max_bounce: int, mesh=None,
+                    sun_enabled: bool = True, nee: bool = False, lights=None,
+                    mis: bool = False):
+    """``(init, step)`` for inverse rendering against a target image.
+
+    ``init(params=None) -> (params, opt_state)`` starts from the scene's
+    parameters; ``step(params, opt_state, target, gen) -> (params,
+    opt_state, loss)`` renders with :func:`render_for_grad`, takes the
+    gradient of :func:`image_loss`, updates with ``optimizer`` and clamps
+    colors to [0, 1] and powers, roughness and texels to >= 0.  The
+    inputs are not modified."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    kw = dict(height=height, width=width, spp=spp, max_bounce=max_bounce,
+              sun_enabled=sun_enabled, nee=nee, lights=lights, mis=mis)
+
+    def step(params: TrainableParams, opt_state: AdamState, target: torch.Tensor,
+             gen: Optional[torch.Generator]):
+        leaves = [x.detach().requires_grad_(True) for x in params]
+        p = TrainableParams(*leaves)
+        loss = image_loss(render_for_grad(p, geom, materials, env, camera, gen, **kw), target)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = TrainableParams(*(torch.zeros_like(x) if g is None else g
+                                  for g, x in zip(grads, leaves)))
+        with torch.no_grad():
+            new, opt_state = optimizer.update(grads, opt_state, TrainableParams(*params))
+            new = TrainableParams(
+                color=torch.clamp(new.color, 0.0, 1.0),
+                roughness=torch.clamp(new.roughness, min=0.0),
+                sun_power=torch.clamp(new.sun_power, min=0.0),
+                ibl_power=torch.clamp(new.ibl_power, min=0.0),
+                ibl=torch.clamp(new.ibl, min=0.0),
+            )
+        return new, opt_state, loss.detach()
+
+    def init(params: Optional[TrainableParams] = None):
+        p = TrainableParams.from_scene_params(materials, env) if params is None else params
+        p = TrainableParams(*(x.detach() for x in p))
+        return p, optimizer.init(p)
+
+    return init, step
+
+
+def iteration_generator(seed: int, i: int, device: DeviceLike = None) -> torch.Generator:
+    """The random source of iteration ``i`` of a run with base ``seed``: a
+    generator on ``device`` seeded with 64 bits of
+    ``philox4x32_10(ctr=(i, 0, 0, 0), key=(seed mod 2^32, seed >> 32))``, a
+    pure function of (seed, i)."""
+    ctr = torch.tensor([[int(i), 0, 0, 0]], dtype=torch.int64)
+    key = torch.tensor([[int(seed) & 0xFFFFFFFF, (int(seed) >> 32) & 0xFFFFFFFF]],
+                       dtype=torch.int64)
+    w = rng.philox4x32_10(ctr, key)[0].tolist()
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed((w[0] << 32) | w[1])
+    return gen
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: a stopped run resumes with the identical loss trajectory.
+# ---------------------------------------------------------------------------
+
+_FIELDS = TrainableParams._fields
+
+
+def save_optimizer_checkpoint(path, params: TrainableParams, opt_state: AdamState,
+                              iteration: int, seed: int) -> None:
+    """Write ``(params, opt_state, iteration, seed)`` to an ``.npz``
+    atomically (a temporary file, then ``os.replace``): ``param.<field>``,
+    ``mu.<field>``, ``nu.<field>``, ``count``, ``iteration``, ``seed``."""
+    payload = {}
+    for prefix, tree in (("param", params), ("mu", opt_state.mu), ("nu", opt_state.nu)):
+        for name, x in zip(_FIELDS, tree):
+            payload[f"{prefix}.{name}"] = x.detach().cpu().numpy()
+    payload["count"] = opt_state.count.detach().cpu().numpy().astype(np.int32)
+    payload["iteration"] = np.asarray(iteration, np.int64)
+    payload["seed"] = np.asarray(seed, np.int64)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)  # a crash never leaves a half-written checkpoint
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_optimizer_checkpoint(path, device: DeviceLike = None):
+    """``(params, opt_state, iteration, seed)`` saved by
+    :func:`save_optimizer_checkpoint`, on ``device``."""
+    dev = resolve_device(device)
+    with np.load(path) as z:
+        tree = lambda prefix: TrainableParams(*(torch.as_tensor(z[f"{prefix}.{n}"], device=dev)
+                                                for n in _FIELDS))
+        params = tree("param")
+        opt_state = AdamState(count=torch.as_tensor(z["count"], device=dev), mu=tree("mu"),
+                              nu=tree("nu"))
+        return params, opt_state, int(z["iteration"]), int(z["seed"])
+
+
+def run_optimization(init, step, target: torch.Tensor, seed: int, *, iters: int,
+                     checkpoint_path: Optional[str] = None, checkpoint_every: int = 25,
+                     log: Optional[Callable[[int, float], None]] = None):
+    """Drive ``step`` for ``iters`` iterations with resumable checkpoints;
+    returns ``(params, opt_state, last_loss)``.
+
+    Iteration ``i`` takes ``iteration_generator(seed, i)``, so a run
+    stopped after iteration k and resumed from its checkpoint (which holds
+    the base seed) draws the same random numbers: the loss trajectory is
+    the same bit for bit.  A step that raises ``RuntimeError`` is retried
+    (three attempts) with the same generator seed, so a retry gives the
+    same update.  On the card the attempt synchronizes inside the ``try``,
+    so an asynchronous CUDA error is caught by the retry and not after
+    it."""
+    dev = target.device
+    params, opt_state = init()
+    start = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        params, opt_state, start, seed = load_optimizer_checkpoint(checkpoint_path, dev)
+    loss = None
+    for i in range(start, iters):
+        for attempt in range(3):
+            try:
+                params_i, opt_state_i, loss = step(params, opt_state, target,
+                                                   iteration_generator(seed, i, dev))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                break
+            except RuntimeError:
+                if attempt == 2:
+                    raise
+                print(f"optimization step {i} failed, retrying", flush=True)
+        params, opt_state = params_i, opt_state_i
+        if log is not None:
+            log(i, float(loss))
+        if checkpoint_path and ((i + 1) % checkpoint_every == 0 or i == iters - 1):
+            save_optimizer_checkpoint(checkpoint_path, params, opt_state, i + 1, seed)
+    return params, opt_state, loss

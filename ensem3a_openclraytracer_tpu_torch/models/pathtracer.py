@@ -59,6 +59,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import trace
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl, sun_direction
 from ensem3a_openclraytracer_tpu_torch.ops import fused as fused_ops
+from ensem3a_openclraytracer_tpu_torch.ops.gathers import gather_rows
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import cross, sample_point_in_triangle, select
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
@@ -98,8 +99,8 @@ def _gather_surface(geom: GeometryPack, materials: MaterialParams, origin, direc
         p=origin + direction * hit.t[:, None],
         n=geom.n[hit.tri],
         mtype=materials.mtype[midx],
-        color=materials.color[midx],
-        rough=materials.roughness[midx],
+        color=gather_rows(materials.color, midx),
+        rough=gather_rows(materials.roughness, midx),
         ior=materials.ior[midx],
     )
 
@@ -223,7 +224,7 @@ def radiance_for_rays(
         x = sample_point_in_triangle(lights.v0[li], lights.v1[li], lights.v2[li],
                                      ul[:, 1], ul[:, 2])
         ln, larea = lights.n[li], lights.area[li]
-        lpow = materials.roughness[lmat]  # re-read so d/d(power) flows
+        lpow = gather_rows(materials.roughness, lmat)  # re-read so d/d(power) flows
         delta = x - surf.p
         dist2 = torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-8)
         dist = torch.sqrt(dist2)
@@ -302,10 +303,10 @@ def radiance_for_rays(
             sun_midx = geom.mat[sun_hit.tri].to(torch.int64)
             unoccluded = (~sun_hit.hit) & ~esc.glass
             glass_occluded = sun_hit.hit & (materials.mtype[sun_midx] == GLASS)
+            sun_color = gather_rows(materials.color, sun_midx)
             sun_light = (
                 unoccluded[:, None].to(torch.float32) * env.sun_power
-                + glass_occluded[:, None].to(torch.float32) * materials.color[sun_midx]
-                * env.sun_power
+                + glass_occluded[:, None].to(torch.float32) * sun_color * env.sun_power
             )
         else:
             sun_light = torch.zeros_like(env_light)

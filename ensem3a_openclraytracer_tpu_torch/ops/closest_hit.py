@@ -374,20 +374,28 @@ PAIRS_MIN_BLOCKS = 2
 
 
 def trace(geom, ray_o: torch.Tensor, ray_d: torch.Tensor, engine: str = "kernel") -> Hit:
-    """Closest-hit dispatch for ``geom.feats``.  Rays on the CPU, and any
-    rays with ``engine="plain"``, take :func:`trace_plain`; rays on the
-    card go through a kernel: ``ops/pairs.trace_pairs`` (one launch, no
-    ray sort) on scenes of ``PAIRS_MIN_BLOCKS`` blocks or more, else
-    :func:`trace_blocks`.  Visibility is not differentiable: the inputs are
-    detached."""
+    """Closest-hit dispatch for ``geom.feats``.  Rays on the card go
+    through a kernel: ``ops/pairs.trace_pairs`` (one launch, no ray sort)
+    on scenes of ``PAIRS_MIN_BLOCKS`` blocks or more, else
+    :func:`trace_blocks`.  Rays on the CPU, and any rays with
+    ``engine="plain"``, take that kernel's plain version: on those scenes
+    ``ops/pairs.trace_pairs_plain`` (its block cull makes it much faster
+    than the full scan), else :func:`trace_plain`; both equal
+    :func:`trace_plain` bit for bit.  Visibility is not differentiable: the
+    inputs are detached."""
     ray_o = ray_o.detach().to(torch.float32).contiguous()
     ray_d = ray_d.detach().to(torch.float32).contiguous()
     feats = geom.feats
+    multi = feats.block_bounds.shape[0] >= PAIRS_MIN_BLOCKS
     if engine == "plain" or ray_o.device.type == "cpu":
+        if multi:
+            from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs_plain
+
+            return trace_pairs_plain(feats, ray_o, ray_d)
         return trace_plain(feats, ray_o, ray_d)
     if engine != "kernel":
         raise ValueError(f"unknown trace engine {engine!r}")
-    if feats.block_bounds.shape[0] >= PAIRS_MIN_BLOCKS:
+    if multi:
         from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs
 
         return trace_pairs(feats, ray_o, ray_d)

@@ -1,14 +1,16 @@
 """Lat-long environment lighting and the directional sun.
 
 Counterpart of the JAX package's ``ops/envmap.py`` (the reference's
-MathLib.cl:72-90 IBL lookup and Raytracing.cl:115-136 sun).  The bilinear
-lookup indexes the texels directly, so gradients flow into them.
+MathLib.cl:72-90 IBL lookup and Raytracing.cl:115-136 sun).  The lookup
+gathers texels with ``ops/gathers.gather_rows``, so gradients flow into
+them with a deterministic backward pass.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ensem3a_openclraytracer_tpu_torch.ops.gathers import gather_rows
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
     normalize,
     rotate_euler_xyz_deg,
@@ -34,13 +36,14 @@ def sample_ibl(ibl: torch.Tensor, direction: torch.Tensor, bilinear: bool = True
     addressing; ``bilinear=False`` is the reference's nearest-texel lookup
     (MathLib.cl:87)."""
     h, w = ibl.shape[0], ibl.shape[1]
+    texels = ibl.reshape(h * w, ibl.shape[2])
     uv = spherical_uv(direction)
     x = uv[..., 0] * w
     y = uv[..., 1] * h
     if not bilinear:
         xi = torch.clamp(x.to(torch.int64), 0, w - 1)
         yi = torch.clamp(y.to(torch.int64), 0, h - 1)
-        return ibl[yi, xi]
+        return gather_rows(texels, yi * w + xi)
     x = x - 0.5
     y = y - 0.5
     x0 = torch.floor(x)
@@ -51,8 +54,11 @@ def sample_ibl(ibl: torch.Tensor, direction: torch.Tensor, bilinear: bool = True
     x1i = torch.clamp(x0i + 1, 0, w - 1)
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
     y1i = torch.clamp(y0i + 1, 0, h - 1)
-    top = ibl[y0i, x0i] * (1.0 - fx) + ibl[y0i, x1i] * fx
-    bot = ibl[y1i, x0i] * (1.0 - fx) + ibl[y1i, x1i] * fx
+    # the four corners in one gather: one sort and one dense texel gradient backward
+    c00, c01, c10, c11 = gather_rows(
+        texels, torch.stack([y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i]))
+    top = c00 * (1.0 - fx) + c01 * fx
+    bot = c10 * (1.0 - fx) + c11 * fx
     return top * (1.0 - fy) + bot * fy
 
 

@@ -11,9 +11,12 @@ closest-hit kernels
 the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
 ``trace_blocks`` and its plain version's counts) and the multi-block fused
 sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
-its counts, with NEE, in record mode, up to 586 blocks).  They skip
-without a card.  This file imports no JAX, so on a machine without JAX run
-it without the suite's conftest:
+its counts, with NEE, in record mode, up to 586 blocks), and the gradient
+path: the replay of fused records against the forward render, the replay's
+gradients on the card against the CPU, the gather backward's determinism,
+and a stopped and resumed optimisation against an uninterrupted one.  They
+skip without a card.  This file imports no JAX, so on a machine without
+JAX run it without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -463,3 +466,107 @@ def test_queue_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):
     out = fu.sample_fused(*args[:2], *empty, *args[9:], key, 0, **kw)
     assert out[0].shape == (0, 3)
     assert fu.LAUNCHES["sample_fused_queue"] == before["sample_fused_queue"] + 2
+
+
+GRAD_SCENES = {  # the gradient path: one block (fused_sample) and four (fused_queue)
+    "one_block": (lambda dev: tt.make_cornell_scene(device=dev), False),
+    "4_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=64, device=dev), True),
+}
+
+
+@pytest.mark.parametrize("role", sorted(GRAD_SCENES))
+def test_replay_of_fused_records_matches_forward_render(cuda, role):
+    """The fused recorder (one record launch per sample) and the replay of
+    its records give the fused forward render of the same generator seed:
+    forks < 2 %, median |diff| < 1e-5 (float order and the kernel's
+    transcendental functions against torch's)."""
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import radiance_for_rays
+    from ensem3a_openclraytracer_tpu_torch.models.replay import record_paths, replay_radiance
+
+    make, sun = GRAD_SCENES[role]
+    g, m, e, c = make(cuda)
+    o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, 64, 64)
+    spp, mb = 4, 3
+    key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(3), cuda)
+    kern = "sample_fused" if g.feats.block_bounds.shape[0] == 1 else "sample_fused_queue"
+    before = fu.LAUNCHES[kern]
+    rec = record_paths(g, m, e, o, d, key, spp=spp, max_bounce=mb, sun_enabled=sun)
+    assert fu.LAUNCHES[kern] == before + spp
+    with torch.no_grad():
+        img_r = replay_radiance(rec, g, m, e, d, sun_enabled=sun)
+    img_f = radiance_for_rays(g, m, e, o, d, torch.Generator(device=cuda).manual_seed(3),
+                              spp=spp, max_bounce=mb, sun_enabled=sun)
+    diff = (img_r - img_f).abs().amax(dim=-1)
+    assert torch.isfinite(img_r).all()
+    assert float((diff > 1e-3).float().mean()) < 0.02 and float(diff.median()) < 1e-5
+
+
+def _replay_grads(make, dev, u, sun, res, mb):
+    from ensem3a_openclraytracer_tpu_torch.models.replay import render_radiance_replay
+
+    g, m, e, c = make(dev)
+    leaves = [x.clone().requires_grad_(True)
+              for x in (m.color, m.roughness, e.sun_power, e.ibl_power, e.ibl)]
+    img = render_radiance_replay(
+        g, m._replace(color=leaves[0], roughness=leaves[1]),
+        e._replace(sun_power=leaves[2], ibl_power=leaves[3], ibl=leaves[4]), c, height=res,
+        width=res, spp=u.shape[0], max_bounce=mb, sun_enabled=sun,
+        uniforms=torch.as_tensor(u, device=dev))
+    grads = torch.autograd.grad(torch.mean(img ** 2), leaves, allow_unused=True)
+    return [torch.zeros_like(x).cpu() if gx is None else gx.cpu() for gx, x in zip(grads, leaves)]
+
+
+@pytest.mark.parametrize("role", sorted(GRAD_SCENES))
+def test_replay_gradients_on_card_match_cpu(cuda, role):
+    """The replay's gradients with the scan recorder on the card's trace
+    kernels equal the same call on the CPU to 1e-4 relative per parameter."""
+    make, sun = GRAD_SCENES[role]
+    res, spp, mb = 32, 2, 3
+    u = np.random.default_rng(5).random((spp, mb + 1, res * res, 2)).astype(np.float32)
+    card = _replay_grads(make, cuda, u, sun, res, mb)
+    cpu = _replay_grads(make, torch.device("cpu"), u, sun, res, mb)
+    for a, b in zip(card, cpu):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-12)
+    assert float(card[0].abs().max()) > 0.0
+
+
+def test_kill_and_resume_on_card_is_bit_equal(cuda, tmp_path):
+    """A run stopped after 3 iterations and resumed from its checkpoint
+    gives the uninterrupted run's losses bit for bit on the card: the
+    recorder, the replay and its backward are deterministic there."""
+    from ensem3a_openclraytracer_tpu_torch.models import optimize as opt
+
+    g, m, e, c = tt.make_cornell_scene(device=cuda)
+    init, step = opt.make_train_step(g, m, e, c, opt.Adam(5e-2), height=32, width=32, spp=2,
+                                     max_bounce=3, sun_enabled=False)
+    target = torch.zeros((32, 32, 3), device=cuda)
+    full, resumed = [], []
+    opt.run_optimization(init, step, target, 3, iters=6, log=lambda i, x: full.append(x))
+    ckpt = str(tmp_path / "opt.npz")
+    for iters in (3, 6):
+        opt.run_optimization(init, step, target, 3, iters=iters, checkpoint_path=ckpt,
+                             checkpoint_every=3, log=lambda i, x: resumed.append(x))
+    assert resumed == full and full[-1] < full[0]
+
+
+@pytest.mark.parametrize("rows", [6, 36, 4096 * 8192])
+def test_gather_rows_backward_is_deterministic_on_card(cuda, rows):
+    """``ops/gathers.scatter_rows`` (the backward of every replay gather)
+    repeats bit for bit on the card, where the embedding backward and
+    ``index_add_`` add with atomics, and equals a float64 reference to
+    float32 rounding."""
+    from ensem3a_openclraytracer_tpu_torch.ops.gathers import scatter_rows
+
+    r = np.random.default_rng(rows % 1000)
+    n = 262144
+    idx = torch.as_tensor(r.integers(0, rows, n), device=cuda)
+    grad = torch.as_tensor(r.standard_normal((n, 3)).astype(np.float32), device=cuda)
+    ref = scatter_rows(grad, idx, rows)
+    for _ in range(3):
+        junk = torch.empty(int(r.integers(1, 1 << 22)), device=cuda)  # move the allocator
+        assert torch.equal(scatter_rows(grad, idx, rows), ref)
+    del junk
+    exact = torch.zeros((rows, 3), dtype=torch.float64, device=cuda).index_add_(
+        0, idx, grad.to(torch.float64))
+    assert float((ref.to(torch.float64) - exact).abs().max()) <= 1e-5 * max(
+        float(exact.abs().max()), 1.0)

@@ -20,6 +20,7 @@ from ensem3a_openclraytracer_tpu_torch import convert
 from ensem3a_openclraytracer_tpu_torch import testing as tt
 from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance, render_scene
 from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene
+from test_torch_replay import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 RES = 24
 SPP = 2
@@ -67,6 +68,51 @@ def test_render_radiance_matches_jax(name):
     assert np.isfinite(img).all() and img.mean() > 0.0
     frac = _fork_fraction(img, ref)
     assert frac < 0.02, f"{name}: pixel forks {frac:.4f}, max diff {np.abs(img - ref).max()}"
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_scan_gradients_match_jax(name):
+    """The scan path's gradients of ``mean(img^2)`` w.r.t. color,
+    roughness, sun power, IBL power and IBL texels equal ``jax.grad`` of
+    the JAX ``render_radiance(fused=False)`` on the same uniforms to 1e-4
+    relative per parameter (float order in two frameworks)."""
+    case = CASES[name]
+    jg, jm, je, jc = case["make"]()
+    res = 16
+    rng = np.random.default_rng(100 + sorted(CASES).index(name))
+    n = res * res
+    u = rng.random(size=(SPP, MB + 1, n, 2), dtype=np.float64).astype(np.float32)
+    nee, mis = case.get("nee", False), case.get("mis", False)
+    ul = rng.random(size=(SPP, MB + 1, n, 3), dtype=np.float64).astype(np.float32) if nee else None
+    jl = j_light_pack(jg, jm) if nee else None
+    kw = dict(height=res, width=res, spp=SPP, max_bounce=MB, sun_enabled=case["sun"],
+              nee=nee, mis=mis, glass_mode=case.get("glass_mode", "tint"), fused=False)
+
+    def j_loss(color, rough, sun_p, ibl_p, ibl):
+        img = j_render(jg, jm._replace(color=color, roughness=rough),
+                       je._replace(sun_power=sun_p, ibl_power=ibl_p, ibl=ibl), jc,
+                       jax.random.PRNGKey(0), uniforms=jnp.asarray(u), lights=jl,
+                       light_uniforms=None if ul is None else jnp.asarray(ul), **kw)
+        return jnp.mean(img ** 2)
+
+    ref = jax.grad(j_loss, argnums=tuple(range(5)))(jm.color, jm.roughness, je.sun_power,
+                                                   je.ibl_power, je.ibl)
+    g, m, e, c = convert.scene(jg, jm, je, jc, device="cpu")
+    leaves = [x.clone().requires_grad_(True)
+              for x in (m.color, m.roughness, e.sun_power, e.ibl_power, e.ibl)]
+    img = render_radiance(
+        g, m._replace(color=leaves[0], roughness=leaves[1]),
+        e._replace(sun_power=leaves[2], ibl_power=leaves[3], ibl=leaves[4]), c,
+        uniforms=torch.as_tensor(u), lights=convert.lights(jl, "cpu"),
+        light_uniforms=None if ul is None else torch.as_tensor(ul), **kw)
+    got = torch.autograd.grad(torch.mean(img ** 2), leaves, allow_unused=True)
+    for f, a, b, x in zip(("color", "roughness", "sun_power", "ibl_power", "ibl"), got, ref,
+                          leaves):
+        a = np.zeros(tuple(x.shape), np.float32) if a is None else a.numpy()
+        b = np.asarray(b)
+        rel = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-12)
+        assert rel <= 1e-4, f"{name} {f}: relative difference {rel:.2e}"
+    assert float(np.abs(np.asarray(ref[0])).max()) > 0.0
 
 
 def test_render_scene_from_files(tmp_path):

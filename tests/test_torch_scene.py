@@ -155,8 +155,8 @@ def test_port_imports_without_jax():
         "ensem3a_openclraytracer_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
-    port_mods = ("models.pathtracer", "ops.closest_hit", "ops.fused", "ops.pairs", "ops.rng",
-                 "_build",
+    port_mods = ("models.pathtracer", "models.replay", "models.optimize", "ops.closest_hit",
+                 "ops.fused", "ops.gathers", "ops.pairs", "ops.rng", "convert", "_build",
                  "experiments.common", "experiments.proto_grouped",
                  "experiments.proto_compact")
     assert {"ensem3a_openclraytracer_tpu_torch." + m for m in port_mods} <= set(mods)
