@@ -5,8 +5,9 @@
 
 Builds every CUDA kernel of the port from ``ensem3a_openclraytracer_tpu_torch/csrc``
 and drives the port's main path, a scene loaded from an ``.obj`` + ``.ini``
-and rendered at its ini settings with the default engine, and its
-gradient path (record, replay, train step, optimisation) on the card:
+and rendered at its ini settings with the default engine, its gradient
+path (record, replay, train step, optimisation) and its command line
+(progressive renders, ``--mesh``, ``optimize``, ``bench``) on the card:
 
 1. environment and build: the card's name and power limit, versions, and
    the kernels' build time and ``-Xptxas -v`` report;
@@ -101,7 +102,24 @@ gradient path (record, replay, train step, optimisation) on the card:
    forward, backward and idle share, and one ``make_train_step`` step;
    (5) ``run_optimization`` on Cornell at 128^2, 8 spp, 12 iterations from
    perturbed colors: the loss falls, and a run stopped after 6 iterations
-   and resumed from its checkpoint gives the same losses bit for bit.
+   and resumed from its checkpoint gives the same losses bit for bit;
+12. the product surface (``cli.py``, ``models/progressive.py``,
+   ``parallel/``), in process, on scenes written as ``.obj`` + ``.ini``:
+   (1) ``cli render`` of Cornell (512^2, 64 spp) and outdoor_1000 (512^2,
+   16 spp) at the ini's settings in chunks of 16 with a checkpoint after
+   each, the launch counts set to 0 before each call and read after it
+   (Cornell: ``closest_hit`` and ``sample_fused`` once per chunk;
+   outdoor_1000: ``pairs`` once per chunk, ``sample_fused_queue`` once per
+   sample), wall and Mrays/s beside the same render without checkpoints
+   and ``render_scene``'s; (2) Cornell stopped after two chunks and
+   resumed: ``accum`` bit-equal to the uninterrupted run's, and the image
+   equal to the float64 mean of its four ``render_radiance`` chunk calls
+   (0 forks at 1e-3); (3) ``render --mesh 1,1`` with ``torchrun``'s
+   environment set for one rank: the CLI joins an ``nccl`` group on
+   ``cuda:0`` itself, and its render is bit-equal to the one without
+   ``--mesh``; (4) one ``optimize``
+   iteration (Cornell 128^2, 8 spp, ``--dry-run``); (5) ``bench``, whose
+   JSON lines are printed.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -1693,6 +1711,231 @@ def phase_gradients(dev, smi: str, workdir: Path) -> tuple:
                        trainer=trainer)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the product surface (models/progressive.py, cli.py, parallel/)
+# ---------------------------------------------------------------------------
+
+CLI_CHUNK = 16  # --chunk-spp of the CLI renders
+CLI_OPTIMIZE = (128, 8, 4)  # one optimize iteration: the CLI's resolution cap, spp, bounces
+BENCH_ARGS = ()  # bench at bench.py's shapes: Cornell 512^2, 100 spp, 4 bounces
+
+
+def cli_scenes() -> list:
+    """The CLI renders at phase 3's ini settings: Cornell (one block) and
+    outdoor_1000 (47 blocks), with the kernels each chunk launches."""
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+
+    return [
+        dict(name="cornell", make=lambda d: tt.make_cornell_scene(device=d),
+             render=(512, MAIN_SPP, 4), sun=False, hit="closest_hit", sample="sample_fused"),
+        dict(name="outdoor_1000", make=lambda d: tt.make_outdoor_scene(n_cubes=1000, device=d),
+             render=(512, 16, 4), sun=True, hit="pairs", sample="sample_fused_queue"),
+    ]
+
+
+def cli(argv) -> str:
+    """``cli.main(argv)`` in this process; its standard output, echoed."""
+    import contextlib
+    import io
+
+    from ensem3a_openclraytracer_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        log(f"[phase 12]   | {line}")
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return text
+
+
+def cli_render(scn, path: Path, workdir: Path, smi: str, tag: str, extra=()) -> dict:
+    """One ``cli render`` at the ini's settings with the launch counts set to
+    0 just before it and read just after it."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.progressive import ProgressiveState
+
+    res, spp, mb = scn["render"]
+    ckpt = workdir / f"{tag}.npz"
+    out = workdir / tag / "out.png"
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    text = cli(["render", str(path), "--chunk-spp", str(CLI_CHUNK), "--checkpoint", str(ckpt),
+                "--out", str(out), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    line = [x for x in text.splitlines() if x.startswith("rendered ")]
+    check(len(line) == 1 and f"@ {spp} spp" in line[0], f"{tag}: render line {line}")
+    check(out.exists() and (out.parent / "src.png").exists(), f"{tag}: PNGs not written")
+    st = ProgressiveState.load(str(ckpt))
+    img = st.image
+    check(st.spp_done == spp and img.shape == (res, res, 3), f"{tag}: {st.spp_done} spp, "
+          f"image {img.shape}")
+    check(bool(np.isfinite(img).all()) and 0.0 < float(np.clip(img, 0, 1).mean()) <= 1.0,
+          f"{tag}: image not finite or black")
+    rays = res * res * (1 + spp * (mb + 1) * (2 if scn["sun"] else 1))
+    log(f"[phase 12] {tag}: cli render {res}^2 {spp} spp {mb} bounces in chunks of {CLI_CHUNK}, "
+        f"checkpoint every chunk: wall {wall:.3f} s ({rays / wall / 1e6:.1f} Mrays/s), "
+        f"launches {launches} [{smi}]")
+    return dict(name=tag, res=res, spp=spp, max_bounce=mb, chunk_spp=CLI_CHUNK, seconds=wall,
+                mrays_per_s=rays / wall / 1e6, launches=launches, cli_line=line[0],
+                accum=st.accum)
+
+
+def phase_product(dev, smi: str, workdir: Path, main_renders: dict) -> dict:
+    """Phase 12: the CLI's renders at the ini's settings with their launch
+    counts, a stopped and resumed render against an uninterrupted one and
+    against the mean of its chunks' ``render_radiance`` calls, ``--mesh 1,1``
+    through ``nccl`` against the plain render, one ``optimize`` iteration
+    and ``bench``."""
+    import contextlib
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import iteration_generator
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance, render_scene
+    from ensem3a_openclraytracer_tpu_torch.models.progressive import ProgressiveState
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene
+    from ensem3a_openclraytracer_tpu_torch.utils.image import save_png
+
+    scenes = cli_scenes()
+    zero = {k: 0 for k in read_launches()}
+    out = {}
+    with contextlib.chdir(workdir):  # the CLI keeps ./config.ini
+        paths = {}
+        for scn in scenes:
+            res, spp, mb = scn["render"]
+            path = workdir / f"{scn['name']}.obj"
+            tt.write_scene_files(str(path), *scn["make"]("cpu"), resolution=res, spp=spp,
+                                 max_bounce=mb)
+            paths[scn["name"]] = path
+            cli(["render", str(path), "--resolution", "64", "--spp", "16",
+                 "--out", str(workdir / "warm.png")])  # warm-up
+            info = cli_render(scn, path, workdir, smi, scn["name"])
+            chunks = spp // CLI_CHUNK
+            want = {**zero, scn["hit"]: chunks,
+                    scn["sample"]: chunks if scn["sample"] == "sample_fused" else spp}
+            check(info["launches"] == want, f"{scn['name']}: cli launches {info['launches']}, "
+                  f"want {want}")
+            # the same render without checkpoints, and render_scene (one call)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli(["render", str(path), "--chunk-spp", str(CLI_CHUNK),
+                 "--out", str(workdir / "nockpt" / "out.png")])
+            torch.cuda.synchronize()
+            info["seconds_no_checkpoint"] = time.perf_counter() - t0
+            scene = Scene.load(str(path), device=dev)
+            _, info["render_scene_seconds"] = timed_render(scene, {})
+            log(f"[phase 12] {scn['name']}: cli {info['seconds']:.3f} s with checkpoints, "
+                f"{info['seconds_no_checkpoint']:.3f} s without, render_scene "
+                f"{info['render_scene_seconds']:.3f} s (phase 3: "
+                f"{main_renders[scn['name']]['seconds']:.3f} s) [{smi}]")
+            out[scn["name"]] = info
+
+        # 12.2: stopped after two chunks and resumed, against the run above
+        cornell = scenes[0]
+        res, spp, mb = cornell["render"]
+        ckpt = workdir / "stopped.npz"
+        stop = ["render", str(paths["cornell"]), "--chunk-spp", str(CLI_CHUNK), "--checkpoint",
+                str(ckpt), "--out", str(workdir / "stopped" / "out.png")]
+        cli(stop + ["--spp", str(2 * CLI_CHUNK)])
+        text = cli(stop)
+        st = ProgressiveState.load(str(ckpt))
+        resumed_equal = bool(np.array_equal(st.accum, out["cornell"]["accum"]))
+        check(f"resumed at {2 * CLI_CHUNK} spp" in text, "the second render did not resume")
+        check(st.spp_done == spp and resumed_equal,
+              f"stopped and resumed: {st.spp_done} spp, accum bit-equal {resumed_equal}")
+        scene = Scene.load(str(paths["cornell"]), device=dev)
+        acc = np.zeros((res, res, 3))
+        for i in range(spp // CLI_CHUNK):
+            chunk = render_radiance(scene.geometry, scene.material_params(), scene.env_params(),
+                                    scene.camera_params(), iteration_generator(0, i, dev),
+                                    height=res, width=res, spp=CLI_CHUNK, max_bounce=mb,
+                                    sun_enabled=False)
+            acc = acc + chunk.cpu().numpy().astype(np.float64) * CLI_CHUNK
+        chunks_img = torch.as_tensor((acc / spp).astype(np.float32))
+        forks, med, mx = image_forks(torch.as_tensor(st.image), chunks_img)
+        check(forks == 0.0, f"progressive vs the mean of its chunk renders: forks {forks}")
+        log(f"[phase 12] cornell stopped after 2 chunks and resumed: accum bit-equal to the "
+            f"uninterrupted run {resumed_equal}; image vs the mean of {spp // CLI_CHUNK} "
+            f"render_radiance chunk calls: forks {forks}, median {med:.3g}, max {mx:.3g}, "
+            f"bit-equal {bool(np.array_equal(st.image, chunks_img.numpy()))}")
+
+        # 12.3: --mesh 1,1 against the plain render; the CLI joins a one-rank
+        # group itself from torchrun's environment (parallel/distributed.initialize)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        saved = {k: os.environ.get(k) for k in env}
+        check(not dist.is_initialized(), "a process group exists before --mesh 1,1")
+        os.environ.update(env)
+        try:
+            mesh_info = cli_render(cornell, paths["cornell"], workdir, smi, "cornell_mesh",
+                                   extra=("--mesh", "1,1"))
+            joined = dist.is_initialized()
+            backend = dist.get_backend() if joined else None
+            world = dist.get_world_size() if joined else None
+            card = torch.cuda.current_device()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        mesh_equal = bool(np.array_equal(mesh_info["accum"], out["cornell"]["accum"]))
+        check(joined and backend == "nccl" and world == 1 and card == 0,
+              f"--mesh 1,1 joined {joined}, backend {backend}, world {world}, cuda:{card}")
+        check(mesh_equal, f"--mesh 1,1: accum bit-equal to the plain render {mesh_equal}")
+        log(f"[phase 12] --mesh 1,1 joined a one-rank {backend} group on cuda:{card} from "
+            f"torchrun's environment: accum bit-equal to the render without --mesh "
+            f"{mesh_equal}")
+
+        # 12.4: one optimize iteration, --dry-run
+        o_res, o_spp, o_mb = CLI_OPTIMIZE
+        target = workdir / "target.png"
+        save_png(render_scene(scene, seed=9, overrides={"resolution": o_res}), str(target))
+        ini = (workdir / "cornell.ini").read_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = cli(["optimize", str(paths["cornell"]), "--target", str(target), "--iters", "1",
+                    "--resolution", str(o_res), "--spp", str(o_spp), "--max-bounce", str(o_mb),
+                    "--dry-run"])
+        opt_s = time.perf_counter() - t0
+        losses = [float(x.split()[-1]) for x in text.splitlines() if x.startswith("iter")]
+        check(len(losses) == 1 and np.isfinite(losses[0]), f"optimize losses {losses}")
+        check((workdir / "cornell.ini").read_bytes() == ini, "optimize --dry-run wrote the ini")
+        log(f"[phase 12] optimize, 1 iteration at {o_res}^2, {o_spp} spp, {o_mb} bounces, "
+            f"--dry-run: loss {losses[0]:.6e}, {opt_s:.2f} s (scene load included) [{smi}]")
+
+        # 12.5: bench (its JSON lines are echoed above)
+        t0 = time.perf_counter()
+        text = cli(["bench", *BENCH_ARGS])
+        bench = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+        check([b["metric"] for b in bench] == ["cornell_forward_mrays_per_s",
+                                               "cornell_fwdbwd_mrays_per_s"]
+              and all(b["value"] > 0 and b["card"] for b in bench), f"bench lines {bench}")
+        for b in bench:
+            log(json.dumps(b))
+        log(f"[phase 12] bench {time.perf_counter() - t0:.1f} s [{smi}]")
+    for info in list(out.values()) + [mesh_info]:
+        info.pop("accum")
+    return dict(cli_renders=out, resume_bit_equal=resumed_equal, chunks_forks=forks,
+                mesh_1x1=dict(mesh_info, backend=backend, bit_equal=mesh_equal),
+                optimize=dict(loss=losses[0], seconds=opt_s), bench=bench)
+
+
 def main() -> int:
     import torch
 
@@ -1825,7 +2068,13 @@ def main() -> int:
     kernels += grad_lines
     log(f"[phase 11] wall {time.perf_counter() - t11:.1f} s")
 
-    summary = {"card": smi, "renders": renders, "fused_vs_scan": versus, "gradients": gradients}
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        product = phase_product(dev, smi, Path(tmp), {r["name"]: r for r in renders})
+    log(f"[phase 12] wall {time.perf_counter() - t12:.1f} s")
+
+    summary = {"card": smi, "renders": renders, "fused_vs_scan": versus, "gradients": gradients,
+               "product": product}
     log(f"[summary] {json.dumps(summary)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -12,6 +12,6 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA without a card raises.
 """
 
-__version__ = "0.1.0"
+from ensem3a_openclraytracer_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

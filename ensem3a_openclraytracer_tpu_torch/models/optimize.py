@@ -17,17 +17,21 @@ there; the two packages' streams differ.
 
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ensem3a_openclraytracer_tpu_torch._device import DeviceLike, resolve_device
-from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
-from ensem3a_openclraytracer_tpu_torch.models.replay import render_radiance_replay
+from ensem3a_openclraytracer_tpu_torch.models.pathtracer import radiance_for_rays
+from ensem3a_openclraytracer_tpu_torch.models.replay import radiance_for_rays_replay
 from ensem3a_openclraytracer_tpu_torch.ops import rng
+from ensem3a_openclraytracer_tpu_torch.parallel.mesh import Mesh, single_device_mesh
+from ensem3a_openclraytracer_tpu_torch.parallel.render import fold_ranks, render_rows
 from ensem3a_openclraytracer_tpu_torch.scene.materials import EnvParams, MaterialParams
 
 
@@ -59,29 +63,29 @@ def image_loss(rendered: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((rendered - target) ** 2)
 
 
-_NO_MESH = ("sharded rendering is not ported yet (ROADMAP.md, queue 1 item 7, "
-            "'Parallelism'); render on one device with mesh=None")
-
-
 def render_for_grad(params: TrainableParams, geom, materials: MaterialParams, env: EnvParams,
                     camera, gen: Optional[torch.Generator] = None, *, height: int, width: int,
-                    spp: int, max_bounce: int, sun_enabled: bool = True, mesh=None,
-                    nee: bool = False, lights=None, mis: bool = False) -> torch.Tensor:
+                    spp: int, max_bounce: int, sun_enabled: bool = True,
+                    mesh: Optional[Mesh] = None, nee: bool = False, lights=None,
+                    mis: bool = False, **stream) -> torch.Tensor:
     """Differentiable radiance image from :class:`TrainableParams`: the one
     entry point of every gradient consumer.  It renders with the
     path-replay engine; ``nee=True`` (with ``lights``) switches it to the
     next-event estimator, and ``mis=True`` (implies NEE) renders with the
-    scan estimator, since the recorder has no MIS mode.  ``mesh`` (sharded
-    rendering) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    scan estimator, since the recorder has no MIS mode.  ``stream`` may
+    hold explicit ``uniforms`` / ``light_uniforms`` in place of the
+    generator's.
+
+    It returns this rank's rows ``[height / dp, width, 3]`` of ``mesh``
+    (``parallel/mesh``; default 1x1, the whole image), averaged over the
+    ``sp`` group; the gradient reaches this rank's own samples only, and
+    :func:`value_and_grad` sums the parameters' gradients over the mesh."""
     m, e = params.apply(materials, env)
-    kw = dict(height=height, width=width, spp=spp, max_bounce=max_bounce,
-              sun_enabled=sun_enabled)
-    if mis:
-        return render_radiance(geom, m, e, camera, gen, fused=False, nee=True, lights=lights,
-                               mis=True, **kw)
-    return render_radiance_replay(geom, m, e, camera, gen, nee=nee, lights=lights, **kw)
+    radiance = (functools.partial(radiance_for_rays, fused=False, nee=True, mis=True) if mis
+                else functools.partial(radiance_for_rays_replay, nee=nee))
+    return render_rows(mesh if mesh is not None else single_device_mesh(), radiance, geom, m, e,
+                       camera, gen, height=height, width=width, spp=spp, max_bounce=max_bounce,
+                       sun_enabled=sun_enabled, lights=lights, **stream)
 
 
 class AdamState(NamedTuple):
@@ -123,31 +127,57 @@ class Adam(NamedTuple):
         return new, AdamState(count=count, mu=mu, nu=nu)
 
 
+def value_and_grad(params: TrainableParams, target: torch.Tensor, geom,
+                   materials: MaterialParams, env: EnvParams, camera,
+                   gen: Optional[torch.Generator] = None, *, height: int, width: int,
+                   mesh: Optional[Mesh] = None, **kwargs) -> Tuple[torch.Tensor, TrainableParams]:
+    """``(loss, grads)`` of :func:`image_loss` of :func:`render_for_grad`
+    (keyword arguments as there) against ``target``; a parameter that the
+    image does not reach gets a zero gradient.
+
+    ``target`` is this rank's rows of ``mesh`` (default 1x1, the whole
+    image; ``parallel/render.shard_target_image``) and every rank of the
+    mesh calls it with the same arguments.  The loss is the mean over all
+    pixels, taken as each rank's sum over its rows divided by the pixel
+    count, and the gradients are summed over the mesh in rank order, so
+    every rank holds the same loss and gradients bit for bit."""
+    mesh = mesh if mesh is not None else single_device_mesh()
+    leaves = [x.detach().requires_grad_(True) for x in params]
+    img = render_for_grad(TrainableParams(*leaves), geom, materials, env, camera, gen,
+                          height=height, width=width, mesh=mesh, **kwargs)
+    if tuple(target.shape) != tuple(img.shape):
+        raise ValueError(f"target {tuple(target.shape)}: pass this rank's rows "
+                         f"{tuple(img.shape)} (shard_target_image)")
+    loss = torch.sum((img - target) ** 2) / (height * width * 3)  # this rank's part
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    loss = loss.detach()
+    if mesh.group is not None:
+        flat = fold_ranks(torch.cat([g.reshape(-1) for g in grads]), mesh.group, mesh.size)
+        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        loss = fold_ranks(loss, mesh.dp_group, mesh.dp)
+    return loss, TrainableParams(*grads)
+
+
 def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, optimizer: Adam, *,
-                    height: int, width: int, spp: int, max_bounce: int, mesh=None,
-                    sun_enabled: bool = True, nee: bool = False, lights=None,
-                    mis: bool = False):
+                    height: int, width: int, spp: int, max_bounce: int,
+                    mesh: Optional[Mesh] = None, sun_enabled: bool = True, nee: bool = False,
+                    lights=None, mis: bool = False):
     """``(init, step)`` for inverse rendering against a target image.
 
     ``init(params=None) -> (params, opt_state)`` starts from the scene's
     parameters; ``step(params, opt_state, target, gen) -> (params,
-    opt_state, loss)`` renders with :func:`render_for_grad`, takes the
-    gradient of :func:`image_loss`, updates with ``optimizer`` and clamps
-    colors to [0, 1] and powers, roughness and texels to >= 0.  The
-    inputs are not modified."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    opt_state, loss)`` takes :func:`value_and_grad`, updates with
+    ``optimizer`` and clamps colors to [0, 1] and powers, roughness and
+    texels to >= 0.  The inputs are not modified.  The target is this
+    rank's rows of ``mesh`` (default 1x1) and every rank takes the same
+    update."""
     kw = dict(height=height, width=width, spp=spp, max_bounce=max_bounce,
-              sun_enabled=sun_enabled, nee=nee, lights=lights, mis=mis)
+              sun_enabled=sun_enabled, nee=nee, lights=lights, mis=mis, mesh=mesh)
 
     def step(params: TrainableParams, opt_state: AdamState, target: torch.Tensor,
              gen: Optional[torch.Generator]):
-        leaves = [x.detach().requires_grad_(True) for x in params]
-        p = TrainableParams(*leaves)
-        loss = image_loss(render_for_grad(p, geom, materials, env, camera, gen, **kw), target)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = TrainableParams(*(torch.zeros_like(x) if g is None else g
-                                  for g, x in zip(grads, leaves)))
+        loss, grads = value_and_grad(params, target, geom, materials, env, camera, gen, **kw)
         with torch.no_grad():
             new, opt_state = optimizer.update(grads, opt_state, TrainableParams(*params))
             new = TrainableParams(
@@ -157,7 +187,7 @@ def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, opt
                 ibl_power=torch.clamp(new.ibl_power, min=0.0),
                 ibl=torch.clamp(new.ibl, min=0.0),
             )
-        return new, opt_state, loss.detach()
+        return new, opt_state, loss
 
     def init(params: Optional[TrainableParams] = None):
         p = TrainableParams.from_scene_params(materials, env) if params is None else params
@@ -169,15 +199,9 @@ def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, opt
 
 def iteration_generator(seed: int, i: int, device: DeviceLike = None) -> torch.Generator:
     """The random source of iteration ``i`` of a run with base ``seed``: a
-    generator on ``device`` seeded with 64 bits of
-    ``philox4x32_10(ctr=(i, 0, 0, 0), key=(seed mod 2^32, seed >> 32))``, a
-    pure function of (seed, i)."""
-    ctr = torch.tensor([[int(i), 0, 0, 0]], dtype=torch.int64)
-    key = torch.tensor([[int(seed) & 0xFFFFFFFF, (int(seed) >> 32) & 0xFFFFFFFF]],
-                       dtype=torch.int64)
-    w = rng.philox4x32_10(ctr, key)[0].tolist()
+    generator on ``device`` seeded with ``ops/rng.fold_seed(seed, i)``."""
     gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed((w[0] << 32) | w[1])
+    gen.manual_seed(rng.fold_seed(seed, i))
     return gen
 
 
@@ -238,12 +262,14 @@ def run_optimization(init, step, target: torch.Tensor, seed: int, *, iters: int,
     (three attempts) with the same generator seed, so a retry gives the
     same update.  On the card the attempt synchronizes inside the ``try``,
     so an asynchronous CUDA error is caught by the retry and not after
-    it."""
+    it.  Under ``torch.distributed`` only rank 0 writes the checkpoint;
+    every rank reads it to resume."""
     dev = target.device
     params, opt_state = init()
     start = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
         params, opt_state, start, seed = load_optimizer_checkpoint(checkpoint_path, dev)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     loss = None
     for i in range(start, iters):
         for attempt in range(3):
@@ -260,6 +286,7 @@ def run_optimization(init, step, target: torch.Tensor, seed: int, *, iters: int,
         params, opt_state = params_i, opt_state_i
         if log is not None:
             log(i, float(loss))
-        if checkpoint_path and ((i + 1) % checkpoint_every == 0 or i == iters - 1):
+        if (checkpoint_path and writer
+                and ((i + 1) % checkpoint_every == 0 or i == iters - 1)):
             save_optimizer_checkpoint(checkpoint_path, params, opt_state, i + 1, seed)
     return params, opt_state, loss

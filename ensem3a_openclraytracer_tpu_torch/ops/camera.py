@@ -17,13 +17,18 @@ import torch
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import euler_xyz_matrix, normalize
 
 
+def focal_distance(fov_rad) -> torch.Tensor:
+    """Distance from the unit-width image plane to the focal point."""
+    return 1.0 / (2.0 * torch.tan(torch.as_tensor(fov_rad, dtype=torch.float32) / 2.0))
+
+
 def camera_rays(position: torch.Tensor, rot_deg: torch.Tensor, fov_deg: torch.Tensor,
                 height: int, width: int):
     """One primary ray per pixel: ``(origins [H*W, 3], unit directions
     [H*W, 3])`` in row-major pixel order, on ``position``'s device."""
     dev = position.device
     fov_rad = fov_deg.to(torch.float32) * (math.pi / 180.0)
-    f = 1.0 / (2.0 * torch.tan(fov_rad / 2.0))
+    f = focal_distance(fov_rad)
     rows = (np.arange(height, dtype=np.float32) + 0.5) / height
     cols = (np.arange(width, dtype=np.float32) + 0.5) / width
     gx, gz = np.meshgrid(cols - 0.5, (0.5 - rows) * (height / width), indexing="xy")

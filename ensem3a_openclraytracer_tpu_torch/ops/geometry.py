@@ -41,6 +41,18 @@ def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v * (1.0 / torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=eps)))
 
 
+def rotate_axis_angle(v: torch.Tensor, axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation of ``v`` about ``axis`` (normalized here) by
+    ``angle`` in radians; the reference's quaternion ``rotateVec``
+    (MathLib.cl:56-65) without the quaternion products."""
+    axis = normalize(axis)
+    c = torch.cos(angle)[..., None]
+    s = torch.sin(angle)[..., None]
+    kv = cross(axis, v)
+    kkv = axis * dot(axis, v)[..., None]
+    return v * c + kv * s + kkv * (1.0 - c)
+
+
 def _rot(c, s, axis: int) -> torch.Tensor:
     z, o = torch.zeros_like(c), torch.ones_like(c)
     rows = {

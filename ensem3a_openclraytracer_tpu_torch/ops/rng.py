@@ -58,6 +58,17 @@ def philox4x32_10(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return torch.stack(c, dim=-1)
 
 
+def fold_seed(seed: int, i: int) -> int:
+    """64 bits of ``philox4x32_10(ctr=(i, 0, 0, 0), key=(seed mod 2^32,
+    seed >> 32))``: a seed that is a pure function of (seed, i), the
+    counterpart of JAX's ``fold_in(key, i)``."""
+    ctr = torch.tensor([[int(i), 0, 0, 0]], dtype=torch.int64)
+    key = torch.tensor([[int(seed) & 0xFFFFFFFF, (int(seed) >> 32) & 0xFFFFFFFF]],
+                       dtype=torch.int64)
+    w = philox4x32_10(ctr, key)[0].tolist()
+    return (w[0] << 32) | w[1]
+
+
 def key_from_generator(gen: torch.Generator, device: torch.device) -> torch.Tensor:
     """Two random key words ``[2]`` int32 (uint32 bit patterns) drawn from
     ``gen`` on ``device``: the kernels read them there, with no host sync."""

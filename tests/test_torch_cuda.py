@@ -14,8 +14,10 @@ sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
 its counts, with NEE, in record mode, up to 586 blocks), and the gradient
 path: the replay of fused records against the forward render, the replay's
 gradients on the card against the CPU, the gather backward's determinism,
-and a stopped and resumed optimisation against an uninterrupted one.  They
-skip without a card.  This file imports no JAX, so on a machine without
+and a stopped and resumed optimisation against an uninterrupted one; and
+the product surface: progressive chunks against one-shot renders, the
+CLI render's kernel launches, and ``--mesh 1,1`` joining ``nccl`` from
+``torchrun``'s environment.  They skip without a card.  This file imports no JAX, so on a machine without
 JAX run it without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -570,3 +572,105 @@ def test_gather_rows_backward_is_deterministic_on_card(cuda, rows):
         0, idx, grad.to(torch.float64))
     assert float((ref.to(torch.float64) - exact).abs().max()) <= 1e-5 * max(
         float(exact.abs().max()), 1.0)
+
+
+def _launches() -> dict:
+    return {k: v for counts in (ch.LAUNCHES, pp.LAUNCHES, fu.LAUNCHES, rng.LAUNCHES)
+            for k, v in counts.items()}
+
+
+def _zero_launches() -> None:
+    for counts in (ch.LAUNCHES, pp.LAUNCHES, fu.LAUNCHES, rng.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+@pytest.mark.parametrize("role", ["one_block", "61_blocks"])
+def test_progressive_chunks_equal_one_shot_renders_on_card(cuda, role, tmp_path):
+    """A progressive render on the default (fused) engine is the float64
+    fold of ``render_radiance(gen=iteration_generator(seed, i),
+    spp=chunk_spp)`` bit for bit, and a render stopped after two chunks
+    and resumed from its checkpoint equals one that ran through."""
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import iteration_generator
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
+    from ensem3a_openclraytracer_tpu_torch.models.progressive import ProgressiveRenderer
+
+    g, m, e, c = ROLES[role][0](cuda)
+    sun = role != "one_block"
+    kw = dict(height=64, width=64, max_bounce=3, chunk_spp=4, sun_enabled=sun)
+    full = ProgressiveRenderer(g, m, e, c, base_seed=7, **kw)
+    img = full.render(16)
+    acc = np.zeros((64, 64, 3))
+    for i in range(4):
+        chunk = render_radiance(g, m, e, c, iteration_generator(7, i, cuda), height=64, width=64,
+                                spp=4, max_bounce=3, sun_enabled=sun)
+        acc = acc + chunk.cpu().numpy().astype(np.float64) * 4
+    assert np.array_equal(img, (acc / 16).astype(np.float32))
+    ckpt = str(tmp_path / "p.npz")
+    ProgressiveRenderer(g, m, e, c, base_seed=7, **kw).render(8, checkpoint_path=ckpt)
+    resumed = ProgressiveRenderer.resume(ckpt, g, m, e, c, **kw)
+    resumed.render(16)
+    assert np.array_equal(resumed.state.accum, full.state.accum)
+
+
+@pytest.mark.parametrize("case", ["cornell", "outdoor_1000"])
+def test_cli_render_launch_counts_on_card(cuda, case, tmp_path, monkeypatch):
+    """``cli render`` on the card goes through the kernels: Cornell (one
+    block) launches ``closest_hit`` and ``sample_fused`` once per chunk,
+    outdoor_1000 (47 blocks) ``pairs`` once per chunk and
+    ``sample_fused_queue`` once per sample."""
+    from ensem3a_openclraytracer_tpu_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    make = (tt.make_cornell_scene if case == "cornell"
+            else lambda device: tt.make_outdoor_scene(n_cubes=1000, device=device))
+    path = str(tmp_path / f"{case}.obj")
+    tt.write_scene_files(path, *make(device="cpu"), resolution=64, spp=8, max_bounce=3)
+    _zero_launches()
+    assert main(["render", path, "--chunk-spp", "4", "--out", str(tmp_path / "o.png")]) == 0
+    got = _launches()
+    want = ({"closest_hit": 2, "pairs": 0, "sample_fused": 2, "sample_fused_queue": 0}
+            if case == "cornell" else
+            {"closest_hit": 0, "pairs": 2, "sample_fused": 0, "sample_fused_queue": 8})
+    assert {k: got[k] for k in want} == want and got["uniforms"] == 0
+
+
+def test_cli_mesh_joins_nccl_from_torchrun_env(cuda, tmp_path, monkeypatch):
+    """``render --mesh 1,1`` with ``torchrun``'s environment set for one
+    rank joins an ``nccl`` group on ``cuda:0`` through
+    ``parallel/distributed.initialize``, and its progressive sum is the one
+    the render without ``--mesh`` makes, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ensem3a_openclraytracer_tpu_torch.cli import main
+    from ensem3a_openclraytracer_tpu_torch.models.progressive import ProgressiveState
+
+    monkeypatch.chdir(tmp_path)
+    path = str(tmp_path / "cornell.obj")
+    tt.write_scene_files(path, *tt.make_cornell_scene(device="cpu"), resolution=32, spp=8,
+                         max_bounce=3)
+
+    def render(tag, *extra):
+        ckpt = str(tmp_path / f"{tag}.npz")
+        assert main(["render", path, "--chunk-spp", "4", "--checkpoint", ckpt,
+                     "--out", str(tmp_path / tag / "o.png"), *extra]) == 0
+        return ProgressiveState.load(ckpt).accum
+
+    plain = render("plain")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert not dist.is_initialized()
+    try:
+        sharded = render("mesh", "--mesh", "1,1")
+        assert dist.is_initialized() and dist.get_backend() == "nccl"
+        assert dist.get_world_size() == 1 and torch.cuda.current_device() == 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert np.array_equal(sharded, plain)

@@ -3,7 +3,7 @@ against the JAX package's (``optax.adam`` on ``jax.grad`` of the same loss,
 same explicit uniforms), the clamps, NEE and MIS steps, resumable runs (a
 run stopped at iteration 3 and resumed gives the same losses bit for bit,
 as ``tests/test_optimize_checkpoint.py`` asks of the JAX package), the
-retry, the refusal of ``mesh=``, and a JAX checkpoint carried across."""
+retry, a 1x1 ``mesh=`` against none, and a JAX checkpoint carried across."""
 
 import functools
 
@@ -21,7 +21,7 @@ from ensem3a_openclraytracer_tpu.scene.scene import build_light_pack as j_light_
 from ensem3a_openclraytracer_tpu_torch import convert
 from ensem3a_openclraytracer_tpu_torch import testing as tt
 from ensem3a_openclraytracer_tpu_torch.models import optimize as opt
-from ensem3a_openclraytracer_tpu_torch.models.replay import render_radiance_replay
+from ensem3a_openclraytracer_tpu_torch.parallel.mesh import single_device_mesh
 from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 from test_torch_replay import one_torch_thread  # noqa: F401  (an autouse fixture)
 
@@ -116,8 +116,8 @@ def test_step_matches_optax_on_jax_gradients(scene, monkeypatch):
     g, m, e, c = convert.scene(jg, jm, je, jc, device="cpu")
     lights = convert.lights(jl, "cpu")
     # the step's renderer on the same explicit uniforms
-    monkeypatch.setattr(opt, "render_radiance_replay", functools.partial(
-        render_radiance_replay, uniforms=torch.as_tensor(u),
+    monkeypatch.setattr(opt, "render_for_grad", functools.partial(
+        opt.render_for_grad, uniforms=torch.as_tensor(u),
         light_uniforms=None if lu is None else torch.as_tensor(lu)))
     init, step = opt.make_train_step(g, m, e, c, opt.Adam(lr), height=RES, width=RES, spp=SPP,
                                      max_bounce=MB, sun_enabled=False, nee=nee, lights=lights)
@@ -170,14 +170,27 @@ def test_retry_reproduces_the_step(capsys):
 
 
 def test_mesh_is_not_ported():
+    """``mesh=`` is no longer refused now that sharding is ported: a 1x1
+    mesh renders what ``mesh=None`` renders, bit for bit, and its train step
+    takes the unsharded step's update (the loss summed over the rank's rows,
+    then divided by the pixel count: 1e-6 relative to the mean)."""
     g, m, e, c = tt.make_cornell_scene(device="cpu")
     params = opt.TrainableParams.from_scene_params(m, e)
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        opt.render_for_grad(params, g, m, e, c, height=4, width=4, spp=1, max_bounce=1,
-                            mesh=object())
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        opt.make_train_step(g, m, e, c, opt.Adam(LR), height=4, width=4, spp=1, max_bounce=1,
-                            mesh=object())
+    kw = dict(height=8, width=8, spp=2, max_bounce=2, sun_enabled=False)
+    gen = lambda: torch.Generator().manual_seed(4)
+    mesh = single_device_mesh()
+    img = opt.render_for_grad(params, g, m, e, c, gen(), **kw)
+    assert torch.equal(img, opt.render_for_grad(params, g, m, e, c, gen(), mesh=mesh, **kw))
+    target = torch.full((8, 8, 3), 0.1)
+    out = []
+    for msh in (None, mesh):
+        init, step = opt.make_train_step(g, m, e, c, opt.Adam(LR), mesh=msh, **kw)
+        p, state = init()
+        out.append(step(p, state, target, gen()))
+    (p0, _, l0), (p1, _, l1) = out
+    assert abs(float(l0) - float(l1)) <= 1e-6 * float(l0)
+    for a, b in zip(p0, p1):
+        assert _rel(a, b) <= 1e-6
 
 
 def test_convert_jax_optimizer_checkpoint(tmp_path):

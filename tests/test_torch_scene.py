@@ -158,7 +158,9 @@ def test_port_imports_without_jax():
     port_mods = ("models.pathtracer", "models.replay", "models.optimize", "ops.closest_hit",
                  "ops.fused", "ops.gathers", "ops.pairs", "ops.rng", "convert", "_build",
                  "experiments.common", "experiments.proto_grouped",
-                 "experiments.proto_compact")
+                 "experiments.proto_compact", "cli", "__main__", "models.progressive",
+                 "ops.tonemap", "parallel.distributed", "parallel.mesh", "parallel.render",
+                 "utils.profiling", "version")
     assert {"ensem3a_openclraytracer_tpu_torch." + m for m in port_mods} <= set(mods)
     code = (
         "import importlib, sys\n"
