@@ -258,10 +258,10 @@ def ptxas(log_text: str, kernel: str) -> dict:
 
 def launch_counters():
     from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact, proto_grouped
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, pairs, rng
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, pairs, rng, traversal
 
     return (closest_hit.LAUNCHES, pairs.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES,
-            proto_grouped.LAUNCHES, proto_compact.LAUNCHES)
+            proto_grouped.LAUNCHES, proto_compact.LAUNCHES, traversal.LAUNCHES)
 
 
 def reset_launches():
@@ -417,8 +417,8 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     queue = nb >= QUEUE_MIN_BLOCKS
     expected = {hit_kernel: 1, "sample_fused_queue" if queue else "sample_fused": spp if queue else 1}
     expected = {"closest_hit": 0, "pairs": 0, "sample_fused": 0, "sample_fused_queue": 0,
-                "uniforms": 0, "grouped_pairs": 0, "pair_compact": 0,
-                **expected}  # the prototypes are off the render path
+                "uniforms": 0, "grouped_pairs": 0, "pair_compact": 0, "bvh_trace": 0,
+                **expected}  # the prototypes are off the render path; features packs, no tree
     mean = float(img.mean())
     check(tuple(img.shape) == (res, res, 3), f"{scn['name']}: image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), f"{scn['name']}: non-finite pixels")
@@ -440,7 +440,7 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
 # group: the one-block and block-culled closest hits, the block-queue closest
 # hit, the one-block fused kernels (a whole render; one sample: both count as
 # launches of sample_fused, and their times stand apart here), the
-# multi-block fused kernel, the RNG
+# multi-block fused kernel, the RNG, the tree walk
 KERNEL_GROUPS = {
     "closest_hit": ("resident_hit_kernel", "closest_hit_kernel"),
     "pairs": ("::pairs_kernel",),
@@ -448,10 +448,11 @@ KERNEL_GROUPS = {
     "fused_sample": ("fused_sample_kernel",),
     "fused_queue": ("fused_queue",),
     "uniforms": ("uniforms",),
+    "bvh_trace": ("bvh_trace_kernel",),
 }
 
 
-def phase_profile(scene, name: str, overrides: dict) -> dict:
+def phase_profile(scene, name: str, overrides: dict, phase: str = "3") -> dict:
     """Where the time goes in one more render of the scene, traced with
     torch.profiler: device time of each of the port's kernels and of the
     other kernels, and the device's idle share of the traced window."""
@@ -475,7 +476,7 @@ def phase_profile(scene, name: str, overrides: dict) -> dict:
         spans.append((start, start + dur))
         by_name[ev.name] = by_name.get(ev.name, 0.0) + dur
     if not spans:
-        log(f"[phase 3] {name}: profiler saw no device time: breakdown not measured")
+        log(f"[phase {phase}] {name}: profiler saw no device time: breakdown not measured")
         return dict(profile="not measured")
     busy, end = 0.0, -float("inf")
     for a, b in sorted(spans):
@@ -489,7 +490,7 @@ def phase_profile(scene, name: str, overrides: dict) -> dict:
     other_us = total_us - sum(group_us.values())
     top = sorted(((v, k) for k, v in by_name.items()
                   if not any(ours(k, subs) for subs in KERNEL_GROUPS.values())), reverse=True)[:4]
-    log(f"[phase 3] {name} profiled render: wall {wall_us / 1e3:.1f} ms (profiler on), device "
+    log(f"[phase {phase}] {name} profiled render: wall {wall_us / 1e3:.1f} ms (profiler on), device "
         f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}; "
         + ", ".join(f"{g} {v / 1e3:.1f} ms = {v / total_us:.3f}" for g, v in group_us.items())
         + f" of device time; other kernels {other_us / 1e3:.1f} ms, largest: "
@@ -499,9 +500,9 @@ def phase_profile(scene, name: str, overrides: dict) -> dict:
     for g, v in group_us.items():
         out[f"{g}_ms"] = v / 1e3
         out[f"{g}_share"] = v / total_us
-    hit_us = group_us["closest_hit"] + group_us["pairs"]
-    out["closest_hit_all_share"] = hit_us / total_us  # both closest-hit kernels
-    log(f"[phase 3] {name}: closest-hit kernels {hit_us / 1e3:.1f} ms = {hit_us / total_us:.3f} "
+    hit_us = group_us["closest_hit"] + group_us["pairs"] + group_us["bvh_trace"]
+    out["closest_hit_all_share"] = hit_us / total_us  # every closest-hit kernel
+    log(f"[phase {phase}] {name}: closest-hit kernels {hit_us / 1e3:.1f} ms = {hit_us / total_us:.3f} "
         "of device time")
     return out
 
@@ -1401,11 +1402,13 @@ def phase_gather_backward(dev, smi: str) -> list:
     return out
 
 
-def phase_grad_parity(case, dev, smi: str) -> dict:
+def phase_grad_parity(case, dev, smi: str, phase: str = "11",
+                      trace_kernels=("closest_hit", "pairs")) -> dict:
     """11.3 on one scene: the replay's gradients of ``mean(img^2)`` on the
     card (scan recorder on the kernels, explicit uniforms) against the same
     call on the CPU, and a chunked call (``spp_chunk=1``) against an
-    unchunked one on the card."""
+    unchunked one on the card.  ``trace_kernels``: the kernels that must
+    have traced (phase 13 runs it on a tree-only pack)."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.models.replay import render_radiance_replay
@@ -1439,14 +1442,14 @@ def phase_grad_parity(case, dev, smi: str) -> dict:
     reset_launches()
     (loss_k, g_k), ms = timed_once(lambda: grads(dev))
     launches = read_launches()
-    check(launches["closest_hit"] + launches["pairs"] > 0, f"{name}: the card made no trace launch")
+    check(sum(launches[k] for k in trace_kernels) > 0, f"{name}: the card made no trace launch")
     t0 = time.perf_counter()
     loss_c, g_c = grads("cpu")
     cpu_s = time.perf_counter() - t0
     loss_ch, g_ch = grads(dev, spp_chunk=1)
     card_cpu = {n_: rel(a, b) for n_, a, b in zip(names, g_k, g_c)}
     chunked = {n_: rel(a, b) for n_, a, b in zip(names, g_ch, g_k)}
-    log(f"[phase 11] {name} gradients at {res}^2, {spp} spp, {mb} bounces, explicit uniforms: "
+    log(f"[phase {phase}] {name} gradients at {res}^2, {spp} spp, {mb} bounces, explicit uniforms: "
         f"loss card {loss_k:.7e}, cpu {loss_c:.7e}; card vs cpu relative "
         + ", ".join(f"{k} {v:.2e}" for k, v in card_cpu.items())
         + "; chunked (spp_chunk=1) vs unchunked "
@@ -1936,6 +1939,283 @@ def phase_product(dev, smi: str, workdir: Path, main_renders: dict) -> dict:
                 optimize=dict(loss=losses[0], seconds=opt_s), bench=bench)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the tree (accel/, ops/traversal.py, kernel bvh_trace)
+# ---------------------------------------------------------------------------
+
+TREE_RAYS = 65536  # the bounce rays of role_rays that the kernel and its plain version share
+# FP32 operations of the tree walk, counted from csrc/bvh_trace.cu: per node
+# popped, the slab test (3 axes x (2 sub, 2 mul, min, max), then 2 max, 2 min,
+# 3 compares); per leaf test, Moller-Trumbore (9 sub, 2 cross products of 9,
+# 3 dots of 5, a reciprocal, 3 mul, 1 add, 8 compares)
+FLOPS_PER_NODE = 25
+FLOPS_PER_LEAF_TEST = 60
+TREE_GRAD = dict(name="cornell_tree", seed=13, sun=False)
+
+
+def phase_tree_build(dev, smi: str) -> dict:
+    """13.1: outdoor_12500's LBVH built on the host and on the card, every
+    array equal, ``validate_bvh``, the build times."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.accel import build_lbvh, validate_bvh
+    from ensem3a_openclraytracer_tpu_torch.accel.lbvh_device import build_lbvh_device
+
+    g = tt.make_outdoor_scene(n_cubes=12500, use_bvh=True, device="cpu")[0]
+    v = [x.numpy() for x in (g.v0, g.v1, g.v2)]
+    t0 = time.perf_counter()
+    host = build_lbvh(*v)
+    host_s = time.perf_counter() - t0
+    vd = [torch.as_tensor(x, device=dev) for x in v]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_lbvh_device(*vd, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nodes = build_lbvh_device(*vd, device=dev)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    for f in ("left", "right", "bmin", "bmax", "tri"):
+        a, b = getattr(nodes, f).cpu().numpy(), getattr(host, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"[phase 13] the device tree's {f} differs from the host tree's")
+    info = validate_bvh(host, v[0].shape[0], np.minimum(np.minimum(*v[:2]), v[2]),
+                        np.maximum(np.maximum(*v[:2]), v[2]))
+    validate_bvh(nodes, v[0].shape[0])
+    log(f"[phase 13] outdoor_12500 tree ({v[0].shape[0]} tris, {info['nodes']} nodes, max depth "
+        f"{info['max_depth']}, mean leaf depth {info['mean_leaf_depth']:.2f}): host build_lbvh "
+        f"{host_s:.3f} s, build_lbvh_device on the card {device_s * 1e3:.2f} ms (first call "
+        f"{first_s * 1e3:.1f} ms); every array equal [{smi}]")
+    return dict(tris=int(v[0].shape[0]), host_build_s=host_s, device_build_ms=device_s * 1e3,
+                device_build_first_ms=first_s * 1e3, **info)
+
+
+def hold_against_pairs(label: str, h, ref, g, o, d):
+    """The tree's hits against ``pairs.cu``'s on the same triangles: ``tri``
+    and ``hit`` agree on >= 99.9 % of rays, and where ``tri`` agrees,
+    ``|dt| <= 1e-4 max(1, t)`` against ``pairs.cu``'s t or else against the
+    triangle's plane distance in float64: the two kernels compute t by
+    different formulas (Moller-Trumbore; the plane distance
+    ``[o, 1] . plane / d . n``), and on a grazing ray leaving a surface
+    either may lose digits, so a ray outside the band must have the tree's
+    t within it of the exact one.  Returns (tri fork fraction, hit fork
+    fraction, max |dt| where tri agrees, rays held to the float64 t)."""
+    import torch
+
+    same = h.tri == ref.tri
+    tri_frac = float(same.float().mean())
+    hit_frac = float((h.hit == ref.hit).float().mean())
+    err = (h.t - ref.t).abs()
+    out = same & (err > 1e-4 * torch.clamp(ref.t, min=1.0))
+    rays = torch.nonzero(out).squeeze(1)
+    tri = h.tri[rays]
+    a, b, c = (x[tri].double() for x in (g.v0, g.v1, g.v2))
+    n = torch.linalg.cross(b - a, c - a, dim=-1)
+    o, d = o[rays].double(), d[rays].double()
+    t64 = torch.sum(n * (a - o), dim=-1) / torch.sum(n * d, dim=-1)
+    tree_err = (h.t[rays].double() - t64).abs()
+    bad = int((tree_err > 1e-4 * torch.clamp(t64, min=1.0)).sum())
+    max_err = float(err[same].max()) if bool(same.any()) else 0.0
+    log(f"{label}: tri forks {1 - tri_frac:.6f}, hit forks {1 - hit_frac:.6f}, max |dt| "
+        f"{max_err:.3e}; {rays.numel()} rays outside 1e-4 max(1, t) of pairs.cu, there the tree's "
+        f"|dt| to the float64 plane distance at most "
+        f"{float(tree_err.max()) if rays.numel() else 0.0:.3e}, pairs.cu's "
+        f"{float((ref.t[rays].double() - t64).abs().max()) if rays.numel() else 0.0:.3e}")
+    check(tri_frac >= 0.999, f"{label}: tri agrees on {tri_frac:.6f} < 0.999")
+    check(hit_frac >= 0.999, f"{label}: hit agrees on {hit_frac:.6f} < 0.999")
+    check(bad == 0, f"{label}: {bad} rays with the tree's t off the float64 t by > 1e-4 max(1, t)")
+    return 1 - tri_frac, 1 - hit_frac, max_err, int(rays.numel())
+
+
+def phase_tree_trace(role, dev, smi: str, logs: dict) -> dict:
+    """13.2-13.3 on one scene: ``trace_bvh`` (kernel ``bvh_trace``) against
+    ``trace_bvh_plain`` on the card on the last ``plain_rays`` of phase 10's
+    ray set (outdoor: its 65,536 bounce rays; Cornell: 262,144 rays, the
+    shape of a 512^2 render's trace), then, on a scene of several blocks,
+    on all of phase 10's rays against ``ops/pairs.trace_pairs`` on the same
+    scene's features pack: held to phase 2's bounds, times, nodes popped
+    and leaf tests per ray, ptxas registers.  The bound is the walk's own
+    counted work; the needed pairs of a block-culled search stand beside it
+    as ``pairs_work_bound_ms``."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
+    from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
+
+    g_feat, _, _, c = role["make"](dev)
+    g = role["tree"](dev)
+    check(g.feats is None and torch.equal(g.v0, g_feat.v0), f"{role['name']}: tree pack")
+    feats, name, nb = g_feat.feats, role["name"], g_feat.feats.block_bounds.shape[0]
+    tree = lambda o, d, **kw: tv.trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d, **kw)
+    m, t = g.bvh.tri.shape[0], g.v0.shape[0]
+    o_all, d_all = role_rays(g_feat, c, dev, seed=nb)  # phase 10's rays on this scene
+    o, d = o_all[-role["plain_rays"]:].contiguous(), d_all[-role["plain_rays"]:].contiguous()
+    k = o.shape[0]
+    # each input read once (rays; a node's 32-byte row and its tri; a
+    # triangle's vertices), each output written once
+    nbytes = lambda n: n * (24 + 4 + 8 + 1) + 36 * m + 36 * t
+    walk_flops = lambda st: st[0] * FLOPS_PER_NODE + st[1] * FLOPS_PER_LEAF_TEST
+
+    # 13.2: the kernel against its plain version on the card
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    h = tree(o, d, stats=stats)
+    torch.cuda.synchronize()
+    plain_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    hp, plain_ms = timed_once(
+        lambda: tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d, stats=plain_stats))
+    differ = int(((h.tri != hp.tri) | (h.hit != hp.hit)).sum())
+    t_bits = int((h.t != hp.t).sum())
+    forks = hold(f"[phase 13] {name} bvh_trace vs trace_bvh_plain ({k} rays)",
+                 h.t, h.tri, h.hit, hp)
+    popped, leaf_tests, dropped = (int(x) for x in stats.cpu())
+    check(dropped == 0, f"{name}: {dropped} pushes past the stack")
+    ms = cuda_ms(lambda: tree(o, d), iters=role["iters"])
+    bound_ms, bound_by = bound(walk_flops((popped, leaf_tests)), nbytes(k))
+    needed = needed_pairs(feats, o, d, hp.t)
+    pairs_work_ms = bound(needed * FLOPS_PER_PAIR, nbytes(k))[0]
+    regs = ptxas(logs["bvh_trace"], "bvh_trace_kernel")
+    log(f"[phase 13] {name} ({t} tris, {m} nodes) {k} rays: rays differing from plain {differ}, "
+        f"t bits differing {t_bits}; counts kernel {stats.tolist()}, plain "
+        f"{plain_stats.tolist()}; bvh_trace {ms:.4f} ms (ptxas {regs}), trace_bvh_plain "
+        f"{plain_ms:.1f} ms; per ray "
+        f"{popped / k:.1f} nodes popped, {leaf_tests / k:.1f} leaf tests; bound {bound_ms:.4f} "
+        f"ms by {bound_by} (the walk's own work); needed pairs {needed / k:.1f} per ray, their "
+        f"work {pairs_work_ms:.4f} ms [{smi}]")
+    line = dict(
+        name=f"bvh_trace:{name}", route="cuda",
+        source="ensem3a_openclraytracer_tpu_torch/csrc/bvh_trace.cu",
+        replaces="ensem3a_openclraytracer_tpu/ops/traversal.py:53", pallas=False,
+        launches=0, max_abs_err=forks[2], rays=k, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, pairs_work_bound_ms=pairs_work_ms,
+        library_ms=None, rays_differing_from_plain=differ, t_bits_differing=t_bits, nodes=m,
+        tris=t, nodes_popped=popped, leaf_tests=leaf_tests, dropped_pushes=dropped,
+        needed_pairs=needed, tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
+        ptxas=regs,
+    )
+    if nb < 2:
+        return line
+
+    # 13.3: against pairs.cu on all of phase 10's rays
+    n = o_all.shape[0]
+    all_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    ha = tree(o_all, d_all, stats=all_stats)
+    hq = pp.trace_pairs(feats, o_all, d_all)
+    torch.cuda.synchronize()
+    vs_pairs = hold_against_pairs(f"[phase 13] {name} bvh_trace vs trace_pairs ({n} rays)", ha,
+                                  hq, g, o_all, d_all)
+    a_popped, a_leaf, a_dropped = (int(x) for x in all_stats.cpu())
+    check(a_dropped == 0, f"{name}: {a_dropped} pushes past the stack")
+    all_ms = cuda_ms(lambda: tree(o_all, d_all), iters=role["iters"])
+    pairs_ms = cuda_ms(lambda: pp.trace_pairs(feats, o_all, d_all), iters=role["iters"])
+    a_needed = needed_pairs(feats, o_all, d_all, hq.t)
+    a_bound_ms, a_bound_by = bound(walk_flops((a_popped, a_leaf)), nbytes(n))
+    a_pairs_work_ms = bound(a_needed * FLOPS_PER_PAIR, nbytes(n))[0]
+    log(f"[phase 13] {name} ({nb} blocks) on phase 10's {n} rays: bvh_trace {all_ms:.4f} ms, "
+        f"trace_pairs {pairs_ms:.4f} ms (tree / pairs {all_ms / pairs_ms:.3f}); per ray "
+        f"{a_popped / n:.1f} nodes popped, {a_leaf / n:.1f} leaf tests, "
+        f"{a_needed / n:.1f} needed pairs; bvh_trace's bound {a_bound_ms:.4f} ms by {a_bound_by} "
+        f"(the walk's own work); the needed pairs' work {a_pairs_work_ms:.4f} ms (phase 10's "
+        f"bound of pairs.cu) [{smi}]")
+    line.update(
+        pairs_rays=n, pairs_ms=pairs_ms, ms_on_pairs_rays=all_ms,
+        bound_on_pairs_rays_ms=a_bound_ms, pairs_work_bound_on_pairs_rays_ms=a_pairs_work_ms,
+        nodes_popped_on_pairs_rays=a_popped, leaf_tests_on_pairs_rays=a_leaf,
+        needed_pairs_on_pairs_rays=a_needed, tri_forks_vs_pairs=vs_pairs[0],
+        hit_forks_vs_pairs=vs_pairs[1], max_abs_dt_vs_pairs=vs_pairs[2],
+        rays_held_to_float64_t=vs_pairs[3],
+    )
+    return line
+
+
+def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
+    """13.4 on one scene: its written files loaded with ``Scene.load(...,
+    use_bvh=True)`` and rendered with ``render_scene`` at the ini settings
+    (the scan estimator: the pack has no features), the launch counts set
+    to 0 just before and read just after; the image against the features
+    pack's scan render (same seed and stream); one more render profiled."""
+    import dataclasses
+
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import fused_by_default
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene, pack_geometry
+
+    res, spp, mb = scn["render"]
+    obj = workdir / f"{scn['name']}.obj"
+    g, m, e, c = scn["make"]("cpu")
+    tt.write_scene_files(str(obj), g, m, e, c, resolution=res, spp=spp, max_bounce=mb)
+    t0 = time.perf_counter()
+    scene = Scene.load(str(obj), use_bvh=True, device=dev)
+    load_s = time.perf_counter() - t0
+    check(scene.geometry.feats is None and scene.geometry.bvh is not None,
+          f"{scn['name']}: Scene.load(use_bvh=True) is not a tree-only pack")
+    check(not fused_by_default(scene.geometry, dev), f"{scn['name']}: a tree pack took fused")
+    sun = float(scene.env_params().sun_power) != 0.0
+    timed_render(scene, {"resolution": 64, "spp": 1}, seed=1)  # warm-up
+    reset_launches()
+    img, dt = timed_render(scene, {})
+    launches = read_launches()
+    traces = 1 + spp * (mb + 1 + (1 if sun else 0))
+    want = {k: 0 for k in launches}
+    want.update(bvh_trace=traces, uniforms=launches["uniforms"])
+    check(launches == want, f"{scn['name']}: tree render launches {launches}, want {want}")
+    check(tuple(img.shape) == (res, res, 3) and bool(torch.isfinite(img).all()),
+          f"{scn['name']}: tree image {tuple(img.shape)}")
+    feat_scene = dataclasses.replace(scene, geometry=pack_geometry(scene.mesh, device=dev))
+    timed_render(feat_scene, {"resolution": 64, "spp": 1, "fused": False}, seed=1)
+    img_f, dt_f = timed_render(feat_scene, {"fused": False})
+    frac, med, mx = image_forks(img, img_f)
+    rays = res * res * (1 + spp * (mb + 1) * (2 if sun else 1))
+    log(f"[phase 13] {scn['name']} tree ({scene.num_tris} tris) {res}^2 {spp} spp {mb} bounces "
+        f"sun={sun}: load {load_s:.2f} s, render {dt:.3f} s, {rays / dt / 1e6:.1f} Mrays/s, "
+        f"launches {launches} (rng {launches['uniforms']}); features pack scan render "
+        f"{dt_f:.3f} s; pixel forks {frac:.5f}, median {med:.2e}, max {mx:.3e} [{smi}]")
+    check(frac < 0.02 and med < 1e-5,
+          f"{scn['name']}: tree render vs features scan forks {frac:.4f}, median {med:.2e}")
+    info = dict(name=f"{scn['name']}_tree", res=res, spp=spp, max_bounce=mb, sun=sun,
+                engine="scan", seconds=dt, mrays_per_s=rays / dt / 1e6, launches=launches,
+                load_s=load_s, features_scan_seconds=dt_f, pixel_forks=frac, median_diff=med)
+    info.update(phase_profile(scene, f"{scn['name']}_tree", {}, phase="13"))
+    return info
+
+
+def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor) -> tuple:
+    """Phase 13: the build, the kernel against its plain version and against
+    ``pairs.cu``, the tree renders through the entry point, and one replay
+    gradient on a tree, card against CPU."""
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+
+    build = phase_tree_build(dev, smi)
+    tree = lambda cubes: lambda d: tt.make_outdoor_scene(n_cubes=cubes, use_bvh=True, device=d)[0]
+    roles = [dict(name="cornell", make=lambda d: tt.make_cornell_scene(device=d),
+                  tree=lambda d: tt.make_cornell_scene(use_bvh=True, device=d)[0],
+                  plain_rays=262144, iters=10),
+             dict(name="outdoor_1300", make=outdoor(1300), tree=tree(1300), plain_rays=TREE_RAYS,
+                  iters=10),
+             dict(name="outdoor_12500", make=outdoor(12500), tree=tree(12500),
+                  plain_rays=TREE_RAYS, iters=5)]
+    lines = [phase_tree_trace(r, dev, smi, logs) for r in roles]
+    scenes = [
+        dict(name="cornell", make=lambda d: tt.make_cornell_scene(device=d),
+             render=(512, MAIN_SPP, 4)),
+        dict(name="outdoor_1300", make=lambda d: tt.make_outdoor_scene(n_cubes=1300, device=d),
+             render=(512, 16, 4)),
+        dict(name="outdoor_12500", make=lambda d: tt.make_outdoor_scene(n_cubes=12500, device=d),
+             render=(256, 16, 4)),
+    ]
+    renders = {s["name"]: phase_tree_render(s, dev, workdir, smi) for s in scenes}
+    for line, r in zip(lines, roles):
+        line["launches"] = renders[r["name"]]["launches"]["bvh_trace"]
+    check(sum(r["launches"]["bvh_trace"] for r in renders.values()) > 0,
+          "the tree renders launched no bvh_trace kernel")
+    case = dict(TREE_GRAD, make=lambda d: tt.make_cornell_scene(use_bvh=True, device=d))
+    grad = phase_grad_parity(case, dev, smi, phase="13", trace_kernels=("bvh_trace",))
+    return lines, dict(build=build, renders=list(renders.values()), gradient=grad)
+
+
 def main() -> int:
     import torch
 
@@ -2073,8 +2353,14 @@ def main() -> int:
         product = phase_product(dev, smi, Path(tmp), {r["name"]: r for r in renders})
     log(f"[phase 12] wall {time.perf_counter() - t12:.1f} s")
 
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tree_lines, tree = phase_tree(dev, smi, logs, Path(tmp), outdoor)
+    kernels += tree_lines
+    log(f"[phase 13] wall {time.perf_counter() - t13:.1f} s")
+
     summary = {"card": smi, "renders": renders, "fused_vs_scan": versus, "gradients": gradients,
-               "product": product}
+               "product": product, "tree": tree}
     log(f"[summary] {json.dumps(summary)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -463,8 +463,9 @@ def cmd_info(args) -> int:
         "materials": int(sc.material_table.shape[0]),
         "emissive_faces": int(len(sc.light_faces)),
         # triangles in Morton-ordered blocks, each with a bounding box the
-        # closest-hit kernels cull by (no tree yet)
-        "accel": "morton-blocks",
+        # closest-hit kernels cull by; the CLI builds no tree (a JAX scene
+        # over MXU_TRACE_MAX_TRIS would carry one: a TPU rule)
+        "accel": "lbvh" if sc.geometry.bvh is not None else "morton-blocks",
         "resolution": rs.resolution,
         "spp": rs.spp,
         "max_bounce": rs.max_bounce,

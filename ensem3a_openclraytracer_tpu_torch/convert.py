@@ -21,11 +21,8 @@ from ensem3a_openclraytracer_tpu_torch.models.optimize import (
     TrainableParams,
     save_optimizer_checkpoint,
 )
-from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
-    TriFeatures,
-    build_tri_features,
-    pack_features,
-)
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import TriFeatures, pack_features
+from ensem3a_openclraytracer_tpu_torch.ops.traversal import BVHNodes, nodes_to
 from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     CameraParams,
     EnvParams,
@@ -38,15 +35,23 @@ def _t(x, dev, dtype=np.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(np.asarray(x), dtype), device=dev)
 
 
+def bvh_nodes(nodes, device: DeviceLike = None) -> BVHNodes:
+    """A JAX ``BVHNodes`` tree, with its packed copy for the kernel."""
+    dev = resolve_device(device)
+    host = lambda a, dt: np.array(np.asarray(a), dt)
+    return nodes_to(BVHNodes(left=host(nodes.left, np.int32), right=host(nodes.right, np.int32),
+                             bmin=host(nodes.bmin, np.float32), bmax=host(nodes.bmax, np.float32),
+                             tri=host(nodes.tri, np.int32)), dev)
+
+
 def geometry(geom, device: DeviceLike = None) -> GeometryPack:
-    """A JAX ``GeometryPack``; its features are carried over when it has
-    them and built from the triangles otherwise (a BVH-only pack)."""
+    """A JAX ``GeometryPack`` with what it carries: its features (``None``
+    for a tree-only pack) and its tree (``None`` without one), so both
+    packages trace the same structure."""
     dev = resolve_device(device)
     f = geom.feats
-    if f is None:
-        feats = build_tri_features(np.asarray(geom.v0), np.asarray(geom.v1),
-                                   np.asarray(geom.v2), dev)
-    else:
+    feats = None
+    if f is not None:
         edges, plane, normal_d = _t(f.edges, dev), _t(f.plane, dev), _t(f.normal_d, dev)
         feats = TriFeatures(
             edges=edges, plane=plane, normal_d=normal_d, block_bounds=_t(f.block_bounds, dev),
@@ -55,6 +60,7 @@ def geometry(geom, device: DeviceLike = None) -> GeometryPack:
     return GeometryPack(
         v0=_t(geom.v0, dev), v1=_t(geom.v1, dev), v2=_t(geom.v2, dev), n=_t(geom.n, dev),
         uv=_t(geom.uv, dev), mat=_t(geom.mat, dev, np.int32), feats=feats,
+        bvh=None if geom.bvh is None else bvh_nodes(geom.bvh, dev),
     )
 
 

@@ -374,18 +374,31 @@ PAIRS_MIN_BLOCKS = 2
 
 
 def trace(geom, ray_o: torch.Tensor, ray_d: torch.Tensor, engine: str = "kernel") -> Hit:
-    """Closest-hit dispatch for ``geom.feats``.  Rays on the card go
-    through a kernel: ``ops/pairs.trace_pairs`` (one launch, no ray sort)
-    on scenes of ``PAIRS_MIN_BLOCKS`` blocks or more, else
-    :func:`trace_blocks`.  Rays on the CPU, and any rays with
-    ``engine="plain"``, take that kernel's plain version: on those scenes
-    ``ops/pairs.trace_pairs_plain`` (its block cull makes it much faster
-    than the full scan), else :func:`trace_plain`; both equal
-    :func:`trace_plain` bit for bit.  Visibility is not differentiable: the
-    inputs are detached."""
+    """Closest-hit dispatch: through ``geom.feats`` when the pack has
+    them, on every device; through the tree (``ops/traversal.trace_bvh``)
+    only when the pack has nothing else.  (The JAX package takes the tree
+    on the CPU when a pack has both, a TPU rule: its matmul engines ran on
+    the TPU.)  With features, rays on the card go through a kernel:
+    ``ops/pairs.trace_pairs`` (one launch, no ray sort) on scenes of
+    ``PAIRS_MIN_BLOCKS`` blocks or more, else :func:`trace_blocks`.  Rays
+    on the CPU, and any rays with ``engine="plain"``, take that kernel's
+    plain version: on those scenes ``ops/pairs.trace_pairs_plain`` (its
+    block cull makes it much faster than the full scan), else
+    :func:`trace_plain`; both equal :func:`trace_plain` bit for bit; on a
+    tree, ``ops/traversal.trace_bvh_plain``.  Visibility is not
+    differentiable: the inputs are detached."""
     ray_o = ray_o.detach().to(torch.float32).contiguous()
     ray_d = ray_d.detach().to(torch.float32).contiguous()
     feats = geom.feats
+    if feats is None:
+        from ensem3a_openclraytracer_tpu_torch.ops import traversal
+
+        if geom.bvh is None:
+            raise ValueError("the geometry pack has neither triangle features nor a tree")
+        if engine not in ("kernel", "plain"):
+            raise ValueError(f"unknown trace engine {engine!r}")
+        run = traversal.trace_bvh_plain if engine == "plain" else traversal.trace_bvh
+        return run(geom.bvh, geom.v0, geom.v1, geom.v2, ray_o, ray_d)
     multi = feats.block_bounds.shape[0] >= PAIRS_MIN_BLOCKS
     if engine == "plain" or ray_o.device.type == "cpu":
         if multi:

@@ -2,9 +2,14 @@
 
 Counterpart of the JAX package's ``scene/scene.py`` (the reference's
 ``Scene``, FileManager.py:209-331).  Triangles are gathered once at load
-time into ``v0/v1/v2/n/uv/mat`` arrays in Morton order, and the
-closest-hit features (``ops/closest_hit.TriFeatures``) are built at any
-scene size.
+time into ``v0/v1/v2/n/uv/mat`` arrays in Morton order, with the
+closest-hit features (``ops/closest_hit.TriFeatures``) at any scene size,
+or with ``use_bvh=True`` an LBVH built on the pack's device
+(``accel/lbvh_device.build_lbvh_device``) and no features.  Unlike the
+JAX package, the port builds no tree by itself for large scenes (its
+``MXU_TRACE_MAX_TRIS`` rule is a TPU tuning): on the card the block
+queues of ``ops/pairs.py`` take any scene size, and a tree beside
+features would never be read (``ops/closest_hit.trace``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ import torch
 
 from ensem3a_openclraytracer_tpu_torch._device import DeviceLike, resolve_device
 from ensem3a_openclraytracer_tpu_torch.accel.lbvh import morton_codes
+from ensem3a_openclraytracer_tpu_torch.accel.lbvh_device import build_lbvh_device
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import TriFeatures, build_tri_features
+from ensem3a_openclraytracer_tpu_torch.ops.traversal import BVHNodes
 from ensem3a_openclraytracer_tpu_torch.scene.config import ConfigReader
 from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     CameraParams,
@@ -27,11 +34,6 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     default_sky,
 )
 from ensem3a_openclraytracer_tpu_torch.scene.objloader import ObjMesh, load_obj
-
-_NO_BVH = (
-    "BVH traversal is not ported yet (ROADMAP.md, queue 1 item 9, 'Tree "
-    "traversal'); use use_bvh=False"
-)
 
 
 class LightPack(NamedTuple):
@@ -48,7 +50,9 @@ class LightPack(NamedTuple):
 
 
 class GeometryPack(NamedTuple):
-    """SoA triangle soup on one device, plus its closest-hit features."""
+    """SoA triangle soup on one device, plus its closest-hit structure:
+    the triangle features, or (a tree-only pack) an LBVH.  ``bvh`` comes
+    last, so positional constructions without it keep working."""
 
     v0: torch.Tensor  # [T, 3] float32
     v1: torch.Tensor  # [T, 3]
@@ -56,7 +60,8 @@ class GeometryPack(NamedTuple):
     n: torch.Tensor  # [T, 3] per-face shading normal (vertex a's normal)
     uv: torch.Tensor  # [T, 2] (vertex a's uv)
     mat: torch.Tensor  # [T] int32 material index
-    feats: TriFeatures
+    feats: Optional[TriFeatures]  # None => a tree-only pack
+    bvh: Optional[BVHNodes] = None  # the LBVH over these (Morton-ordered) triangles
 
 
 def _np(x) -> np.ndarray:
@@ -103,21 +108,26 @@ def morton_order(v0, v1, v2) -> np.ndarray:
     return np.argsort(codes, kind="stable").astype(np.int64)
 
 
-def pack_arrays(v0, v1, v2, n, uv, mat, device: torch.device) -> GeometryPack:
-    """Tensors of already-ordered host triangle arrays, with features."""
+def pack_arrays(v0, v1, v2, n, uv, mat, device: torch.device,
+                use_bvh: bool = False) -> GeometryPack:
+    """Tensors of already-ordered host triangle arrays, with features, or
+    with ``use_bvh`` the tree (built on ``device``:
+    ``accel/lbvh_device.build_lbvh_device``) and no features."""
     t = lambda a, dt=np.float32: torch.as_tensor(np.asarray(a, dt), device=device)
-    return GeometryPack(
-        v0=t(v0), v1=t(v1), v2=t(v2), n=t(n), uv=t(uv), mat=t(mat, np.int32),
-        feats=build_tri_features(v0, v1, v2, device),
-    )
+    tris = t(v0), t(v1), t(v2)
+    if use_bvh:
+        feats, bvh = None, build_lbvh_device(*tris, device)
+    else:
+        feats, bvh = build_tri_features(v0, v1, v2, device), None
+    return GeometryPack(*tris, n=t(n), uv=t(uv), mat=t(mat, np.int32), feats=feats, bvh=bvh)
 
 
 def pack_geometry(mesh: ObjMesh, use_bvh: Optional[bool] = None,
                   device: DeviceLike = None) -> GeometryPack:
     """Gather indexed mesh data into Morton-ordered SoA triangles; hit
-    indices use the reordered space throughout."""
-    if use_bvh:
-        raise NotImplementedError(_NO_BVH)
+    indices use the reordered space throughout.  ``use_bvh=True`` gives a
+    tree-only pack, as the JAX package's does; ``None`` and ``False`` the
+    features at any size."""
     dev = resolve_device(device)
     fd = mesh.face_data
     v0 = mesh.v_p[fd[:, 7]]
@@ -128,7 +138,8 @@ def pack_geometry(mesh: ObjMesh, use_bvh: Optional[bool] = None,
     uv = mesh.v_uv[np.clip(fd[:, 1], 0, len(mesh.v_uv) - 1)]
     mat = fd[:, 0].astype(np.int32)
     order = morton_order(v0, v1, v2)
-    return pack_arrays(v0[order], v1[order], v2[order], n[order], uv[order], mat[order], dev)
+    return pack_arrays(v0[order], v1[order], v2[order], n[order], uv[order], mat[order], dev,
+                       use_bvh=bool(use_bvh))
 
 
 def load_ibl_image(path: str, fallback_dirs: tuple = ()) -> np.ndarray:
@@ -162,8 +173,6 @@ class Scene:
     def load(obj_path: str, rebuild_accel: bool = True,
              geometry: Optional[GeometryPack] = None, use_bvh: Optional[bool] = None,
              device: DeviceLike = None) -> "Scene":
-        if use_bvh:
-            raise NotImplementedError(_NO_BVH)
         dev = resolve_device(device)
         mesh = load_obj(obj_path)
         config = ConfigReader(
@@ -172,7 +181,7 @@ class Scene:
         )
         table = config.material_table(mesh.num_materials)
         if rebuild_accel or geometry is None:
-            geom = pack_geometry(mesh, device=dev)
+            geom = pack_geometry(mesh, use_bvh=use_bvh, device=dev)
         else:
             geom = geometry
         fd = mesh.face_data

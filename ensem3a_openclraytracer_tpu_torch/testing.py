@@ -3,6 +3,10 @@ an ``.obj`` + ``.ini`` pair for ``Scene.load``.
 
 Counterpart of the JAX package's ``testing.py``: the same triangles,
 materials, lights and cameras, as the port's tensors on a given device.
+Every maker defaults to ``use_bvh=False`` (a features pack), where the JAX
+package's ``make_outdoor_scene`` defaults to ``True``: the port's card
+tests and ``chip_smoke.py`` drive the feature kernels through these
+defaults, and a tree is asked for by name.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     default_sky,
 )
 from ensem3a_openclraytracer_tpu_torch.scene.scene import (
-    _NO_BVH,
     GeometryPack,
     morton_order,
     pack_arrays,
@@ -50,8 +53,8 @@ def _cube(center, size, mat):
 
 
 def _pack(tris, use_bvh: bool, device) -> GeometryPack:
-    if use_bvh:
-        raise NotImplementedError(_NO_BVH)
+    """Morton-ordered pack of the triangles: features, or with
+    ``use_bvh`` a tree-only pack (``scene.pack_arrays``)."""
     v0 = np.asarray([t[0] for t in tris], np.float32)
     v1 = np.asarray([t[1] for t in tris], np.float32)
     v2 = np.asarray([t[2] for t in tris], np.float32)
@@ -61,7 +64,7 @@ def _pack(tris, use_bvh: bool, device) -> GeometryPack:
     n = np.cross(v1 - v0, v2 - v0)
     n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
     uv = np.zeros((len(tris), 2), np.float32)
-    return pack_arrays(v0, v1, v2, n, uv, mat, device)
+    return pack_arrays(v0, v1, v2, n, uv, mat, device, use_bvh=use_bvh)
 
 
 # material ids (type codes: 0 emissive, 1 diffuse, 2 glossy-GGX, 3 glass)

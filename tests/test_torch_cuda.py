@@ -17,7 +17,10 @@ gradients on the card against the CPU, the gather backward's determinism,
 and a stopped and resumed optimisation against an uninterrupted one; and
 the product surface: progressive chunks against one-shot renders, the
 CLI render's kernel launches, and ``--mesh 1,1`` joining ``nccl`` from
-``torchrun``'s environment.  They skip without a card.  This file imports no JAX, so on a machine without
+``torchrun``'s environment; and the tree: ``trace_bvh`` (kernel
+``bvh_trace``) against ``trace_bvh_plain`` on the card and on the CPU, the
+device LBVH build on the card against the host build, and a tree trace
+under ``set_sync_debug_mode("error")``.  They skip without a card.  This file imports no JAX, so on a machine without
 JAX run it without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -36,6 +39,7 @@ from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
 from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
 from ensem3a_openclraytracer_tpu_torch.ops import rng
+from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
 from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
@@ -674,3 +678,89 @@ def test_cli_mesh_joins_nccl_from_torchrun_env(cuda, tmp_path, monkeypatch):
         if dist.is_initialized():
             dist.destroy_process_group()
     assert np.array_equal(sharded, plain)
+
+
+# --- the tree: bvh_trace (csrc/bvh_trace.cu) and the device build ------------
+
+TREES = {  # role -> tree-only scene maker
+    "cornell": lambda dev: tt.make_cornell_scene(use_bvh=True, device=dev),
+    "outdoor_64": lambda dev: tt.make_outdoor_scene(n_cubes=64, use_bvh=True, device=dev),
+}
+
+
+def _tree_rays(g, cam, dev, seed, res=64, n_bounce=4096):
+    """Camera rays plus bounce rays from their hits (the tree's plain walk)."""
+    o, d = camera_rays(cam.position, cam.rotation_deg, cam.fov_deg, res, res)
+    h = tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o.contiguous(), d.contiguous())
+    rng = np.random.default_rng(seed)
+    pick = torch.as_tensor(rng.integers(0, o.shape[0], n_bounce), device=dev)
+    bd = torch.as_tensor(rng.normal(size=(n_bounce, 3)).astype(np.float32), device=dev)
+    bd = torch.nn.functional.normalize(bd, dim=-1)
+    bo = o[pick] + d[pick] * h.t[pick, None]
+    return torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous()
+
+
+@pytest.mark.parametrize("role", sorted(TREES))
+def test_bvh_kernel_matches_plain(cuda, role):
+    """``trace_bvh`` (one kernel launch) against ``trace_bvh_plain`` on the
+    card (phase 2's bounds; torch's own CUDA ops may contract a cross
+    product into an FMA) and on the CPU (the same arithmetic op for op:
+    equal), with its counts equal to the CPU walk's."""
+    g, _, _, c = TREES[role](cuda)
+    assert g.feats is None and tv._rows(g.bvh).device.type == "cuda"
+    o, d = _tree_rays(g, c, cuda, seed=3)
+    before = tv.LAUNCHES["bvh_trace"]
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    h = tv.trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d, stats=stats)
+    torch.cuda.synchronize()
+    assert tv.LAUNCHES["bvh_trace"] == before + 1
+    assert h.tri.dtype == torch.int64 and h.hit.dtype == torch.bool
+    _agree(h.t, h.tri, h.hit, tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d))
+    cpu = lambda x: x.cpu()
+    gc = [cpu(x) for x in (g.v0, g.v1, g.v2)]
+    nodes_c = tv.BVHNodes(*(cpu(x) for x in g.bvh))
+    stats_c = torch.zeros(3, dtype=torch.int64)
+    hc = tv.trace_bvh_plain(nodes_c, *gc, cpu(o), cpu(d), stats=stats_c)
+    assert torch.equal(h.t.cpu(), hc.t) and torch.equal(h.tri.cpu(), hc.tri)
+    assert torch.equal(h.hit.cpu(), hc.hit)
+    assert torch.equal(stats.cpu(), stats_c) and int(stats_c[2]) == 0
+
+
+def test_bvh_device_build_on_card_equals_host(cuda):
+    from ensem3a_openclraytracer_tpu_torch.accel import build_lbvh, validate_bvh
+    from ensem3a_openclraytracer_tpu_torch.accel.lbvh_device import build_lbvh_device
+
+    soups = [tt.make_outdoor_scene(n_cubes=1300, device="cpu")[0]]
+    c = np.repeat(np.random.default_rng(0).uniform(-1, 1, (50, 3)), 40, axis=0).astype(np.float32)
+    soups.append((c, c + np.float32([0.01, 0, 0]), c + np.float32([0, 0.01, 0])))
+    for g in soups:
+        v = [x.numpy() if isinstance(x, torch.Tensor) else x for x in (g[0], g[1], g[2])]
+        dev_nodes = build_lbvh_device(*v, device=cuda)
+        host = build_lbvh(*v)
+        for f in ("left", "right", "bmin", "bmax", "tri"):
+            a = getattr(dev_nodes, f)
+            assert a.device.type == "cuda"
+            np.testing.assert_array_equal(a.cpu().numpy(), getattr(host, f), err_msg=f)
+        validate_bvh(dev_nodes, v[0].shape[0])
+
+
+def test_bvh_trace_makes_no_host_sync_and_is_the_dispatch(cuda):
+    g, _, _, c = TREES["outdoor_64"](cuda)
+    o, d = _tree_rays(g, c, cuda, seed=9, res=32, n_bounce=1000)
+    read = lambda: (tv.LAUNCHES["bvh_trace"], ch.LAUNCHES["closest_hit"], pp.LAUNCHES["pairs"])
+    start = read()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = ch.trace(g, o, d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert read() == (start[0] + 1, start[1], start[2])
+    _agree(h.t, h.tri, h.hit, tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d))
+    e = torch.zeros(0, 3, device=cuda)
+    assert tv.trace_bvh(g.bvh, g.v0, g.v1, g.v2, e, e).t.shape == (0,)
+    assert tv.LAUNCHES["bvh_trace"] == start[0] + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        tv.trace_bvh(g.bvh, g.v0.t().contiguous().t(), g.v1, g.v2, o, d)
+    with pytest.raises(ValueError, match="row layout"):
+        tv.trace_bvh(tv.BVHNodes(*(x.contiguous() for x in g.bvh)), g.v0, g.v1, g.v2, o, d)

@@ -124,21 +124,35 @@ def test_written_scene_round_trips(tmp_path):
     assert s.config.render_settings().spp == 2
 
 
-def test_bvh_and_fused_raise():
-    mesh_geom = tt.make_cornell_scene(device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.make_cornell_scene(use_bvh=True, device="cpu")
+def test_bvh_gives_tree_only_packs_and_fused_refuses_them():
+    """``use_bvh=True`` gives a tree-only pack, as the JAX package's does:
+    no features, a tree of ``2T - 1`` nodes that ``validate_bvh`` passes.
+    The fused engine refuses a pack without features, as JAX's does."""
+    from ensem3a_openclraytracer_tpu_torch.accel import validate_bvh
     from ensem3a_openclraytracer_tpu_torch.scene.objloader import ObjMesh
 
-    mesh = ObjMesh(np.zeros((3, 3), np.float32), np.zeros((1, 3), np.float32),
-                   np.zeros((1, 2), np.float32), np.zeros((1, 10), np.int32), 1, [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pack_geometry(mesh, use_bvh=True, device="cpu")
+    mesh_geom = tt.make_cornell_scene(device="cpu")[0]
+    assert mesh_geom.feats is not None and mesh_geom.bvh is None
+    tree_geom = tt.make_cornell_scene(use_bvh=True, device="cpu")[0]
+    t = tree_geom.v0.shape[0]
+    assert tree_geom.feats is None and tree_geom.bvh.tri.shape == (2 * t - 1,)
+    assert validate_bvh(tree_geom.bvh, t)["leaves"] == t
+    for f in ("v0", "v1", "v2", "n", "uv", "mat"):
+        _eq(getattr(tree_geom, f), getattr(mesh_geom, f), f)
+
+    v = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    fd = np.zeros((2, 10), np.int32)
+    fd[:, 7:10] = [[0, 1, 2], [1, 3, 2]]
+    mesh = ObjMesh(v, np.zeros((1, 3), np.float32), np.zeros((1, 2), np.float32), fd, 1, [])
+    packed = pack_geometry(mesh, use_bvh=True, device="cpu")
+    assert packed.feats is None and packed.bvh.tri.shape == (3,)
+    assert validate_bvh(packed.bvh, 2)["max_depth"] == 1
+    assert pack_geometry(mesh, device="cpu").bvh is None
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
 
     # the fused engine is ported; it refuses what the JAX package's refuses
     with pytest.raises(ValueError, match="fused=True"):
-        render_radiance(mesh_geom._replace(feats=None), *tt.make_cornell_scene(device="cpu")[1:],
+        render_radiance(tree_geom, *tt.make_cornell_scene(device="cpu")[1:],
                         height=2, width=2, spp=1, max_bounce=0, fused=True)
 
 
