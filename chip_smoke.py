@@ -119,7 +119,25 @@ path (record, replay, train step, optimisation) and its command line
    ``cuda:0`` itself, and its render is bit-equal to the one without
    ``--mesh``; (4) one ``optimize``
    iteration (Cornell 128^2, 8 spp, ``--dry-run``); (5) ``bench``, whose
-   JSON lines are printed.
+   JSON lines are printed;
+13. the tree (``accel/``, ``ops/traversal.py``, kernel ``bvh_trace``):
+   outdoor_12500's LBVH built on the host and on the card (equal);
+   ``trace_bvh`` against ``trace_bvh_plain`` on the card on 262,144
+   Cornell rays and on 65,536 outdoor bounce rays (outdoor_1300,
+   outdoor_12500): ``t``, ``tri``, ``hit`` and the five counts equal (nodes
+   popped, leaf tests, dropped pushes, the most nodes one ray popped, the
+   sum over warps of each warp's most, whence the SIMT efficiency), two
+   launches equal, times warm and with L2 flushed, ptxas registers, stack
+   frame and spills, the launch options of ``bvh_trace_launch_opts``; on
+   phase 10's 327,680 rays against ``pairs.cu``; Cornell, outdoor_1300 and
+   outdoor_12500 loaded with ``use_bvh=True`` and rendered (``bvh_trace``
+   once per trace, the time per launch inside the profiled render); replay
+   gradients on a tree-only Cornell, card against CPU.
+
+``--tree-only`` runs phases 1 and 13 alone.  ``--against DIR`` also builds
+``DIR/ensem3a_openclraytracer_tpu_torch/csrc/bvh_trace.cu`` (another
+checkout, such as a ``git archive`` of an earlier commit) and times it in
+turns with this checkout's walk on phase 13's rays, bit-equal.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -1950,6 +1968,12 @@ TREE_RAYS = 65536  # the bounce rays of role_rays that the kernel and its plain 
 # 3 dots of 5, a reciprocal, 3 mul, 1 add, 8 compares)
 FLOPS_PER_NODE = 25
 FLOPS_PER_LEAF_TEST = 60
+TREE_FLUSH_BYTES = 64 << 20  # written between launches to flush the 50 MB L2
+# bvh_trace_launch_opts's options: (threads per block, stack in shared memory,
+# the stack's newest entry in registers); trace_bvh launches (128, 0, 0)
+TREE_OPTIONS = ((32, 0, 0), (64, 0, 0), (128, 0, 0), (128, 1, 0), (32, 0, 1), (128, 0, 1))
+TREE_SMEM_DEPTH = 16  # csrc/bvh_trace.cu SMEM_DEPTH
+TREE_KERNEL = "bvh_trace_kernelILi128ELi0ELb0E"  # the instantiation that trace_bvh launches
 TREE_GRAD = dict(name="cornell_tree", seed=13, sun=False)
 
 
@@ -2029,16 +2053,159 @@ def hold_against_pairs(label: str, h, ref, g, o, d):
     return 1 - tri_frac, 1 - hit_frac, max_err, int(rays.numel())
 
 
-def phase_tree_trace(role, dev, smi: str, logs: dict) -> dict:
+def tree_ms(fn, iters: int, flush: bool = False) -> float:
+    """``fn``'s device time per call in ms: CUDA events around each call,
+    all queued behind a 10 ms device sleep, so that the host's work per
+    call (a wrapper's checks and allocations, which can outlast a Cornell
+    trace) is not timed; with ``flush``, a 64 MB scratch buffer is written
+    before each call, outside the timed spans, to evict the tree from the
+    50 MB L2."""
+    import torch
+
+    scratch = torch.empty(TREE_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    spans = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(20_000_000)
+    for i, (start, end) in enumerate(spans):
+        if flush:
+            scratch.fill_(float(i))
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / iters
+
+
+def walk_counts(label: str, stats, plain_stats, k: int) -> dict:
+    """The kernel's five counts, held equal to its plain version's: nodes
+    popped, leaf tests, dropped pushes (none), the most nodes one ray
+    popped and the sum over warps of each warp's most; with the mean, the
+    SIMT efficiency (popped over 32 lanes x the warps' most) and max /
+    mean."""
+    got, want = stats.tolist(), plain_stats.tolist()
+    check(got == want, f"{label}: counts {got}, plain {want}")
+    popped, leaf_tests, dropped, most, warp_most = got
+    check(dropped == 0, f"{label}: {dropped} pushes past the stack")
+    mean = popped / k
+    return dict(nodes_popped=popped, leaf_tests=leaf_tests, dropped_pushes=dropped,
+                max_pops_per_ray=most, warp_max_pops_sum=warp_most, mean_pops_per_ray=mean,
+                simt_efficiency=popped / (32 * warp_most), max_over_mean_pops=most / mean)
+
+
+def bit_equal(label: str, h, ref) -> tuple:
+    """Rays whose ``tri`` or ``hit`` differ and rays whose ``t`` bits
+    differ between two hits; both must be 0."""
+    import torch
+
+    differ = int(((h.tri != ref.tri) | (h.hit != ref.hit)).sum())
+    t_bits = int((h.t.view(torch.int32) != ref.t.view(torch.int32)).sum())
+    check(differ == 0 and t_bits == 0,
+          f"{label}: {differ} rays differ in tri/hit, {t_bits} in the bits of t")
+    return differ, t_bits
+
+
+def walk_fn(name: str = "bvh_trace_launch", source: Path | None = None):
+    """A C entry point of ``csrc/bvh_trace.cu`` typed for ctypes: this
+    checkout's (built by ``_build``), or ``source`` built with the same
+    nvcc flags into ``build/`` (another checkout's walk, compared with
+    this one in the same run)."""
+    import ctypes
+
+    from ensem3a_openclraytracer_tpu_torch import _build
+    from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
+
+    if source is None:
+        lib = _build.load("bvh_trace")
+    else:
+        out = _build.BUILD_DIR / "other_bvh_trace.so"
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(source)],
+                             capture_output=True, text=True)
+        check(res.returncode == 0, f"nvcc failed on {source}: {res.stdout}{res.stderr}")
+        lib = ctypes.CDLL(str(out))
+    fn = getattr(lib, name)
+    fn.argtypes = tv._KERNEL_ARGTYPES + ([ctypes.c_int] * 3 if name.endswith("_opts") else [])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_walk(fn, g, o, d, *opts):
+    """One launch of the walk ``fn`` (``walk_fn``) through the tree of the
+    pack ``g``, with ``trace_bvh``'s arguments and no stats: its Hit."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
+    from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
+
+    n = o.shape[0]
+    out = Hit(t=torch.empty(n, dtype=torch.float32, device=o.device),
+              tri=torch.empty(n, dtype=torch.int64, device=o.device),
+              hit=torch.empty(n, dtype=torch.bool, device=o.device))
+    err = fn(o.data_ptr(), d.data_ptr(), n, tv._rows(g.bvh).data_ptr(), g.bvh.tri.data_ptr(),
+             g.bvh.tri.shape[0], g.v0.data_ptr(), g.v1.data_ptr(), g.v2.data_ptr(),
+             g.v0.shape[0], *(x.data_ptr() for x in out), None,
+             torch.cuda.current_stream().cuda_stream, *opts)
+    check(err == 0, f"bvh_trace launch {opts} failed: CUDA error {err}")
+    return out
+
+
+def tree_options(label: str, g, o, d, h, iters: int, logs: dict, smi: str) -> dict:
+    """The launch options of the walk (``bvh_trace_launch_opts``,
+    ``TREE_OPTIONS``): blocks of 32, 64 and 128 threads, the stack's first
+    ``TREE_SMEM_DEPTH`` entries in shared memory, its newest entry in
+    registers; each bit-equal to ``trace_bvh``'s hits ``h``, timed warm,
+    with its ptxas report."""
+    fn = walk_fn("bvh_trace_launch_opts")
+    out = {}
+    for threads, smem, top in TREE_OPTIONS:
+        key = (f"threads_{threads}" + ("_smem_stack" if smem else "")
+               + ("_top_in_registers" if top else ""))
+        run = lambda: launch_walk(fn, g, o, d, threads, smem, top)
+        bit_equal(f"{label} option {key}", run(), h)
+        ms = tree_ms(run, iters)
+        regs = ptxas(logs["bvh_trace"], f"bvh_trace_kernelILi{threads}ELi"
+                     f"{TREE_SMEM_DEPTH if smem else 0}ELb{top}E")
+        out[key] = dict(ms=ms, ptxas=regs)
+    log(f"{label} {o.shape[0]} rays, launch options (warm ms, each bit-equal to trace_bvh): "
+        + "; ".join(f"{k} {v['ms']:.4f} ({v['ptxas']})" for k, v in out.items()) + f" [{smi}]")
+    return out
+
+
+def against_other(label: str, other, g, o, d, h, iters: int, smi: str) -> dict:
+    """Another checkout's walk (``walk_fn(source=...)``) on the same rays:
+    bit-equal to this one's hits ``h``, and both timed in turns (other,
+    this, this, other), warm and with L2 flushed; means of the two turns."""
+    this = walk_fn()
+    bit_equal(f"{label} the other checkout's bvh_trace", launch_walk(other, g, o, d), h)
+    times = {"other_ms": [], "ms": [], "other_flushed_ms": [], "flushed_ms": []}
+    for who, fn in (("other_", other), ("", this), ("", this), ("other_", other)):
+        times[who + "ms"].append(tree_ms(lambda: launch_walk(fn, g, o, d), iters))
+        times[who + "flushed_ms"].append(tree_ms(lambda: launch_walk(fn, g, o, d), iters, True))
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    out.update(turns=times, speedup=out["other_ms"] / out["ms"],
+               flushed_speedup=out["other_flushed_ms"] / out["flushed_ms"])
+    log(f"{label} {o.shape[0]} rays against the other checkout's walk, in turns "
+        f"{[round(x, 4) for x in times['other_ms']]} / {[round(x, 4) for x in times['ms']]} ms "
+        f"warm: other {out['other_ms']:.4f}, this {out['ms']:.4f} ms ({out['speedup']:.2f}x); L2 "
+        f"flushed other {out['other_flushed_ms']:.4f}, this {out['flushed_ms']:.4f} ms "
+        f"({out['flushed_speedup']:.2f}x) [{smi}]")
+    return out
+
+
+def phase_tree_trace(role, dev, smi: str, logs: dict, other=None) -> dict:
     """13.2-13.3 on one scene: ``trace_bvh`` (kernel ``bvh_trace``) against
     ``trace_bvh_plain`` on the card on the last ``plain_rays`` of phase 10's
     ray set (outdoor: its 65,536 bounce rays; Cornell: 262,144 rays, the
-    shape of a 512^2 render's trace), then, on a scene of several blocks,
+    shape of a 512^2 render's trace): ``t``, ``tri``, ``hit`` and the five
+    counts equal, two launches equal; then, on a scene of several blocks,
     on all of phase 10's rays against ``ops/pairs.trace_pairs`` on the same
-    scene's features pack: held to phase 2's bounds, times, nodes popped
-    and leaf tests per ray, ptxas registers.  The bound is the walk's own
-    counted work; the needed pairs of a block-culled search stand beside it
-    as ``pairs_work_bound_ms``."""
+    scene's features pack, held to phase 2's bounds.  Times warm
+    (back-to-back launches) and with the L2 cache flushed before each
+    launch, nodes popped and leaf tests per ray, the longest walk and the
+    SIMT efficiency, ptxas registers, stack frame and spills.  The bound is
+    the walk's own counted work; the needed pairs of a block-culled search
+    stand beside it as ``pairs_work_bound_ms``."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
@@ -2056,85 +2223,102 @@ def phase_tree_trace(role, dev, smi: str, logs: dict) -> dict:
     # each input read once (rays; a node's 32-byte row and its tri; a
     # triangle's vertices), each output written once
     nbytes = lambda n: n * (24 + 4 + 8 + 1) + 36 * m + 36 * t
-    walk_flops = lambda st: st[0] * FLOPS_PER_NODE + st[1] * FLOPS_PER_LEAF_TEST
+    walk_flops = lambda popped, leaves: popped * FLOPS_PER_NODE + leaves * FLOPS_PER_LEAF_TEST
+    label = f"[phase 13] {name}"
 
-    # 13.2: the kernel against its plain version on the card
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    # 13.2: the kernel against its plain version on the card, and itself
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
     h = tree(o, d, stats=stats)
+    h2 = tree(o, d)
     torch.cuda.synchronize()
-    plain_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    plain_stats = torch.zeros(5, dtype=torch.int64, device=dev)
     hp, plain_ms = timed_once(
         lambda: tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d, stats=plain_stats))
-    differ = int(((h.tri != hp.tri) | (h.hit != hp.hit)).sum())
-    t_bits = int((h.t != hp.t).sum())
-    forks = hold(f"[phase 13] {name} bvh_trace vs trace_bvh_plain ({k} rays)",
-                 h.t, h.tri, h.hit, hp)
-    popped, leaf_tests, dropped = (int(x) for x in stats.cpu())
-    check(dropped == 0, f"{name}: {dropped} pushes past the stack")
-    ms = cuda_ms(lambda: tree(o, d), iters=role["iters"])
-    bound_ms, bound_by = bound(walk_flops((popped, leaf_tests)), nbytes(k))
+    forks = hold(f"{label} bvh_trace vs trace_bvh_plain ({k} rays)", h.t, h.tri, h.hit, hp)
+    differ, t_bits = bit_equal(f"{label} bvh_trace vs trace_bvh_plain ({k} rays)", h, hp)
+    bit_equal(f"{label} bvh_trace, two launches ({k} rays)", h2, h)
+    walk = walk_counts(f"{label} ({k} rays)", stats, plain_stats, k)
+    ms = tree_ms(lambda: tree(o, d), role["iters"])
+    flushed_ms = tree_ms(lambda: tree(o, d), role["iters"], flush=True)
+    bound_ms, bound_by = bound(walk_flops(walk["nodes_popped"], walk["leaf_tests"]), nbytes(k))
     needed = needed_pairs(feats, o, d, hp.t)
     pairs_work_ms = bound(needed * FLOPS_PER_PAIR, nbytes(k))[0]
-    regs = ptxas(logs["bvh_trace"], "bvh_trace_kernel")
-    log(f"[phase 13] {name} ({t} tris, {m} nodes) {k} rays: rays differing from plain {differ}, "
-        f"t bits differing {t_bits}; counts kernel {stats.tolist()}, plain "
-        f"{plain_stats.tolist()}; bvh_trace {ms:.4f} ms (ptxas {regs}), trace_bvh_plain "
-        f"{plain_ms:.1f} ms; per ray "
-        f"{popped / k:.1f} nodes popped, {leaf_tests / k:.1f} leaf tests; bound {bound_ms:.4f} "
-        f"ms by {bound_by} (the walk's own work); needed pairs {needed / k:.1f} per ray, their "
-        f"work {pairs_work_ms:.4f} ms [{smi}]")
+    regs = ptxas(logs["bvh_trace"], TREE_KERNEL)
+    log(f"{label} ({t} tris, {m} nodes) {k} rays: rays differing from plain {differ}, t bits "
+        f"differing {t_bits}, two launches equal; counts {stats.tolist()} equal to plain's; "
+        f"bvh_trace {ms:.4f} ms warm, {flushed_ms:.4f} ms with L2 flushed (ptxas {regs}), "
+        f"trace_bvh_plain {plain_ms:.1f} ms; per ray {walk['mean_pops_per_ray']:.1f} nodes popped "
+        f"(most {walk['max_pops_per_ray']}, max / mean {walk['max_over_mean_pops']:.2f}), "
+        f"{walk['leaf_tests'] / k:.1f} leaf tests; SIMT efficiency "
+        f"{walk['simt_efficiency']:.3f}; bound {bound_ms:.4f} ms by {bound_by} (the walk's own "
+        f"work); needed pairs {needed / k:.1f} per ray, their work {pairs_work_ms:.4f} ms [{smi}]")
     line = dict(
         name=f"bvh_trace:{name}", route="cuda",
         source="ensem3a_openclraytracer_tpu_torch/csrc/bvh_trace.cu",
         replaces="ensem3a_openclraytracer_tpu/ops/traversal.py:53", pallas=False,
-        launches=0, max_abs_err=forks[2], rays=k, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, pairs_work_bound_ms=pairs_work_ms,
-        library_ms=None, rays_differing_from_plain=differ, t_bits_differing=t_bits, nodes=m,
-        tris=t, nodes_popped=popped, leaf_tests=leaf_tests, dropped_pushes=dropped,
-        needed_pairs=needed, tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
-        ptxas=regs,
+        launches=0, max_abs_err=forks[2], rays=k, ms=ms, flushed_ms=flushed_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        pairs_work_bound_ms=pairs_work_ms, library_ms=None, rays_differing_from_plain=differ,
+        t_bits_differing=t_bits, two_launches_equal=True, nodes=m, tris=t, **walk,
+        needed_pairs=needed, tri_fork_fraction=forks[0], hit_fork_fraction=forks[1], ptxas=regs,
+        options=tree_options(label, g, o, d, h, role["iters"], logs, smi),
     )
+    if other is not None:
+        line["against_other"] = against_other(label, other, g, o, d, h, role["iters"], smi)
     if nb < 2:
         return line
 
     # 13.3: against pairs.cu on all of phase 10's rays
     n = o_all.shape[0]
-    all_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    all_stats = torch.zeros(5, dtype=torch.int64, device=dev)
     ha = tree(o_all, d_all, stats=all_stats)
     hq = pp.trace_pairs(feats, o_all, d_all)
     torch.cuda.synchronize()
-    vs_pairs = hold_against_pairs(f"[phase 13] {name} bvh_trace vs trace_pairs ({n} rays)", ha,
-                                  hq, g, o_all, d_all)
-    a_popped, a_leaf, a_dropped = (int(x) for x in all_stats.cpu())
+    bit_equal(f"{label} bvh_trace on {n} rays, its last {k} against the {k}-ray launch",
+              type(h)(*(x[-k:] for x in ha)), h)
+    vs_pairs = hold_against_pairs(f"{label} bvh_trace vs trace_pairs ({n} rays)", ha, hq, g,
+                                  o_all, d_all)
+    a_popped, a_leaf, a_dropped, a_most, a_warp_most = all_stats.tolist()
     check(a_dropped == 0, f"{name}: {a_dropped} pushes past the stack")
-    all_ms = cuda_ms(lambda: tree(o_all, d_all), iters=role["iters"])
-    pairs_ms = cuda_ms(lambda: pp.trace_pairs(feats, o_all, d_all), iters=role["iters"])
+    all_ms = tree_ms(lambda: tree(o_all, d_all), role["iters"])
+    all_flushed_ms = tree_ms(lambda: tree(o_all, d_all), role["iters"], flush=True)
+    pairs_ms = tree_ms(lambda: pp.trace_pairs(feats, o_all, d_all), role["iters"])
     a_needed = needed_pairs(feats, o_all, d_all, hq.t)
-    a_bound_ms, a_bound_by = bound(walk_flops((a_popped, a_leaf)), nbytes(n))
+    a_bound_ms, a_bound_by = bound(walk_flops(a_popped, a_leaf), nbytes(n))
     a_pairs_work_ms = bound(a_needed * FLOPS_PER_PAIR, nbytes(n))[0]
-    log(f"[phase 13] {name} ({nb} blocks) on phase 10's {n} rays: bvh_trace {all_ms:.4f} ms, "
-        f"trace_pairs {pairs_ms:.4f} ms (tree / pairs {all_ms / pairs_ms:.3f}); per ray "
-        f"{a_popped / n:.1f} nodes popped, {a_leaf / n:.1f} leaf tests, "
+    log(f"{label} ({nb} blocks) on phase 10's {n} rays: bvh_trace {all_ms:.4f} ms warm, "
+        f"{all_flushed_ms:.4f} ms with L2 flushed, trace_pairs {pairs_ms:.4f} ms (tree / pairs "
+        f"{all_ms / pairs_ms:.3f}); per ray {a_popped / n:.1f} nodes popped (most {a_most}), "
+        f"{a_leaf / n:.1f} leaf tests, SIMT efficiency {a_popped / (32 * a_warp_most):.3f}, "
         f"{a_needed / n:.1f} needed pairs; bvh_trace's bound {a_bound_ms:.4f} ms by {a_bound_by} "
         f"(the walk's own work); the needed pairs' work {a_pairs_work_ms:.4f} ms (phase 10's "
         f"bound of pairs.cu) [{smi}]")
     line.update(
         pairs_rays=n, pairs_ms=pairs_ms, ms_on_pairs_rays=all_ms,
+        flushed_ms_on_pairs_rays=all_flushed_ms,
         bound_on_pairs_rays_ms=a_bound_ms, pairs_work_bound_on_pairs_rays_ms=a_pairs_work_ms,
         nodes_popped_on_pairs_rays=a_popped, leaf_tests_on_pairs_rays=a_leaf,
+        max_pops_per_ray_on_pairs_rays=a_most,
+        simt_efficiency_on_pairs_rays=a_popped / (32 * a_warp_most),
         needed_pairs_on_pairs_rays=a_needed, tri_forks_vs_pairs=vs_pairs[0],
         hit_forks_vs_pairs=vs_pairs[1], max_abs_dt_vs_pairs=vs_pairs[2],
         rays_held_to_float64_t=vs_pairs[3],
     )
+    if other is not None:
+        line["against_other_on_pairs_rays"] = against_other(label, other, g, o_all, d_all, ha,
+                                                            role["iters"], smi)
     return line
 
 
-def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
+def phase_tree_render(scn, dev, workdir: Path, smi: str, other=None) -> dict:
     """13.4 on one scene: its written files loaded with ``Scene.load(...,
     use_bvh=True)`` and rendered with ``render_scene`` at the ini settings
     (the scan estimator: the pack has no features), the launch counts set
     to 0 just before and read just after; the image against the features
-    pack's scan render (same seed and stream); one more render profiled."""
+    pack's scan render (same seed and stream); one more render profiled.
+    With ``other`` (another checkout's walk, ``walk_fn``), that render is
+    profiled again with ``trace_bvh`` launching ``other``, then once more
+    with this walk."""
     import dataclasses
 
     import torch
@@ -2179,14 +2363,34 @@ def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
                 engine="scan", seconds=dt, mrays_per_s=rays / dt / 1e6, launches=launches,
                 load_s=load_s, features_scan_seconds=dt_f, pixel_forks=frac, median_diff=med)
     info.update(phase_profile(scene, f"{scn['name']}_tree", {}, phase="13"))
+    if other is not None:
+        from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
+
+        own = tv._launcher
+        tv._launcher = lambda: other
+        try:
+            prof = phase_profile(scene, f"{scn['name']}_tree, the other walk", {}, phase="13")
+        finally:
+            tv._launcher = own
+        per_launch = lambda p: (p["bvh_trace_ms"] / traces if "bvh_trace_ms" in p
+                                else "not measured")
+        info["other_in_render_ms"] = per_launch(prof)
+        prof = phase_profile(scene, f"{scn['name']}_tree, this walk again", {}, phase="13")
+        info["in_render_ms_again"] = per_launch(prof)
     return info
 
 
-def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor) -> tuple:
+def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor, against=None) -> tuple:
     """Phase 13: the build, the kernel against its plain version and against
     ``pairs.cu``, the tree renders through the entry point, and one replay
-    gradient on a tree, card against CPU."""
+    gradient on a tree, card against CPU.  ``against``: another checkout,
+    whose ``bvh_trace.cu`` is timed in turns with this one's."""
     from ensem3a_openclraytracer_tpu_torch import testing as tt
+
+    other = None
+    if against is not None:
+        other = walk_fn(source=Path(against) / "ensem3a_openclraytracer_tpu_torch" / "csrc"
+                        / "bvh_trace.cu")
 
     build = phase_tree_build(dev, smi)
     tree = lambda cubes: lambda d: tt.make_outdoor_scene(n_cubes=cubes, use_bvh=True, device=d)[0]
@@ -2197,7 +2401,7 @@ def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor) -> tuple:
                   iters=10),
              dict(name="outdoor_12500", make=outdoor(12500), tree=tree(12500),
                   plain_rays=TREE_RAYS, iters=5)]
-    lines = [phase_tree_trace(r, dev, smi, logs) for r in roles]
+    lines = [phase_tree_trace(r, dev, smi, logs, other) for r in roles]
     scenes = [
         dict(name="cornell", make=lambda d: tt.make_cornell_scene(device=d),
              render=(512, MAIN_SPP, 4)),
@@ -2206,9 +2410,25 @@ def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor) -> tuple:
         dict(name="outdoor_12500", make=lambda d: tt.make_outdoor_scene(n_cubes=12500, device=d),
              render=(256, 16, 4)),
     ]
-    renders = {s["name"]: phase_tree_render(s, dev, workdir, smi) for s in scenes}
+    renders = {s["name"]: phase_tree_render(s, dev, workdir, smi, other) for s in scenes}
     for line, r in zip(lines, roles):
-        line["launches"] = renders[r["name"]]["launches"]["bvh_trace"]
+        render = renders[r["name"]]
+        line["launches"] = render["launches"]["bvh_trace"]
+        # per launch in the profiled render, where the tree meets the scan
+        # estimator's tensor ops between traces (the render's own ray counts)
+        line["in_render_ms"] = (render["bvh_trace_ms"] / line["launches"]
+                                if "bvh_trace_ms" in render else "not measured")
+        line["in_render_rays"] = render["res"] ** 2
+        if other is not None:  # the other walk in the same render, then this one again
+            line.update(other_in_render_ms=render["other_in_render_ms"],
+                        in_render_ms_again=render["in_render_ms_again"])
+            log(f"[phase 13] {r['name']}: in the profiled tree render, the other walk "
+                f"{line['other_in_render_ms']} ms per launch, this one {line['in_render_ms']} "
+                f"then {line['in_render_ms_again']} ms [{smi}]")
+        log(f"[phase 13] {r['name']}: bvh_trace in the profiled tree render "
+            f"{line['in_render_ms']} ms per launch ({line['launches']} launches of "
+            f"{line['in_render_rays']} rays); alone {line['ms']:.4f} ms warm, "
+            f"{line['flushed_ms']:.4f} ms with L2 flushed at {line['rays']} rays [{smi}]")
     check(sum(r["launches"]["bvh_trace"] for r in renders.values()) > 0,
           "the tree renders launched no bvh_trace kernel")
     case = dict(TREE_GRAD, make=lambda d: tt.make_cornell_scene(use_bvh=True, device=d))
@@ -2216,33 +2436,9 @@ def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor) -> tuple:
     return lines, dict(build=build, renders=list(renders.values()), gradient=grad)
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
-        return 1
-    from ensem3a_openclraytracer_tpu_torch import _build
+def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
+    """Phases 2-12: their kernels' lines and their parts of the summary."""
     from ensem3a_openclraytracer_tpu_torch import testing as tt
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    smi = smi_line()
-    log(f"[phase 1] nvidia-smi: {smi}")
-    log(f"[phase 1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}, "
-        f"count {torch.cuda.device_count()}")
-    fresh = [n for n in _build.sources() if not _build._target(n).exists()]
-    t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"[phase 1] kernels {sorted(logs)}: built {fresh or 'none (up to date)'} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.strip().splitlines():
-            log(f"[phase 1] nvcc {name}: {line}")
 
     cornell = lambda d: tt.make_cornell_scene(device=d)
     outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
@@ -2352,15 +2548,54 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         product = phase_product(dev, smi, Path(tmp), {r["name"]: r for r in renders})
     log(f"[phase 12] wall {time.perf_counter() - t12:.1f} s")
+    return kernels, {"renders": renders, "fused_vs_scan": versus, "gradients": gradients,
+                     "product": product}
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    from ensem3a_openclraytracer_tpu_torch import _build
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    smi = smi_line()
+    log(f"[phase 1] nvidia-smi: {smi}")
+    log(f"[phase 1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}, "
+        f"count {torch.cuda.device_count()}")
+    fresh = [n for n in _build.sources() if not _build._target(n).exists()]
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"[phase 1] kernels {sorted(logs)}: built {fresh or 'none (up to date)'} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for name, text in logs.items():
+        for line in text.strip().splitlines():
+            log(f"[phase 1] nvcc {name}: {line}")
+
+    # --against DIR: phase 13 also times DIR's csrc/bvh_trace.cu (another
+    # checkout, e.g. a `git archive` of the parent commit) in turns with this one
+    against = argv[argv.index("--against") + 1] if "--against" in argv else None
+    if "--tree-only" in argv:  # phase 1 and phase 13 alone
+        kernels, summary = [], {}
+    else:
+        kernels, summary = phases_2_to_12(dev, smi, logs)
+    outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
 
     t13 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        tree_lines, tree = phase_tree(dev, smi, logs, Path(tmp), outdoor)
+        tree_lines, tree = phase_tree(dev, smi, logs, Path(tmp), outdoor, against)
     kernels += tree_lines
     log(f"[phase 13] wall {time.perf_counter() - t13:.1f} s")
 
-    summary = {"card": smi, "renders": renders, "fused_vs_scan": versus, "gradients": gradients,
-               "product": product, "tree": tree}
+    summary = {"card": smi, **summary, "tree": tree}
     log(f"[summary] {json.dumps(summary)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -2372,7 +2607,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -1,22 +1,63 @@
-// Closest hit through an LBVH for Hopper (sm_90a): one thread per ray.
+// Closest hit through an LBVH for Hopper (sm_90a): one thread per ray, both
+// children of an accepted node tested at that node, the right one deferred
+// with its entry distance.
 //
 // Replaces no Pallas kernel.  It is the card's counterpart of the JAX
-// package's ensem3a_openclraytracer_tpu/ops/traversal.py trace_bvh, a masked
-// stack walk of the whole ray batch in one lax.while_loop (one device
+// package's ensem3a_openclraytracer_tpu/ops/traversal.py:53 trace_bvh, a
+// masked stack walk of the whole ray batch in one lax.while_loop (one device
 // program per trace on the TPU).  In eager PyTorch that loop would be a host
 // loop with a sync per round, so here each thread walks its own ray to the
-// end, as the reference did (MathLib.cl:234-288): a stack of MAX_STACK node
-// indices in local memory, the root in slot 0, one node popped per step.
-// It computes what ops/traversal.trace_bvh_plain computes:
-//   * a node is culled when its slab test gives tmax < tmin, tmax < 0 or
-//     tmin > best_t (ops/geometry.ray_aabb, with its +-1e-12 direction nudge);
-//   * a leaf's triangle is kept when Moller-Trumbore hits (ops/geometry
-//     .moller_trumbore: |det| < 1e-7 misses, 0 <= u, v, u + v <= 1, t > 1e-7)
-//     with t > MIN_HIT_DIST and t < best_t (strict: a tie keeps the first);
-//   * an inner node pushes its right child, then its left, so the left pops
-//     first; a push past MAX_STACK is dropped (counted in stats; an LBVH is
-//     at most 63 deep, so 64 slots do not overflow on its trees);
-//   * a miss is t = MAX_DIST, tri = 0, hit = t < MAX_DIST.
+// end, as the reference did (MathLib.cl:234-288).
+//
+// The contract: t, tri and hit bit-equal to ops/traversal.trace_bvh_plain,
+// and its counts equal (nodes popped, leaf tests, dropped pushes, the most
+// nodes one ray popped, the sum over warps of each warp's most).  Plain's
+// walk:
+//   * pops one node per step, left child before right (an inner node pushes
+//     its right child, then its left); a push past MAX_STACK is dropped;
+//   * culls a node when its slab test gives tmax < tmin, tmax < 0 or
+//     tmin > best_t (ops/geometry.ray_aabb, with its +-1e-12 nudge);
+//   * keeps a leaf's triangle when Moller-Trumbore hits (|det| < 1e-7
+//     misses, 0 <= u, v, u + v <= 1, t > 1e-7) with t > MIN_HIT_DIST and
+//     t < best_t (strict: at a tie the first triangle found stays);
+//   * misses with t = MAX_DIST, tri = 0, hit = t < MAX_DIST.
+// Near-child-first order would visit nodes in another order and fork from
+// plain on rays whose two best candidates lie within ulps (Cornell's walls
+// and shared edges), so this walk keeps plain's order and changes only
+// when each test runs.
+//
+// What bounds it on an H100: the latency of the longest walks, not the FP32
+// rate (25 operations per slab test, 60 per triangle test) nor the bytes
+// (the walk's own work bounds it at 0.0015-0.0085 ms).  Measured on the PR 9
+// walk, which popped one node per step (PERF.md, PR 10, step 0; H100 SXM,
+// 700 W): five times the rays cost 1.22x the time; at 65,536 bounce rays
+// on a 300,003-node tree one ray pops 729 nodes, 9.7x the mean, the SIMT
+// efficiency is 0.41, and the launch (512 blocks, ~15.5 warps per SM) ends
+// with its longest warp, ~0.29 us per popped node; flushing L2 between
+// launches costs 1.06-1.14x.  Each of its steps was a chain of dependent
+// latencies (a local-memory pop, the node's 32-byte row from L2, the slab
+// test, two local-memory pushes), and every pushed child paid its own row
+// load when it popped.
+// The design: when an inner node is accepted, the rows of both its
+// children are loaded back to back (one latency covers both) and both slab
+// tests run at once.  The left child pops right after its parent in plain
+// and nothing changes best_t in between, so its full test (tmax >= tmin,
+// tmax >= 0, tmin <= best_t) is plain's, and the walk descends into it with
+// no stack round trip.  The right child's first two conditions do not
+// depend on best_t: when they pass it is pushed as one 16-byte entry, its
+// links and its entry distance, and its pop makes plain's last test, tmin
+// <= best_t with the best_t of that moment, with no row load.  A leaf's tri
+// is read only when the leaf is accepted (reading it with every child's row
+// cost more than the dependent load it saved), then its vertices.  Each
+// slab test counts as one node popped: the root, plus both children of
+// each accepted inner node, which is plain's count.  The dependent row
+// loads on a walk's chain drop from one per popped node to one per
+// accepted inner node.  On the card it takes 0.84-0.98x the PR 9 walk's
+// time on the outdoor trees and 1.05-1.15x on Cornell's 71-node tree
+// (PERF.md, PR 10): most of a step was not the row's latency.
+// Where plain drops no push (every tree of accel: depth <= 63), t, tri, hit
+// and the counts are plain's; a push past MAX_STACK is still dropped and
+// counted.
 // The arithmetic is written op for op as the tensor ops round it: every
 // product, sum and quotient rounded on its own (__fmul_rn / __fadd_rn /
 // __fsub_rn / __frcp_rn, which nvcc never contracts into an FMA), the dot
@@ -24,27 +65,22 @@
 // Tensor.__rtruediv__ (reciprocal, then the exact product by 1).
 // The tree comes as ops/traversal.nodes_to lays it out: one 32-byte row
 // per node, (bmin.xyz, left) (bmax.xyz, right) with the integers' bits,
-// read through the read-only path (one sector per step), and tri [M] on
-// its own, read only at a leaf (left < 0, as every leaf of an LBVH has);
-// the triangles' vertices come from v0/v1/v2 ([T, 3] f32).  BVHNodes'
-// fields view the rows, so the tree is held once.  On an H100 the rows
-// took 0.85x / 0.78x the time of five separate arrays on trees of 31k /
-// 300k nodes (1.68x on a 71-node tree, where every node stays in L1;
-// PERF.md).
-// What bounds it on an H100: the data-dependent walk, not the FP32 rate
-// (about 25 operations per slab test and 60 per triangle test): threads of
-// a warp diverge as their rays take other paths, each step waits on a
-// dependent load from L2 (a tree of 2T - 1 nodes of 36 bytes: 10.8 MB at
-// 150k triangles, resident in the 50 MB L2) and the stack lives in local
-// memory.  The kernel counts what the walk did (nodes popped, leaf tests,
-// dropped pushes) for chip_smoke.py's bound.
+// read through the read-only path, and tri [M] on its own (a leaf has
+// left < 0, as every leaf of an LBVH has); the triangles' vertices come
+// from v0/v1/v2 ([T, 3] f32).  BVHNodes' fields view the rows, so the
+// tree is held once.
+// bvh_trace_launch_opts runs the same walk with other launch options, for
+// chip_smoke.py's comparison of them (none paid; PERF.md, PR 10): 32 or 64
+// threads per block, the stack's first entries in shared memory, its
+// newest entry in registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int MAX_STACK = 64;  // ops/traversal.MAX_STACK
+constexpr int THREADS = 128;    // the block size of bvh_trace_launch
+constexpr int MAX_STACK = 64;   // ops/traversal.MAX_STACK
+constexpr int SMEM_DEPTH = 16;  // stack entries in shared memory, when asked
 constexpr float MAX_DIST = 1000.0f;
 constexpr float MIN_HIT_DIST = 1e-4f;
 constexpr float MT_EPSILON = 1e-7f;
@@ -54,7 +90,7 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a[0], b[0]), __fmul_rn(a[1], b[1])), __fmul_rn(a[2], b[2]));
 }
 
-// torch.linalg.cross: (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0)
+// ops/geometry.cross_rn: (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0)
 __device__ __forceinline__ void cross3(const float a[3], const float b[3], float out[3]) {
   out[0] = __fsub_rn(__fmul_rn(a[1], b[2]), __fmul_rn(a[2], b[1]));
   out[1] = __fsub_rn(__fmul_rn(a[2], b[0]), __fmul_rn(a[0], b[2]));
@@ -88,14 +124,82 @@ __device__ __forceinline__ bool moller_trumbore(const float o[3], const float d[
          t > MT_EPSILON;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// What the walk needs of a node: its slab test (ops/geometry.ray_aabb on
+// its row, lo = (bmin, left), hi = (bmax, right)) and, for when it is
+// accepted, its children (a = left >= 0, b = right) or, for a leaf
+// (a = left < 0), its own index b, whose tri is read when it is tested.
+struct Box {
+  float tmin, tmax;
+  int a, b;
+};
+
+__device__ __forceinline__ Box test(const float4 lo, const float4 hi, int n, const float o[3],
+                                    const float inv[3]) {
+  const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
+  Box x{0.0f, 0.0f, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t1 = __fmul_rn(__fsub_rn(l[k], o[k]), inv[k]);
+    const float t2 = __fmul_rn(__fsub_rn(h[k], o[k]), inv[k]);
+    const float near = fminf(t1, t2), far = fmaxf(t1, t2);
+    x.tmin = k == 0 ? near : fmaxf(x.tmin, near);
+    x.tmax = k == 0 ? far : fminf(x.tmax, far);
+  }
+  x.a = __float_as_int(lo.w);
+  x.b = x.a < 0 ? n : __float_as_int(hi.w);
+  return x;
+}
+
+// The deferred right children, one 16-byte entry each (a, b, tmin's bits):
+// with TOP, the newest entry in registers (a right child that pops before
+// anything else is pushed never reaches memory); below it, the first
+// SMEM_ENTRIES of a thread's stack in shared memory ([entry][thread]), the
+// rest in local memory.
+template <int BLOCK, int SMEM_ENTRIES, bool TOP>
+struct Stack {
+  int4 local[MAX_STACK - SMEM_ENTRIES];
+  int4* shared;
+  int4 top;
+  int sp = 0;
+  bool has_top = false;
+  __device__ __forceinline__ int size() const { return sp + (TOP && has_top ? 1 : 0); }
+  __device__ __forceinline__ void store(int i, const int4& e) {
+    if (SMEM_ENTRIES > 0 && i < SMEM_ENTRIES) shared[i * BLOCK] = e;
+    else local[i - SMEM_ENTRIES] = e;
+  }
+  __device__ __forceinline__ void push(const Box& x) {  // size() < MAX_STACK
+    const int4 e = make_int4(x.a, x.b, __float_as_int(x.tmin), 0);
+    if constexpr (TOP) {
+      if (has_top) store(sp++, top);
+      top = e;
+      has_top = true;
+    } else {
+      store(sp++, e);
+    }
+  }
+  __device__ __forceinline__ int4 pop() {  // size() > 0
+    if constexpr (TOP) {
+      if (has_top) {
+        has_top = false;
+        return top;
+      }
+    }
+    --sp;
+    if (SMEM_ENTRIES > 0 && sp < SMEM_ENTRIES) return shared[sp * BLOCK];
+    return local[sp - SMEM_ENTRIES];
+  }
+};
+
+template <int BLOCK, int SMEM_ENTRIES, bool TOP>
+__global__ void __launch_bounds__(BLOCK)
 bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d, int n_rays,
                  const float4* __restrict__ rows, const int* __restrict__ node_tri,
-                 const float* __restrict__ v0,
-                 const float* __restrict__ v1, const float* __restrict__ v2,
-                 float* __restrict__ out_t, long long* __restrict__ out_tri,
-                 bool* __restrict__ out_hit, unsigned long long* __restrict__ stats) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
+                 const float* __restrict__ v0, const float* __restrict__ v1,
+                 const float* __restrict__ v2, float* __restrict__ out_t,
+                 long long* __restrict__ out_tri, bool* __restrict__ out_hit,
+                 unsigned long long* __restrict__ stats) {
+  extern __shared__ int4 smem[];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
   unsigned popped = 0, leaf_tests = 0, dropped = 0;
   if (i < n_rays) {
     float o[3], d[3], inv[3];
@@ -106,38 +210,44 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
       const float dk = fabsf(d[k]) < TINY ? (d[k] < 0.0f ? -TINY : TINY) : d[k];
       inv[k] = __frcp_rn(dk);
     }
-    int stack[MAX_STACK];
-    stack[0] = 0;
-    int sp = 1;
+    Stack<BLOCK, SMEM_ENTRIES, TOP> stack;
+    stack.shared = smem + threadIdx.x;
     float best_t = MAX_DIST;
     int best_i = 0;
-    while (sp > 0) {
-      const int idx = stack[--sp];
-      ++popped;
-      const float4 a = __ldg(rows + 2 * idx), b = __ldg(rows + 2 * idx + 1);
-      const float lo[3] = {a.x, a.y, a.z}, hi[3] = {b.x, b.y, b.z};
-      const int left = __float_as_int(a.w), right = __float_as_int(b.w);
-      float tmin = 0.0f, tmax = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float t1 = __fmul_rn(__fsub_rn(lo[k], o[k]), inv[k]);
-        const float t2 = __fmul_rn(__fsub_rn(hi[k], o[k]), inv[k]);
-        const float near = fminf(t1, t2), far = fmaxf(t1, t2);
-        tmin = k == 0 ? near : fmaxf(tmin, near);
-        tmax = k == 0 ? far : fminf(tmax, far);
-      }
-      if (!(tmax >= tmin && tmax >= 0.0f && tmin <= best_t)) continue;
-      if (left < 0) {  // a leaf
-        const int tri = __ldg(node_tri + idx);
+    Box cur = test(__ldg(rows), __ldg(rows + 1), 0, o, inv);  // the root, popped first
+    popped = 1;
+    bool accepted = cur.tmax >= cur.tmin && cur.tmax >= 0.0f && cur.tmin <= best_t;
+    while (accepted) {  // cur is accepted
+      if (cur.a >= 0) {  // an inner node: test both children here
+        const float4 la = __ldg(rows + 2 * cur.a), lb = __ldg(rows + 2 * cur.a + 1);
+        const float4 ra = __ldg(rows + 2 * cur.b), rb = __ldg(rows + 2 * cur.b + 1);
+        const Box l = test(la, lb, cur.a, o, inv), r = test(ra, rb, cur.b, o, inv);
+        popped += 2;
+        if (r.tmax >= r.tmin && r.tmax >= 0.0f) {  // deferred: tmin <= best_t at its pop
+          if (stack.size() < MAX_STACK) stack.push(r); else ++dropped;
+        }
+        if (l.tmax >= l.tmin && l.tmax >= 0.0f && l.tmin <= best_t) {  // pops next in plain
+          cur = l;
+          continue;
+        }
+      } else {  // a leaf
         ++leaf_tests;
+        const int tri = __ldg(node_tri + cur.b);
         float t;
         if (moller_trumbore(o, d, v0, v1, v2, tri, t) && t > MIN_HIT_DIST && t < best_t) {
           best_t = t;
           best_i = tri;
         }
-      } else {  // right, then left: the left pops first
-        if (sp < MAX_STACK) stack[sp++] = right; else ++dropped;
-        if (sp < MAX_STACK) stack[sp++] = left; else ++dropped;
+      }
+      accepted = false;  // pop the next right child that passes
+      while (stack.size() > 0) {
+        const int4 e = stack.pop();
+        if (__int_as_float(e.z) <= best_t) {
+          cur.a = e.x;
+          cur.b = e.y;
+          accepted = true;
+          break;
+        }
       }
     }
     out_t[i] = best_t;
@@ -145,6 +255,7 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
     out_hit[i] = best_t < MAX_DIST;
   }
   if (stats != nullptr) {  // every thread of the warp reaches here
+    const unsigned most = __reduce_max_sync(0xffffffffu, popped);
     popped = __reduce_add_sync(0xffffffffu, popped);
     leaf_tests = __reduce_add_sync(0xffffffffu, leaf_tests);
     dropped = __reduce_add_sync(0xffffffffu, dropped);
@@ -152,8 +263,30 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
       atomicAdd(stats + 0, static_cast<unsigned long long>(popped));
       atomicAdd(stats + 1, static_cast<unsigned long long>(leaf_tests));
       atomicAdd(stats + 2, static_cast<unsigned long long>(dropped));
+      atomicMax(stats + 3, static_cast<unsigned long long>(most));
+      atomicAdd(stats + 4, static_cast<unsigned long long>(most));
     }
   }
+}
+
+template <int BLOCK, int SMEM_ENTRIES, bool TOP>
+cudaError_t launch(const float* ray_o, const float* ray_d, int n_rays, const float* rows,
+                   const int* tri, const float* v0, const float* v1, const float* v2,
+                   float* out_t, long long* out_tri, bool* out_hit, unsigned long long* stats,
+                   cudaStream_t stream) {
+  const int grid = (n_rays + BLOCK - 1) / BLOCK;
+  const size_t smem = sizeof(int4) * SMEM_ENTRIES * BLOCK;
+  bvh_trace_kernel<BLOCK, SMEM_ENTRIES, TOP><<<grid, BLOCK, smem, stream>>>(
+      ray_o, ray_d, n_rays, reinterpret_cast<const float4*>(rows), tri, v0, v1, v2, out_t,
+      out_tri, out_hit, stats);
+  return cudaGetLastError();
+}
+
+int check_args(int n_nodes, int n_tris, const float* rows) {
+  if (n_nodes <= 0 || n_tris <= 0 || n_nodes != (n_tris > 1 ? 2 * n_tris - 1 : 1))
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(rows) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  return 0;
 }
 
 }  // namespace
@@ -164,20 +297,45 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
 // and tri ([n_nodes] int32), over n_tris triangles (v0, v1, v2 [n_tris, 3]
 // f32).  Writes out_t (f32), out_tri (int64) and out_hit (bool) [n_rays].
 // `stats` may be null, else it receives [nodes popped, leaf tests, dropped
-// pushes] (int64, added).  Returns the cudaError_t of the launch (0 on
-// success).
+// pushes] (int64, added), the most nodes one ray popped (a max with what
+// stats[3] holds) and the sum over warps of each warp's most (added).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int bvh_trace_launch(const float* ray_o, const float* ray_d, int n_rays,
                                 const float* rows, const int* tri, int n_nodes, const float* v0,
                                 const float* v1, const float* v2, int n_tris, float* out_t,
                                 long long* out_tri, bool* out_hit, unsigned long long* stats,
                                 void* stream) {
   if (n_rays <= 0) return 0;
-  if (n_nodes <= 0 || n_tris <= 0 || n_nodes != (n_tris > 1 ? 2 * n_tris - 1 : 1))
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(rows) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  const int grid = (n_rays + THREADS - 1) / THREADS;
-  bvh_trace_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ray_o, ray_d, n_rays, reinterpret_cast<const float4*>(rows), tri, v0, v1, v2, out_t,
-      out_tri, out_hit, stats);
-  return (int)cudaGetLastError();
+  if (int err = check_args(n_nodes, n_tris, rows)) return err;
+  return (int)launch<THREADS, 0, false>(ray_o, ray_d, n_rays, rows, tri, v0, v1, v2, out_t,
+                                        out_tri, out_hit, stats,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// The same walk with other launch options: `threads` per block, `smem_stack`
+// (0 or 1: the stack's first SMEM_DEPTH entries in shared memory) and `top`
+// (0 or 1: the stack's newest entry in registers), one of (32|64|128, 0, 0),
+// (128, 1, 0) and (32|128, 0, 1).  Returns cudaErrorInvalidValue for any
+// other.
+extern "C" int bvh_trace_launch_opts(const float* ray_o, const float* ray_d, int n_rays,
+                                     const float* rows, const int* tri, int n_nodes,
+                                     const float* v0, const float* v1, const float* v2,
+                                     int n_tris, float* out_t, long long* out_tri, bool* out_hit,
+                                     unsigned long long* stats, void* stream, int threads,
+                                     int smem_stack, int top) {
+  if (n_rays <= 0) return 0;
+  if (int err = check_args(n_nodes, n_tris, rows)) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BVH_OPTION(B, S, T)                                                                   \
+  if (threads == B && smem_stack == (S > 0) && top == T)                                      \
+    return (int)launch<B, S, T != 0>(ray_o, ray_d, n_rays, rows, tri, v0, v1, v2, out_t,    \
+                                     out_tri, out_hit, stats, s);
+  BVH_OPTION(32, 0, 0)
+  BVH_OPTION(64, 0, 0)
+  BVH_OPTION(128, 0, 0)
+  BVH_OPTION(128, SMEM_DEPTH, 0)
+  BVH_OPTION(32, 0, 1)
+  BVH_OPTION(128, 0, 1)
+#undef BVH_OPTION
+  return (int)cudaErrorInvalidValue;
 }

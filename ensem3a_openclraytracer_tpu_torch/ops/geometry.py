@@ -32,6 +32,18 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def cross_rn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`cross` with each product and difference rounded on its own,
+    as ``jnp.cross`` op by op and the port's CUDA kernels compute it, on
+    every device and build: ``torch.linalg.cross``'s CPU kernel is
+    contracted into FMAs in builds for AVX2 / AVX-512, so its bits depend
+    on the build, and a ray through the edge that two triangles share can
+    pick the other one."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
 def norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
@@ -76,12 +88,13 @@ def rotate_euler_xyz_deg(v: torch.Tensor, angles_deg: torch.Tensor) -> torch.Ten
     return torch.einsum("ij,...j->...i", euler_xyz_matrix(angles_deg), v)
 
 
-def moller_trumbore(ray_o, ray_d, v0, v1, v2, eps: float = MT_EPSILON):
+def moller_trumbore(ray_o, ray_d, v0, v1, v2, eps: float = MT_EPSILON, cross=cross):
     """Batched Moller-Trumbore ray/triangle intersection.
 
     Returns ``(t, u, v, hit)``; ``t`` is ``MAX_DIST`` on a miss.  Front
     and back faces both hit, parallel rays (|det| < eps) miss, and only
-    ``t > eps`` counts (MathLib.cl:117-160)."""
+    ``t > eps`` counts (MathLib.cl:117-160).  ``cross``: :func:`cross`, or
+    :func:`cross_rn` where the bits must be a CUDA kernel's."""
     e1 = v1 - v0
     e2 = v2 - v0
     h = cross(ray_d, e2)

@@ -7,7 +7,11 @@ popped per live lane per round, each lane's stack a row of an ``[N,
 MAX_STACK]`` array.  :func:`trace_bvh_plain` is that loop in tensor ops,
 step for step; on the card the same walk is the CUDA kernel
 ``csrc/bvh_trace.cu``, one thread per ray (:func:`trace_bvh`), since in
-eager PyTorch every round of the loop would end in a host sync.
+eager PyTorch every round of the loop would end in a host sync.  The
+kernel tests both children of an accepted node at that node and defers
+the right one with its entry distance, whose last test (``tmin <=
+best_t``) it makes when the child pops: plain's visits, in plain's order,
+with plain's counts.
 
 The walk: the root in slot 0; pop the top; cull the node when its slab
 test gives ``tmax < tmin``, ``tmax < 0`` or ``tmin > best_t``; test a leaf's
@@ -42,6 +46,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import _check
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
     MAX_DIST,
     MIN_HIT_DIST,
+    cross_rn,
     moller_trumbore,
     ray_aabb,
 )
@@ -98,9 +103,16 @@ def trace_bvh_plain(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d, max_stack: int = 
                     stats: Optional[torch.Tensor] = None) -> Hit:
     """Closest hit of ``[N]`` rays against the triangles ``v0/v1/v2 [T, 3]``
     through the tree: the JAX package's ``trace_bvh`` in tensor ops, one
-    round per popped node, on whatever device the rays are on.  ``stats``
-    (int64 ``[3]``, optional) receives the nodes popped, the leaf tests
-    and the pushes dropped past ``max_stack``, added to what it holds."""
+    round per popped node, on whatever device the rays are on, its cross
+    products rounded op by op (``cross_rn``, as the kernel rounds them on
+    any build).  ``stats`` (int64 ``[5]``, optional) receives the nodes
+    popped, the leaf tests and the pushes dropped past ``max_stack``,
+    added to what it holds;
+    then the most nodes that one ray popped (the larger of that and what
+    ``stats[3]`` holds) and, added to ``stats[4]``, the sum over groups of
+    32 rays in ray order (a warp's lanes on the card) of each group's most
+    nodes popped.  ``stats[0] / (32 * stats[4])`` is the walk's SIMT
+    efficiency."""
     n = ray_o.shape[0]
     dev = ray_o.device
     lanes = torch.arange(n, device=dev)
@@ -111,8 +123,10 @@ def trace_bvh_plain(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d, max_stack: int = 
     best_t = torch.full((n,), MAX_DIST, dtype=torch.float32, device=dev)
     best_i = torch.zeros(n, dtype=torch.int64, device=dev)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    lane_pops = torch.zeros(n, dtype=torch.int64, device=dev)
     while bool((sp > 0).any()):
         active = sp > 0
+        lane_pops += active.long()
         idx = torch.where(active, stack[lanes, torch.clamp(sp - 1, min=0)], 0)
         sp = torch.where(active, sp - 1, sp)
 
@@ -122,7 +136,8 @@ def trace_bvh_plain(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d, max_stack: int = 
         is_leaf = ti >= 0
 
         tsafe = torch.clamp(ti, min=0)
-        t, _, _, mt_hit = moller_trumbore(ray_o, ray_d, v0[tsafe], v1[tsafe], v2[tsafe])
+        t, _, _, mt_hit = moller_trumbore(ray_o, ray_d, v0[tsafe], v1[tsafe], v2[tsafe],
+                                          cross=cross_rn)
         good = box_hit & is_leaf & mt_hit & (t > MIN_HIT_DIST) & (t < best_t)
         best_t = torch.where(good, t, best_t)
         best_i = torch.where(good, ti, best_i)
@@ -136,7 +151,11 @@ def trace_bvh_plain(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d, max_stack: int = 
             sp = sp + fits.long()
         counts += torch.stack([active.sum(), (box_hit & is_leaf).sum(), dropped.sum()])
     if stats is not None:
-        stats += counts
+        stats[:3] += counts
+        if n:
+            stats[3] = torch.maximum(stats[3], lane_pops.max())
+            warps = torch.nn.functional.pad(lane_pops, (0, -n % 32)).view(-1, 32)
+            stats[4] += warps.amax(dim=1).sum()
     return Hit(t=best_t, tri=best_i, hit=best_t < MAX_DIST)
 
 
@@ -162,10 +181,10 @@ def _launcher():
 def trace_bvh(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d,
               stats: Optional[torch.Tensor] = None) -> Hit:
     """Closest hit through the tree: on the card one launch of the CUDA
-    kernel ``csrc/bvh_trace.cu`` (one thread per ray, the walk of
-    :func:`trace_bvh_plain` with its arithmetic in the same order; no host
-    sync), on the CPU :func:`trace_bvh_plain`.  The kernel reads the
-    tree's row buffer (:func:`nodes_to`).  ``stats`` (int64 ``[3]``,
+    kernel ``csrc/bvh_trace.cu`` (one thread per ray; the visits, order,
+    arithmetic and counts of :func:`trace_bvh_plain`; no host sync), on
+    the CPU :func:`trace_bvh_plain`.  The kernel reads the
+    tree's row buffer (:func:`nodes_to`).  ``stats`` (int64 ``[5]``,
     optional) as :func:`trace_bvh_plain`'s."""
     ray_o = ray_o.detach().to(torch.float32).contiguous()
     ray_d = ray_d.detach().to(torch.float32).contiguous()
@@ -183,7 +202,7 @@ def trace_bvh(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d,
     _check(ray_o, "ray_o", (n, 3), torch.float32, dev)
     _check(ray_d, "ray_d", (n, 3), torch.float32, dev)
     if stats is not None:
-        _check(stats, "stats", (3,), torch.int64, dev)
+        _check(stats, "stats", (5,), torch.int64, dev)
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_tri = torch.empty((n,), dtype=torch.int64, device=dev)
     out_hit = torch.empty((n,), dtype=torch.bool, device=dev)

@@ -217,3 +217,68 @@ def write_scene_files(obj_path: str, geom: GeometryPack, materials: MaterialPara
         f.write("".join(f"{k}={float(v) if isinstance(v, np.floating) else v}\n"
                         for k, v in params.items()))
     return ini_path
+
+
+# --- rays that test a closest hit's tie-breaking ------------------------------
+
+
+def _host_vertices(geom: GeometryPack) -> np.ndarray:
+    return np.stack([geom.v0.detach().cpu().numpy(), geom.v1.detach().cpu().numpy(),
+                     geom.v2.detach().cpu().numpy()], axis=1)  # [T, 3, 3]
+
+
+def shared_edge_rays(geom: GeometryPack, n_origins: int = 8, per_edge: int = 4, seed: int = 0):
+    """Rays aimed at points along every edge that two triangles of
+    ``geom`` share (a quad's diagonal, the edges where walls or a cube's
+    faces meet), from ``n_origins`` random points inside the scene's box
+    (numpy seed): each crosses the edge within an ulp or two, where both
+    triangles give about the same ``t`` (the closest hit's ties).  Returns
+    ``(ray_o, ray_d)`` ``[n_origins * edges * per_edge, 3]`` f32 on the
+    pack's device."""
+    import torch
+
+    v = _host_vertices(geom)
+    owners = {}
+    for t in range(v.shape[0]):
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            key = tuple(sorted((tuple(v[t, a].tolist()), tuple(v[t, b].tolist()))))
+            owners.setdefault(key, []).append(t)
+    edges = np.asarray([k for k, ts in sorted(owners.items()) if len(ts) > 1], np.float32)
+    f = ((np.arange(per_edge, dtype=np.float32) + 0.5) / per_edge)[None, :, None]
+    points = (edges[:, None, 0] + f * (edges[:, None, 1] - edges[:, None, 0])).reshape(-1, 3)
+    lo, hi = v.reshape(-1, 3).min(0), v.reshape(-1, 3).max(0)
+    rng = np.random.default_rng(seed)
+    origins = (lo + rng.uniform(0.05, 0.95, (n_origins, 3)) * (hi - lo)).astype(np.float32)
+    o = np.repeat(origins, points.shape[0], axis=0)
+    d = np.tile(points, (n_origins, 1)) - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    dev = geom.v0.device
+    return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+
+
+def grazing_rays(geom: GeometryPack, n: int = 512, seed: int = 0):
+    """Rays that skim the scene's lowest plane (the ground of
+    ``make_outdoor_scene``, z = its least vertex z): origins over the
+    footprint of the triangles above it, at heights from 1e-6 to 1e-1
+    above the plane (one in eight on it), directions at random azimuths
+    that fall by 1e-7 to 1e-2 per unit length (one in eight level).  They
+    cross cube faces at their bottom edges and the ground at shallow
+    angles, where a closest hit's t loses digits.  Returns ``(ray_o,
+    ray_d)`` ``[n, 3]`` f32 on the pack's device (numpy seed)."""
+    import torch
+
+    v = _host_vertices(geom).reshape(-1, 3)
+    ground = v[:, 2].min()
+    above = v[v[:, 2] > ground]
+    lo, hi = above.min(0), above.max(0)
+    rng = np.random.default_rng(seed)
+    o = np.empty((n, 3), np.float64)
+    o[:, :2] = rng.uniform(lo[:2], hi[:2], (n, 2))
+    o[:, 2] = ground + np.where(rng.random(n) < 0.125, 0.0, 10.0 ** rng.uniform(-6, -1, n))
+    phi = rng.uniform(0, 2 * np.pi, n)
+    fall = np.where(rng.random(n) < 0.125, 0.0, 10.0 ** rng.uniform(-7, -2, n))
+    d = np.stack([np.cos(phi), np.sin(phi), -fall], axis=-1)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    dev = geom.v0.device
+    return (torch.as_tensor(o.astype(np.float32), device=dev),
+            torch.as_tensor(d.astype(np.float32), device=dev))

@@ -183,15 +183,16 @@ def test_trace_dispatch_and_stats():
     ends, and it can only lose hits."""
     _, g, o, d, h, _ = _trace_case("outdoor64_incoherent")
     o, d = torch.as_tensor(o), torch.as_tensor(d)
-    stats = torch.zeros(3, dtype=torch.int64)
+    stats = torch.zeros(5, dtype=torch.int64)
     via = trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d, stats=stats)
     for a, b in zip(via, h):
         assert torch.equal(a, b)
-    popped, leaf_tests, dropped = stats.tolist()
+    popped, leaf_tests, dropped, most, warp_most = stats.tolist()
     assert popped >= o.shape[0] and 0 < leaf_tests < popped and dropped == 0
+    assert popped / o.shape[0] <= most and popped <= 32 * warp_most
     hd = ch.trace(g, o, d)
     assert torch.equal(hd.t, h.t) and torch.equal(hd.tri, h.tri)
-    shallow = torch.zeros(3, dtype=torch.int64)
+    shallow = torch.zeros(5, dtype=torch.int64)
     hs = trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d, max_stack=4, stats=shallow)
     assert shallow[2] > 0 and shallow[0] < popped
     assert not (hs.hit & ~h.hit).any() and (hs.t >= h.t).all()
@@ -307,3 +308,205 @@ def test_tree_nodes_pack_for_the_kernel():
     soa = BVHNodes(*(x.contiguous() for x in nodes))
     with pytest.raises(ValueError, match="row layout"):
         tv._rows(soa)
+
+
+# --- the walk's counters and a model of the CUDA kernel's walk ---------------
+#
+# ``csrc/bvh_trace.cu`` runs only on the card, so its algorithm is modelled
+# here per ray in numpy float32, op for op (every product, sum and quotient
+# rounded on its own, dot products summed in index order): both children of
+# an accepted inner node tested at the node, the left one entered at once
+# when it passes with ``tmin <= best_t``, the right one pushed as (what the
+# walk needs of it, its entry distance) when ``tmax >= tmin`` and ``tmax >=
+# 0``, and ``tmin <= best_t`` checked again when it pops.  The model must
+# equal ``trace_bvh_plain`` bit for bit and in all five counts: the
+# evidence on the CPU that the kernel's order is plain's.
+
+F32 = np.float32
+_TINY, _MT_EPS, _MIN_HIT, _MAX_DIST = F32(1e-12), F32(1e-7), F32(1e-4), F32(1000.0)
+
+
+class _Ray:
+    """One ray and the tree, in numpy float32, with plain's arithmetic."""
+
+    def __init__(self, tree, o, d):
+        self.left, self.right, self.bmin, self.bmax, self.tri, self.v = tree
+        self.o, self.d = o, d
+        nudged = [d[k] if abs(d[k]) >= _TINY else (-_TINY if d[k] < 0 else _TINY)
+                  for k in range(3)]
+        self.inv = [F32(1.0) / x for x in nudged]
+
+    def slab(self, node):
+        """``ops/geometry.ray_aabb``: (tmin, tmax)."""
+        o, inv, lo, hi = self.o, self.inv, self.bmin[node], self.bmax[node]
+        tmin = tmax = None
+        for k in range(3):
+            t1, t2 = (lo[k] - o[k]) * inv[k], (hi[k] - o[k]) * inv[k]
+            near, far = min(t1, t2), max(t1, t2)
+            tmin = near if k == 0 else max(tmin, near)
+            tmax = far if k == 0 else min(tmax, far)
+        return tmin, tmax
+
+    def mt(self, tri):
+        """``ops/geometry.moller_trumbore``: (hit, t)."""
+        dot = lambda a, b: (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+        cross = lambda a, b: [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                              a[0] * b[1] - a[1] * b[0]]
+        a, b, c = self.v[tri]
+        e1, e2, s = [b[k] - a[k] for k in range(3)], [c[k] - a[k] for k in range(3)], \
+            [self.o[k] - a[k] for k in range(3)]
+        h = cross(self.d, e2)
+        det = dot(e1, h)
+        parallel = abs(det) < _MT_EPS
+        inv_det = F32(1.0) / (F32(1.0) if parallel else det)
+        u = inv_det * dot(s, h)
+        q = cross(s, e1)
+        v = inv_det * dot(self.d, q)
+        t = inv_det * dot(e2, q)
+        hit = (not parallel and u >= 0 and u <= 1 and v >= 0 and u + v <= 1 and t > _MT_EPS)
+        return hit, t
+
+    def keep(self, tri, best):
+        hit, t = self.mt(tri)
+        return (t, tri) if hit and t > _MIN_HIT and t < best[0] else best
+
+
+def _walk_plain(ray, max_stack=tv.MAX_STACK):
+    """The plain walk for one ray: (t, tri, popped, leaf tests, dropped)."""
+    best, stack, popped, leaves, dropped = (_MAX_DIST, 0), [0], 0, 0, 0
+    while stack:
+        node = stack.pop()
+        popped += 1
+        tmin, tmax = ray.slab(node)
+        if not (tmax >= tmin and tmax >= 0 and tmin <= best[0]):
+            continue
+        if ray.tri[node] >= 0:
+            leaves += 1
+            best = ray.keep(int(ray.tri[node]), best)
+            continue
+        for child in (ray.right[node], ray.left[node]):
+            if len(stack) < max_stack:
+                stack.append(int(child))
+            else:
+                dropped += 1
+    return best[0], best[1], popped, leaves, dropped
+
+
+def _walk_kernel(ray, max_stack=tv.MAX_STACK):
+    """``csrc/bvh_trace.cu``'s walk for one ray: (t, tri, popped, leaf
+    tests, dropped).  A node is held as the kernel holds it once accepted:
+    ``(left, right)`` for an inner node, ``(left < 0, its own index)`` for
+    a leaf, whose ``tri`` is read when it is tested."""
+    node_of = lambda n: (int(ray.left[n]), n if ray.left[n] < 0 else int(ray.right[n]))
+    best, stack, leaves, dropped = (_MAX_DIST, 0), [], 0, 0
+    tmin, tmax = ray.slab(0)
+    popped = 1
+    cur = node_of(0) if tmax >= tmin and tmax >= 0 and tmin <= best[0] else None
+    while cur is not None:
+        a, b = cur
+        cur = None
+        if a >= 0:  # both children at their parent
+            lmin, lmax = ray.slab(a)
+            rmin, rmax = ray.slab(b)
+            popped += 2
+            if rmax >= rmin and rmax >= 0:
+                if len(stack) < max_stack:
+                    stack.append((node_of(b), rmin))
+                else:
+                    dropped += 1
+            if lmax >= lmin and lmax >= 0 and lmin <= best[0]:
+                cur = node_of(a)
+                continue
+        else:
+            leaves += 1
+            best = ray.keep(int(ray.tri[b]), best)
+        while stack:
+            node, entry = stack.pop()
+            if entry <= best[0]:
+                cur = node
+                break
+    return best[0], best[1], popped, leaves, dropped
+
+
+def _per_ray(walk, g, o, d):
+    """``walk`` over every ray: t, tri (arrays) and the five counts as
+    ``trace_bvh_plain`` fills ``stats``."""
+    b = g.bvh
+    tree = (b.left.numpy(), b.right.numpy(), b.bmin.numpy(), b.bmax.numpy(), b.tri.numpy(),
+            _host(torch.stack([g.v0, g.v1, g.v2], dim=1)))
+    rows = [walk(_Ray(tree, oi, di)) for oi, di in zip(_host(o), _host(d))]
+    t = np.asarray([r[0] for r in rows], np.float32)
+    tri = np.asarray([r[1] for r in rows], np.int64)
+    pops = np.asarray([r[2] for r in rows], np.int64)
+    warps = np.pad(pops, (0, -pops.size % 32)).reshape(-1, 32).max(axis=1)
+    counts = [int(pops.sum()), sum(r[3] for r in rows), sum(r[4] for r in rows),
+              int(pops.max()), int(warps.sum())]
+    return t, tri, counts
+
+
+def _bounce_rays(g, o, d, n, seed):
+    """``n`` rays leaving random hits of ``(o, d)`` in random directions."""
+    h = trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d)
+    rng = np.random.default_rng(seed)
+    hits = np.nonzero(h.hit.numpy())[0]
+    pick = torch.as_tensor(rng.choice(hits, n))
+    bd = torch.nn.functional.normalize(
+        torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32)), dim=-1)
+    return (o[pick] + d[pick] * h.t[pick, None]).contiguous(), bd.contiguous()
+
+
+def _camera_and_bounce(name, n_bounce=576):
+    _, g, o, d, _, _ = _trace_case(name)
+    o, d = torch.as_tensor(o), torch.as_tensor(d)
+    bo, bd = _bounce_rays(g, o, d, n_bounce, seed=5)
+    return g, torch.cat([o, bo]), torch.cat([d, bd])
+
+
+WALK_RAYS = {  # name -> (tree-only pack, ray_o, ray_d)
+    "cornell_camera_bounce": lambda: _camera_and_bounce("cornell_camera"),
+    "cornell_shared_edges": lambda: (lambda g: (g, *tt.shared_edge_rays(g)))(
+        tt.make_cornell_scene(use_bvh=True, device="cpu")[0]),
+    "outdoor64_camera_bounce": lambda: _camera_and_bounce("outdoor64_camera"),
+    "outdoor64_grazing": lambda: (lambda g: (g, *tt.grazing_rays(g)))(
+        tt.make_outdoor_scene(n_cubes=64, use_bvh=True, device="cpu")[0]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(name):
+    g, o, d = WALK_RAYS[name]()
+    stats = torch.zeros(5, dtype=torch.int64)
+    h = trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d, stats=stats)
+    return g, o, d, h, stats.tolist()
+
+
+@pytest.mark.parametrize("name", ["cornell_camera_bounce", "outdoor64_camera_bounce"])
+def test_walk_counters_match_per_ray_counts(name):
+    """``stats[3]`` is the most nodes one ray popped and ``stats[4]`` the
+    sum over groups of 32 rays of each group's most, against a per-ray walk
+    in plain's order; ``stats[3]`` keeps the larger of what it held."""
+    g, o, d, h, counts = _walk_case(name)
+    t, tri, want = _per_ray(_walk_plain, g, o, d)
+    assert counts == want, (counts, want)
+    assert np.array_equal(t, h.t.numpy()) and np.array_equal(tri, h.tri.numpy())
+    popped, _, dropped, most, warp_most = counts
+    assert dropped == 0 and most > popped / o.shape[0]
+    assert popped <= 32 * warp_most and warp_most <= most * -(-o.shape[0] // 32)
+    held = torch.tensor([0, 0, 0, most + 7, 1], dtype=torch.int64)
+    trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d, stats=held)
+    assert held.tolist() == [popped, counts[1], 0, most + 7, warp_most + 1]
+
+
+@pytest.mark.parametrize("name", sorted(WALK_RAYS))
+def test_kernel_walk_model_equals_plain(name):
+    """The kernel's walk, modelled per ray, against ``trace_bvh_plain``:
+    ``t`` bit for bit, ``tri``, ``hit`` and the five counts equal, on
+    camera and bounce rays, rays through Cornell's shared edges (ties) and
+    rays grazing the outdoor ground."""
+    g, o, d, h, counts = _walk_case(name)
+    t, tri, got = _per_ray(_walk_kernel, g, o, d)
+    assert np.array_equal(t.view(np.int32), h.t.numpy().view(np.int32))
+    assert np.array_equal(tri, h.tri.numpy())
+    assert np.array_equal(t < _MAX_DIST, h.hit.numpy())
+    assert got == counts, (got, counts)
+    assert counts[2] == 0 and counts[1] > 0 and bool(h.hit.any())

@@ -18,7 +18,9 @@ and a stopped and resumed optimisation against an uninterrupted one; and
 the product surface: progressive chunks against one-shot renders, the
 CLI render's kernel launches, and ``--mesh 1,1`` joining ``nccl`` from
 ``torchrun``'s environment; and the tree: ``trace_bvh`` (kernel
-``bvh_trace``) against ``trace_bvh_plain`` on the card and on the CPU, the
+``bvh_trace``) against ``trace_bvh_plain`` on the card and on the CPU
+(its five counts too, two launches equal, and on rays through Cornell's
+shared edges and rays grazing the outdoor ground), the
 device LBVH build on the card against the host build, and a tree trace
 under ``set_sync_debug_mode("error")``.  They skip without a card.  This file imports no JAX, so on a machine without
 JAX run it without the suite's conftest:
@@ -700,30 +702,60 @@ def _tree_rays(g, cam, dev, seed, res=64, n_bounce=4096):
     return torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous()
 
 
-@pytest.mark.parametrize("role", sorted(TREES))
-def test_bvh_kernel_matches_plain(cuda, role):
+def _hold_bvh_kernel(g, o, d, card_plain=True):
     """``trace_bvh`` (one kernel launch) against ``trace_bvh_plain`` on the
-    card (phase 2's bounds; torch's own CUDA ops may contract a cross
-    product into an FMA) and on the CPU (the same arithmetic op for op:
-    equal), with its counts equal to the CPU walk's."""
-    g, _, _, c = TREES[role](cuda)
-    assert g.feats is None and tv._rows(g.bvh).device.type == "cuda"
-    o, d = _tree_rays(g, c, cuda, seed=3)
+    CPU (the same arithmetic op for op: ``t``, ``tri``, ``hit`` equal), its
+    five counts equal to the CPU walk's, a second launch bit-equal to the
+    first, and with ``card_plain`` against ``trace_bvh_plain`` on the card
+    at phase 2's bounds (torch's CUDA reductions need not add a dot
+    product's terms in index order)."""
     before = tv.LAUNCHES["bvh_trace"]
-    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    stats = torch.zeros(5, dtype=torch.int64, device=o.device)
     h = tv.trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d, stats=stats)
+    h2 = tv.trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d)
     torch.cuda.synchronize()
-    assert tv.LAUNCHES["bvh_trace"] == before + 1
+    assert tv.LAUNCHES["bvh_trace"] == before + 2
     assert h.tri.dtype == torch.int64 and h.hit.dtype == torch.bool
-    _agree(h.t, h.tri, h.hit, tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d))
+    if card_plain:
+        _agree(h.t, h.tri, h.hit, tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d))
     cpu = lambda x: x.cpu()
     gc = [cpu(x) for x in (g.v0, g.v1, g.v2)]
     nodes_c = tv.BVHNodes(*(cpu(x) for x in g.bvh))
-    stats_c = torch.zeros(3, dtype=torch.int64)
+    stats_c = torch.zeros(5, dtype=torch.int64)
     hc = tv.trace_bvh_plain(nodes_c, *gc, cpu(o), cpu(d), stats=stats_c)
     assert torch.equal(h.t.cpu(), hc.t) and torch.equal(h.tri.cpu(), hc.tri)
     assert torch.equal(h.hit.cpu(), hc.hit)
     assert torch.equal(stats.cpu(), stats_c) and int(stats_c[2]) == 0
+    for a, b in zip(h2, h):
+        assert torch.equal(a, b)
+    assert torch.equal(h2.t.view(torch.int32), h.t.view(torch.int32))
+
+
+@pytest.mark.parametrize("role", sorted(TREES))
+def test_bvh_kernel_matches_plain(cuda, role):
+    """Camera and bounce rays (see ``_hold_bvh_kernel``)."""
+    g, _, _, c = TREES[role](cuda)
+    assert g.feats is None and tv._rows(g.bvh).device.type == "cuda"
+    o, d = _tree_rays(g, c, cuda, seed=3)
+    _hold_bvh_kernel(g, o, d)
+
+
+@pytest.mark.parametrize("rays", ["cornell_shared_edges", "outdoor_64_grazing"])
+def test_bvh_kernel_matches_plain_on_ties(cuda, rays):
+    """Rays through the edges that Cornell's triangles share (two triangles
+    at about the same ``t``: the first one found must stay) and rays
+    grazing the outdoor ground, held to the CPU walk as in
+    ``_hold_bvh_kernel``.  These rays are built to sit on knife edges, so
+    the card's own plain walk, whose sums may round in another order, is
+    no reference for them (it forks on ~4 % of the edge rays)."""
+    if rays == "cornell_shared_edges":
+        g = TREES["cornell"](cuda)[0]
+        o, d = tt.shared_edge_rays(g, n_origins=32, per_edge=8)
+    else:
+        g = TREES["outdoor_64"](cuda)[0]
+        o, d = tt.grazing_rays(g, n=8192)
+    assert o.device.type == "cuda"
+    _hold_bvh_kernel(g, o, d, card_plain=False)
 
 
 def test_bvh_device_build_on_card_equals_host(cuda):
