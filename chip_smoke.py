@@ -128,16 +128,10 @@ path (record, replay, train step, optimisation) and its command line
    popped, leaf tests, dropped pushes, the most nodes one ray popped, the
    sum over warps of each warp's most, whence the SIMT efficiency), two
    launches equal, times warm and with L2 flushed, ptxas registers, stack
-   frame and spills, the launch options of ``bvh_trace_launch_opts``; on
-   phase 10's 327,680 rays against ``pairs.cu``; Cornell, outdoor_1300 and
+   frame and spills; on phase 10's 327,680 rays against ``pairs.cu``; Cornell, outdoor_1300 and
    outdoor_12500 loaded with ``use_bvh=True`` and rendered (``bvh_trace``
    once per trace, the time per launch inside the profiled render); replay
    gradients on a tree-only Cornell, card against CPU.
-
-``--tree-only`` runs phases 1 and 13 alone.  ``--against DIR`` also builds
-``DIR/ensem3a_openclraytracer_tpu_torch/csrc/bvh_trace.cu`` (another
-checkout, such as a ``git archive`` of an earlier commit) and times it in
-turns with this checkout's walk on phase 13's rays, bit-equal.
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -1969,11 +1963,6 @@ TREE_RAYS = 65536  # the bounce rays of role_rays that the kernel and its plain 
 FLOPS_PER_NODE = 25
 FLOPS_PER_LEAF_TEST = 60
 TREE_FLUSH_BYTES = 64 << 20  # written between launches to flush the 50 MB L2
-# bvh_trace_launch_opts's options: (threads per block, stack in shared memory,
-# the stack's newest entry in registers); trace_bvh launches (128, 0, 0)
-TREE_OPTIONS = ((32, 0, 0), (64, 0, 0), (128, 0, 0), (128, 1, 0), (32, 0, 1), (128, 0, 1))
-TREE_SMEM_DEPTH = 16  # csrc/bvh_trace.cu SMEM_DEPTH
-TREE_KERNEL = "bvh_trace_kernelILi128ELi0ELb0E"  # the instantiation that trace_bvh launches
 TREE_GRAD = dict(name="cornell_tree", seed=13, sun=False)
 
 
@@ -2106,94 +2095,7 @@ def bit_equal(label: str, h, ref) -> tuple:
     return differ, t_bits
 
 
-def walk_fn(name: str = "bvh_trace_launch", source: Path | None = None):
-    """A C entry point of ``csrc/bvh_trace.cu`` typed for ctypes: this
-    checkout's (built by ``_build``), or ``source`` built with the same
-    nvcc flags into ``build/`` (another checkout's walk, compared with
-    this one in the same run)."""
-    import ctypes
-
-    from ensem3a_openclraytracer_tpu_torch import _build
-    from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
-
-    if source is None:
-        lib = _build.load("bvh_trace")
-    else:
-        out = _build.BUILD_DIR / "other_bvh_trace.so"
-        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(source)],
-                             capture_output=True, text=True)
-        check(res.returncode == 0, f"nvcc failed on {source}: {res.stdout}{res.stderr}")
-        lib = ctypes.CDLL(str(out))
-    fn = getattr(lib, name)
-    fn.argtypes = tv._KERNEL_ARGTYPES + ([ctypes.c_int] * 3 if name.endswith("_opts") else [])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def launch_walk(fn, g, o, d, *opts):
-    """One launch of the walk ``fn`` (``walk_fn``) through the tree of the
-    pack ``g``, with ``trace_bvh``'s arguments and no stats: its Hit."""
-    import torch
-
-    from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
-    from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
-
-    n = o.shape[0]
-    out = Hit(t=torch.empty(n, dtype=torch.float32, device=o.device),
-              tri=torch.empty(n, dtype=torch.int64, device=o.device),
-              hit=torch.empty(n, dtype=torch.bool, device=o.device))
-    err = fn(o.data_ptr(), d.data_ptr(), n, tv._rows(g.bvh).data_ptr(), g.bvh.tri.data_ptr(),
-             g.bvh.tri.shape[0], g.v0.data_ptr(), g.v1.data_ptr(), g.v2.data_ptr(),
-             g.v0.shape[0], *(x.data_ptr() for x in out), None,
-             torch.cuda.current_stream().cuda_stream, *opts)
-    check(err == 0, f"bvh_trace launch {opts} failed: CUDA error {err}")
-    return out
-
-
-def tree_options(label: str, g, o, d, h, iters: int, logs: dict, smi: str) -> dict:
-    """The launch options of the walk (``bvh_trace_launch_opts``,
-    ``TREE_OPTIONS``): blocks of 32, 64 and 128 threads, the stack's first
-    ``TREE_SMEM_DEPTH`` entries in shared memory, its newest entry in
-    registers; each bit-equal to ``trace_bvh``'s hits ``h``, timed warm,
-    with its ptxas report."""
-    fn = walk_fn("bvh_trace_launch_opts")
-    out = {}
-    for threads, smem, top in TREE_OPTIONS:
-        key = (f"threads_{threads}" + ("_smem_stack" if smem else "")
-               + ("_top_in_registers" if top else ""))
-        run = lambda: launch_walk(fn, g, o, d, threads, smem, top)
-        bit_equal(f"{label} option {key}", run(), h)
-        ms = tree_ms(run, iters)
-        regs = ptxas(logs["bvh_trace"], f"bvh_trace_kernelILi{threads}ELi"
-                     f"{TREE_SMEM_DEPTH if smem else 0}ELb{top}E")
-        out[key] = dict(ms=ms, ptxas=regs)
-    log(f"{label} {o.shape[0]} rays, launch options (warm ms, each bit-equal to trace_bvh): "
-        + "; ".join(f"{k} {v['ms']:.4f} ({v['ptxas']})" for k, v in out.items()) + f" [{smi}]")
-    return out
-
-
-def against_other(label: str, other, g, o, d, h, iters: int, smi: str) -> dict:
-    """Another checkout's walk (``walk_fn(source=...)``) on the same rays:
-    bit-equal to this one's hits ``h``, and both timed in turns (other,
-    this, this, other), warm and with L2 flushed; means of the two turns."""
-    this = walk_fn()
-    bit_equal(f"{label} the other checkout's bvh_trace", launch_walk(other, g, o, d), h)
-    times = {"other_ms": [], "ms": [], "other_flushed_ms": [], "flushed_ms": []}
-    for who, fn in (("other_", other), ("", this), ("", this), ("other_", other)):
-        times[who + "ms"].append(tree_ms(lambda: launch_walk(fn, g, o, d), iters))
-        times[who + "flushed_ms"].append(tree_ms(lambda: launch_walk(fn, g, o, d), iters, True))
-    out = {k: sum(v) / len(v) for k, v in times.items()}
-    out.update(turns=times, speedup=out["other_ms"] / out["ms"],
-               flushed_speedup=out["other_flushed_ms"] / out["flushed_ms"])
-    log(f"{label} {o.shape[0]} rays against the other checkout's walk, in turns "
-        f"{[round(x, 4) for x in times['other_ms']]} / {[round(x, 4) for x in times['ms']]} ms "
-        f"warm: other {out['other_ms']:.4f}, this {out['ms']:.4f} ms ({out['speedup']:.2f}x); L2 "
-        f"flushed other {out['other_flushed_ms']:.4f}, this {out['flushed_ms']:.4f} ms "
-        f"({out['flushed_speedup']:.2f}x) [{smi}]")
-    return out
-
-
-def phase_tree_trace(role, dev, smi: str, logs: dict, other=None) -> dict:
+def phase_tree_trace(role, dev, smi: str, logs: dict) -> dict:
     """13.2-13.3 on one scene: ``trace_bvh`` (kernel ``bvh_trace``) against
     ``trace_bvh_plain`` on the card on the last ``plain_rays`` of phase 10's
     ray set (outdoor: its 65,536 bounce rays; Cornell: 262,144 rays, the
@@ -2243,7 +2145,7 @@ def phase_tree_trace(role, dev, smi: str, logs: dict, other=None) -> dict:
     bound_ms, bound_by = bound(walk_flops(walk["nodes_popped"], walk["leaf_tests"]), nbytes(k))
     needed = needed_pairs(feats, o, d, hp.t)
     pairs_work_ms = bound(needed * FLOPS_PER_PAIR, nbytes(k))[0]
-    regs = ptxas(logs["bvh_trace"], TREE_KERNEL)
+    regs = ptxas(logs["bvh_trace"], "bvh_trace_kernel")
     log(f"{label} ({t} tris, {m} nodes) {k} rays: rays differing from plain {differ}, t bits "
         f"differing {t_bits}, two launches equal; counts {stats.tolist()} equal to plain's; "
         f"bvh_trace {ms:.4f} ms warm, {flushed_ms:.4f} ms with L2 flushed (ptxas {regs}), "
@@ -2261,10 +2163,7 @@ def phase_tree_trace(role, dev, smi: str, logs: dict, other=None) -> dict:
         pairs_work_bound_ms=pairs_work_ms, library_ms=None, rays_differing_from_plain=differ,
         t_bits_differing=t_bits, two_launches_equal=True, nodes=m, tris=t, **walk,
         needed_pairs=needed, tri_fork_fraction=forks[0], hit_fork_fraction=forks[1], ptxas=regs,
-        options=tree_options(label, g, o, d, h, role["iters"], logs, smi),
     )
-    if other is not None:
-        line["against_other"] = against_other(label, other, g, o, d, h, role["iters"], smi)
     if nb < 2:
         return line
 
@@ -2304,21 +2203,15 @@ def phase_tree_trace(role, dev, smi: str, logs: dict, other=None) -> dict:
         hit_forks_vs_pairs=vs_pairs[1], max_abs_dt_vs_pairs=vs_pairs[2],
         rays_held_to_float64_t=vs_pairs[3],
     )
-    if other is not None:
-        line["against_other_on_pairs_rays"] = against_other(label, other, g, o_all, d_all, ha,
-                                                            role["iters"], smi)
     return line
 
 
-def phase_tree_render(scn, dev, workdir: Path, smi: str, other=None) -> dict:
+def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
     """13.4 on one scene: its written files loaded with ``Scene.load(...,
     use_bvh=True)`` and rendered with ``render_scene`` at the ini settings
     (the scan estimator: the pack has no features), the launch counts set
     to 0 just before and read just after; the image against the features
-    pack's scan render (same seed and stream); one more render profiled.
-    With ``other`` (another checkout's walk, ``walk_fn``), that render is
-    profiled again with ``trace_bvh`` launching ``other``, then once more
-    with this walk."""
+    pack's scan render (same seed and stream); one more render profiled."""
     import dataclasses
 
     import torch
@@ -2363,34 +2256,14 @@ def phase_tree_render(scn, dev, workdir: Path, smi: str, other=None) -> dict:
                 engine="scan", seconds=dt, mrays_per_s=rays / dt / 1e6, launches=launches,
                 load_s=load_s, features_scan_seconds=dt_f, pixel_forks=frac, median_diff=med)
     info.update(phase_profile(scene, f"{scn['name']}_tree", {}, phase="13"))
-    if other is not None:
-        from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
-
-        own = tv._launcher
-        tv._launcher = lambda: other
-        try:
-            prof = phase_profile(scene, f"{scn['name']}_tree, the other walk", {}, phase="13")
-        finally:
-            tv._launcher = own
-        per_launch = lambda p: (p["bvh_trace_ms"] / traces if "bvh_trace_ms" in p
-                                else "not measured")
-        info["other_in_render_ms"] = per_launch(prof)
-        prof = phase_profile(scene, f"{scn['name']}_tree, this walk again", {}, phase="13")
-        info["in_render_ms_again"] = per_launch(prof)
     return info
 
 
-def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor, against=None) -> tuple:
+def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor) -> tuple:
     """Phase 13: the build, the kernel against its plain version and against
     ``pairs.cu``, the tree renders through the entry point, and one replay
-    gradient on a tree, card against CPU.  ``against``: another checkout,
-    whose ``bvh_trace.cu`` is timed in turns with this one's."""
+    gradient on a tree, card against CPU."""
     from ensem3a_openclraytracer_tpu_torch import testing as tt
-
-    other = None
-    if against is not None:
-        other = walk_fn(source=Path(against) / "ensem3a_openclraytracer_tpu_torch" / "csrc"
-                        / "bvh_trace.cu")
 
     build = phase_tree_build(dev, smi)
     tree = lambda cubes: lambda d: tt.make_outdoor_scene(n_cubes=cubes, use_bvh=True, device=d)[0]
@@ -2401,7 +2274,7 @@ def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor, against=None) 
                   iters=10),
              dict(name="outdoor_12500", make=outdoor(12500), tree=tree(12500),
                   plain_rays=TREE_RAYS, iters=5)]
-    lines = [phase_tree_trace(r, dev, smi, logs, other) for r in roles]
+    lines = [phase_tree_trace(r, dev, smi, logs) for r in roles]
     scenes = [
         dict(name="cornell", make=lambda d: tt.make_cornell_scene(device=d),
              render=(512, MAIN_SPP, 4)),
@@ -2410,7 +2283,7 @@ def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor, against=None) 
         dict(name="outdoor_12500", make=lambda d: tt.make_outdoor_scene(n_cubes=12500, device=d),
              render=(256, 16, 4)),
     ]
-    renders = {s["name"]: phase_tree_render(s, dev, workdir, smi, other) for s in scenes}
+    renders = {s["name"]: phase_tree_render(s, dev, workdir, smi) for s in scenes}
     for line, r in zip(lines, roles):
         render = renders[r["name"]]
         line["launches"] = render["launches"]["bvh_trace"]
@@ -2419,12 +2292,6 @@ def phase_tree(dev, smi: str, logs: dict, workdir: Path, outdoor, against=None) 
         line["in_render_ms"] = (render["bvh_trace_ms"] / line["launches"]
                                 if "bvh_trace_ms" in render else "not measured")
         line["in_render_rays"] = render["res"] ** 2
-        if other is not None:  # the other walk in the same render, then this one again
-            line.update(other_in_render_ms=render["other_in_render_ms"],
-                        in_render_ms_again=render["in_render_ms_again"])
-            log(f"[phase 13] {r['name']}: in the profiled tree render, the other walk "
-                f"{line['other_in_render_ms']} ms per launch, this one {line['in_render_ms']} "
-                f"then {line['in_render_ms_again']} ms [{smi}]")
         log(f"[phase 13] {r['name']}: bvh_trace in the profiled tree render "
             f"{line['in_render_ms']} ms per launch ({line['launches']} launches of "
             f"{line['in_render_rays']} rays); alone {line['ms']:.4f} ms warm, "
@@ -2552,7 +2419,7 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
                      "product": product}
 
 
-def main(argv) -> int:
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2580,18 +2447,12 @@ def main(argv) -> int:
         for line in text.strip().splitlines():
             log(f"[phase 1] nvcc {name}: {line}")
 
-    # --against DIR: phase 13 also times DIR's csrc/bvh_trace.cu (another
-    # checkout, e.g. a `git archive` of the parent commit) in turns with this one
-    against = argv[argv.index("--against") + 1] if "--against" in argv else None
-    if "--tree-only" in argv:  # phase 1 and phase 13 alone
-        kernels, summary = [], {}
-    else:
-        kernels, summary = phases_2_to_12(dev, smi, logs)
+    kernels, summary = phases_2_to_12(dev, smi, logs)
     outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
 
     t13 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        tree_lines, tree = phase_tree(dev, smi, logs, Path(tmp), outdoor, against)
+        tree_lines, tree = phase_tree(dev, smi, logs, Path(tmp), outdoor)
     kernels += tree_lines
     log(f"[phase 13] wall {time.perf_counter() - t13:.1f} s")
 
@@ -2607,7 +2468,7 @@ def main(argv) -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main(sys.argv[1:]))
+        sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

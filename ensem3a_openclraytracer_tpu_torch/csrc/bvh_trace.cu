@@ -28,11 +28,11 @@
 //
 // What bounds it on an H100: the latency of the longest walks, not the FP32
 // rate (25 operations per slab test, 60 per triangle test) nor the bytes
-// (the walk's own work bounds it at 0.0015-0.0085 ms).  Measured on the PR 9
-// walk, which popped one node per step (PERF.md, PR 10, step 0; H100 SXM,
-// 700 W): five times the rays cost 1.22x the time; at 65,536 bounce rays
-// on a 300,003-node tree one ray pops 729 nodes, 9.7x the mean, the SIMT
-// efficiency is 0.41, and the launch (512 blocks, ~15.5 warps per SM) ends
+// (the walk's own work bounds it at 0.0015-0.0085 ms).  Measured on the
+// walk this one replaced, which popped one node per step (PERF.md, step 0
+// of the tree walk's redesign; H100 SXM, 700 W): five times the rays cost
+// 1.22x the time; at 65,536 bounce rays on a 300,003-node tree one ray
+// pops 729 nodes, 9.7x the mean, the SIMT efficiency is 0.41, and the launch (512 blocks, ~15.5 warps per SM) ends
 // with its longest warp, ~0.29 us per popped node; flushing L2 between
 // launches costs 1.06-1.14x.  Each of its steps was a chain of dependent
 // latencies (a local-memory pop, the node's 32-byte row from L2, the slab
@@ -44,17 +44,24 @@
 // and nothing changes best_t in between, so its full test (tmax >= tmin,
 // tmax >= 0, tmin <= best_t) is plain's, and the walk descends into it with
 // no stack round trip.  The right child's first two conditions do not
-// depend on best_t: when they pass it is pushed as one 16-byte entry, its
-// links and its entry distance, and its pop makes plain's last test, tmin
-// <= best_t with the best_t of that moment, with no row load.  A leaf's tri
-// is read only when the leaf is accepted (reading it with every child's row
-// cost more than the dependent load it saved), then its vertices.  Each
-// slab test counts as one node popped: the root, plus both children of
-// each accepted inner node, which is plain's count.  The dependent row
-// loads on a walk's chain drop from one per popped node to one per
-// accepted inner node.  On the card it takes 0.84-0.98x the PR 9 walk's
-// time on the outdoor trees and 1.05-1.15x on Cornell's 71-node tree
-// (PERF.md, PR 10): most of a step was not the row's latency.
+// depend on best_t: when they pass it is pushed with its entry distance,
+// and its pop makes plain's last test, tmin <= best_t with the best_t of
+// that moment, with no row load.  A leaf's tri is read only when the leaf
+// is accepted, then its vertices.  Each slab test counts as one node
+// popped: the root, plus both children of each accepted inner node, which
+// is plain's count.  The dependent row loads on a walk's chain drop from
+// one per popped node to one per accepted inner node.
+// The stack is two arrays in local memory, 12 bytes an entry: the entry
+// distances, which every pop reads, and the links, read only when the
+// entry passes.  A 262,144-ray Cornell launch is one wave at full
+// occupancy, where fewer bytes per entry pay (more of the stack's lines
+// fit in L1, and a pop that fails reads 4 bytes; which counts is not
+// measured): inside Cornell's tree render, one 16-byte entry (links and
+// distance) took 1.11x the time of the one-node-per-step walk (4-byte
+// entries), 12 bytes in two arrays 0.99x.  Against that walk in one call
+// (PERF.md; H100 SXM, 700 W) this one is 1.20-1.34x as fast on the
+// outdoor trees alone, 1.26-1.35x inside their renders, 1.09x on Cornell
+// alone (262,144 rays) and 1.01x inside its render.
 // Where plain drops no push (every tree of accel: depth <= 63), t, tri, hit
 // and the counts are plain's; a push past MAX_STACK is still dropped and
 // counted.
@@ -69,18 +76,13 @@
 // left < 0, as every leaf of an LBVH has); the triangles' vertices come
 // from v0/v1/v2 ([T, 3] f32).  BVHNodes' fields view the rows, so the
 // tree is held once.
-// bvh_trace_launch_opts runs the same walk with other launch options, for
-// chip_smoke.py's comparison of them (none paid; PERF.md, PR 10): 32 or 64
-// threads per block, the stack's first entries in shared memory, its
-// newest entry in registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;    // the block size of bvh_trace_launch
-constexpr int MAX_STACK = 64;   // ops/traversal.MAX_STACK
-constexpr int SMEM_DEPTH = 16;  // stack entries in shared memory, when asked
+constexpr int THREADS = 128;
+constexpr int MAX_STACK = 64;  // ops/traversal.MAX_STACK
 constexpr float MAX_DIST = 1000.0f;
 constexpr float MIN_HIT_DIST = 1e-4f;
 constexpr float MT_EPSILON = 1e-7f;
@@ -150,56 +152,14 @@ __device__ __forceinline__ Box test(const float4 lo, const float4 hi, int n, con
   return x;
 }
 
-// The deferred right children, one 16-byte entry each (a, b, tmin's bits):
-// with TOP, the newest entry in registers (a right child that pops before
-// anything else is pushed never reaches memory); below it, the first
-// SMEM_ENTRIES of a thread's stack in shared memory ([entry][thread]), the
-// rest in local memory.
-template <int BLOCK, int SMEM_ENTRIES, bool TOP>
-struct Stack {
-  int4 local[MAX_STACK - SMEM_ENTRIES];
-  int4* shared;
-  int4 top;
-  int sp = 0;
-  bool has_top = false;
-  __device__ __forceinline__ int size() const { return sp + (TOP && has_top ? 1 : 0); }
-  __device__ __forceinline__ void store(int i, const int4& e) {
-    if (SMEM_ENTRIES > 0 && i < SMEM_ENTRIES) shared[i * BLOCK] = e;
-    else local[i - SMEM_ENTRIES] = e;
-  }
-  __device__ __forceinline__ void push(const Box& x) {  // size() < MAX_STACK
-    const int4 e = make_int4(x.a, x.b, __float_as_int(x.tmin), 0);
-    if constexpr (TOP) {
-      if (has_top) store(sp++, top);
-      top = e;
-      has_top = true;
-    } else {
-      store(sp++, e);
-    }
-  }
-  __device__ __forceinline__ int4 pop() {  // size() > 0
-    if constexpr (TOP) {
-      if (has_top) {
-        has_top = false;
-        return top;
-      }
-    }
-    --sp;
-    if (SMEM_ENTRIES > 0 && sp < SMEM_ENTRIES) return shared[sp * BLOCK];
-    return local[sp - SMEM_ENTRIES];
-  }
-};
-
-template <int BLOCK, int SMEM_ENTRIES, bool TOP>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(THREADS)
 bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d, int n_rays,
                  const float4* __restrict__ rows, const int* __restrict__ node_tri,
                  const float* __restrict__ v0, const float* __restrict__ v1,
                  const float* __restrict__ v2, float* __restrict__ out_t,
                  long long* __restrict__ out_tri, bool* __restrict__ out_hit,
                  unsigned long long* __restrict__ stats) {
-  extern __shared__ int4 smem[];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const int i = blockIdx.x * THREADS + threadIdx.x;
   unsigned popped = 0, leaf_tests = 0, dropped = 0;
   if (i < n_rays) {
     float o[3], d[3], inv[3];
@@ -210,8 +170,11 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
       const float dk = fabsf(d[k]) < TINY ? (d[k] < 0.0f ? -TINY : TINY) : d[k];
       inv[k] = __frcp_rn(dk);
     }
-    Stack<BLOCK, SMEM_ENTRIES, TOP> stack;
-    stack.shared = smem + threadIdx.x;
+    // the deferred right children: each one's links, (left, right) or
+    // (left < 0, its own index) for a leaf, and its entry distance
+    int2 links[MAX_STACK];
+    float tmins[MAX_STACK];
+    int sp = 0;
     float best_t = MAX_DIST;
     int best_i = 0;
     Box cur = test(__ldg(rows), __ldg(rows + 1), 0, o, inv);  // the root, popped first
@@ -224,7 +187,12 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
         const Box l = test(la, lb, cur.a, o, inv), r = test(ra, rb, cur.b, o, inv);
         popped += 2;
         if (r.tmax >= r.tmin && r.tmax >= 0.0f) {  // deferred: tmin <= best_t at its pop
-          if (stack.size() < MAX_STACK) stack.push(r); else ++dropped;
+          if (sp < MAX_STACK) {
+            links[sp] = make_int2(r.a, r.b);
+            tmins[sp++] = r.tmin;
+          } else {
+            ++dropped;
+          }
         }
         if (l.tmax >= l.tmin && l.tmax >= 0.0f && l.tmin <= best_t) {  // pops next in plain
           cur = l;
@@ -240,9 +208,10 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
         }
       }
       accepted = false;  // pop the next right child that passes
-      while (stack.size() > 0) {
-        const int4 e = stack.pop();
-        if (__int_as_float(e.z) <= best_t) {
+      while (sp > 0) {
+        --sp;
+        if (tmins[sp] <= best_t) {
+          const int2 e = links[sp];
           cur.a = e.x;
           cur.b = e.y;
           accepted = true;
@@ -269,26 +238,6 @@ bvh_trace_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_
   }
 }
 
-template <int BLOCK, int SMEM_ENTRIES, bool TOP>
-cudaError_t launch(const float* ray_o, const float* ray_d, int n_rays, const float* rows,
-                   const int* tri, const float* v0, const float* v1, const float* v2,
-                   float* out_t, long long* out_tri, bool* out_hit, unsigned long long* stats,
-                   cudaStream_t stream) {
-  const int grid = (n_rays + BLOCK - 1) / BLOCK;
-  const size_t smem = sizeof(int4) * SMEM_ENTRIES * BLOCK;
-  bvh_trace_kernel<BLOCK, SMEM_ENTRIES, TOP><<<grid, BLOCK, smem, stream>>>(
-      ray_o, ray_d, n_rays, reinterpret_cast<const float4*>(rows), tri, v0, v1, v2, out_t,
-      out_tri, out_hit, stats);
-  return cudaGetLastError();
-}
-
-int check_args(int n_nodes, int n_tris, const float* rows) {
-  if (n_nodes <= 0 || n_tris <= 0 || n_nodes != (n_tris > 1 ? 2 * n_tris - 1 : 1))
-    return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(rows) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  return 0;
-}
-
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t passed as void*): n_rays rays
@@ -306,36 +255,12 @@ extern "C" int bvh_trace_launch(const float* ray_o, const float* ray_d, int n_ra
                                 long long* out_tri, bool* out_hit, unsigned long long* stats,
                                 void* stream) {
   if (n_rays <= 0) return 0;
-  if (int err = check_args(n_nodes, n_tris, rows)) return err;
-  return (int)launch<THREADS, 0, false>(ray_o, ray_d, n_rays, rows, tri, v0, v1, v2, out_t,
-                                        out_tri, out_hit, stats,
-                                        static_cast<cudaStream_t>(stream));
-}
-
-// The same walk with other launch options: `threads` per block, `smem_stack`
-// (0 or 1: the stack's first SMEM_DEPTH entries in shared memory) and `top`
-// (0 or 1: the stack's newest entry in registers), one of (32|64|128, 0, 0),
-// (128, 1, 0) and (32|128, 0, 1).  Returns cudaErrorInvalidValue for any
-// other.
-extern "C" int bvh_trace_launch_opts(const float* ray_o, const float* ray_d, int n_rays,
-                                     const float* rows, const int* tri, int n_nodes,
-                                     const float* v0, const float* v1, const float* v2,
-                                     int n_tris, float* out_t, long long* out_tri, bool* out_hit,
-                                     unsigned long long* stats, void* stream, int threads,
-                                     int smem_stack, int top) {
-  if (n_rays <= 0) return 0;
-  if (int err = check_args(n_nodes, n_tris, rows)) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BVH_OPTION(B, S, T)                                                                   \
-  if (threads == B && smem_stack == (S > 0) && top == T)                                      \
-    return (int)launch<B, S, T != 0>(ray_o, ray_d, n_rays, rows, tri, v0, v1, v2, out_t,    \
-                                     out_tri, out_hit, stats, s);
-  BVH_OPTION(32, 0, 0)
-  BVH_OPTION(64, 0, 0)
-  BVH_OPTION(128, 0, 0)
-  BVH_OPTION(128, SMEM_DEPTH, 0)
-  BVH_OPTION(32, 0, 1)
-  BVH_OPTION(128, 0, 1)
-#undef BVH_OPTION
-  return (int)cudaErrorInvalidValue;
+  if (n_nodes <= 0 || n_tris <= 0 || n_nodes != (n_tris > 1 ? 2 * n_tris - 1 : 1))
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(rows) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const int grid = (n_rays + THREADS - 1) / THREADS;
+  bvh_trace_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      ray_o, ray_d, n_rays, reinterpret_cast<const float4*>(rows), tri, v0, v1, v2, out_t,
+      out_tri, out_hit, stats);
+  return (int)cudaGetLastError();
 }

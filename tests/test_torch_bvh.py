@@ -392,11 +392,13 @@ def _walk_plain(ray, max_stack=tv.MAX_STACK):
     return best[0], best[1], popped, leaves, dropped
 
 
-def _walk_kernel(ray, max_stack=tv.MAX_STACK):
+def _walk_kernel(ray, max_stack=tv.MAX_STACK, near_first=False):
     """``csrc/bvh_trace.cu``'s walk for one ray: (t, tri, popped, leaf
     tests, dropped).  A node is held as the kernel holds it once accepted:
     ``(left, right)`` for an inner node, ``(left < 0, its own index)`` for
-    a leaf, whose ``tri`` is read when it is tested."""
+    a leaf, whose ``tri`` is read when it is tested.  ``near_first`` makes
+    the mutant that the kernel must not be: the child with the smaller
+    entry distance entered first, the other one deferred."""
     node_of = lambda n: (int(ray.left[n]), n if ray.left[n] < 0 else int(ray.right[n]))
     best, stack, leaves, dropped = (_MAX_DIST, 0), [], 0, 0
     tmin, tmax = ray.slab(0)
@@ -409,6 +411,8 @@ def _walk_kernel(ray, max_stack=tv.MAX_STACK):
             lmin, lmax = ray.slab(a)
             rmin, rmax = ray.slab(b)
             popped += 2
+            if near_first and rmin < lmin:
+                a, b, lmin, lmax, rmin, rmax = b, a, rmin, rmax, lmin, lmax
             if rmax >= rmin and rmax >= 0:
                 if len(stack) < max_stack:
                     stack.append((node_of(b), rmin))
@@ -510,3 +514,15 @@ def test_kernel_walk_model_equals_plain(name):
     assert np.array_equal(t < _MAX_DIST, h.hit.numpy())
     assert got == counts, (got, counts)
     assert counts[2] == 0 and counts[1] > 0 and bool(h.hit.any())
+
+
+@pytest.mark.parametrize("name", sorted(WALK_RAYS))
+def test_near_first_walk_model_differs_from_plain(name):
+    """The model's near-child-first mutant takes another triangle than
+    ``trace_bvh_plain`` on some rays of every set (a tie at equal ``t``
+    keeps the first found) and pops other counts: the model's order is
+    what ``test_kernel_walk_model_equals_plain`` holds to plain's."""
+    g, o, d, h, counts = _walk_case(name)
+    t, tri, got = _per_ray(functools.partial(_walk_kernel, near_first=True), g, o, d)
+    assert int((tri != h.tri.numpy()).sum()) > 0
+    assert got != counts
