@@ -64,10 +64,14 @@ path (record, replay, train step, optimisation) and its command line
    kernel ``grouped_pairs``) on outdoor_1300 (61 blocks) and outdoor_12500
    (586 blocks), 65,536 rays built as the prototypes build them: one trace
    with the launch counts set to 0 before it and read after it, the kernel
-   against its plain version and against ``trace_plain`` (phase 2's
-   bounds), then head to head with ``trace_blocks`` on the same rays: the
-   kernel alone, the whole trace (schedule included) and ``trace_blocks``
-   after ``coherent_order``, with the pairs tested per ray of each;
+   against its plain version (and the rays that differ in any bit; its
+   counts, pairs tested and stagings, equal) and against ``trace_plain``
+   (phase 2's bounds), two launches bit-equal, pairs tested within 1.25x
+   the pairs needed, its ptxas report and launch plan (grid, shared memory
+   per CUDA block, CUDA blocks per SM), then head to head with
+   ``trace_blocks`` on the same rays: the kernel alone, the schedule, the
+   whole trace and ``trace_blocks`` after ``coherent_order``, with the
+   pairs tested per ray of each, all timed with ``tree_ms``;
 9. the same for the pair-compaction prototype
    (``experiments/proto_compact.trace_compact``, kernel ``pair_compact``,
    one launch per round), with its rounds, live tiles per round and the
@@ -344,7 +348,7 @@ def phase_kernel_vs_plain(role, dev, logs: dict):
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     ch.trace_blocks(g.feats, o, d, stats=stats)
     pairs, stagings = (int(x) for x in stats.cpu())
-    ms = cuda_ms(lambda: ch.trace_blocks(g.feats, o, d), iters=role["iters"])
+    ms = tree_ms(lambda: ch.trace_blocks(g.feats, o, d), iters=role["iters"])
     plain_ms = cuda_ms(lambda: ch.trace_plain(g.feats, o, d), iters=2)
     tp = g.feats.edges.shape[-1]
     needed = needed_pairs(g.feats, o, d, ref.t)
@@ -892,7 +896,7 @@ def phase_stream_identity(roles, dev):
     torch.cuda.synchronize()
     equal = bool(torch.equal(k, p))
     max_err = float((k - p).abs().max())
-    ms = cuda_ms(lambda: rg.uniforms(key, (n,), 7), iters=20)
+    ms = tree_ms(lambda: rg.uniforms(key, (n,), 7), iters=20)
     plain_ms = cuda_ms(lambda: rg.uniforms_plain(key, (n,), 7), iters=2)
     bound_ms, bound_by = bound(n / 4 * INT_OPS_PER_PHILOX, 4 * n + 8, PEAK_INT32)
     log(f"[phase 6] uniforms: {n} values bit-equal to plain {equal}, kernel {ms:.4f} ms, plain "
@@ -1014,12 +1018,12 @@ def proto_inputs(scn, dev, smi: str) -> dict:
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     ch.trace_blocks(g.feats, o_s, d_s, stats=stats)
     pairs = int(stats[0])
-    blocks_ms = cuda_ms(lambda: ch.trace_blocks(g.feats, o_s, d_s), iters=scn["iters"])
-    trace_ms = cuda_ms(lambda: sorted_blocks_trace(g.feats, o, d), iters=scn["iters"])
+    blocks_ms = tree_ms(lambda: ch.trace_blocks(g.feats, o_s, d_s), iters=scn["iters"])
+    trace_ms = tree_ms(lambda: sorted_blocks_trace(g.feats, o, d), iters=scn["iters"])
     pstats = torch.zeros(4, dtype=torch.int64, device=dev)
     h = pp.trace_pairs(g.feats, o, d, stats=pstats)
     forks = hold(f"[phase 8] {scn['name']} trace_pairs vs trace_plain", h.t, h.tri, h.hit, ref)
-    pairs_ms = cuda_ms(lambda: pp.trace_pairs(g.feats, o, d), iters=scn["iters"])
+    pairs_ms = tree_ms(lambda: pp.trace_pairs(g.feats, o, d), iters=scn["iters"])
     p_pairs, p_stagings, p_rounds, _ = (int(x) for x in pstats.cpu())
     log(f"[phase 8] {scn['name']} ({g.feats.num_tris} tris, {nb} blocks, {PROTO_RAYS} rays as the "
         f"prototypes build them): trace_blocks kernel {blocks_ms:.4f} ms, sorted trace_blocks path "
@@ -1033,10 +1037,12 @@ def proto_inputs(scn, dev, smi: str) -> dict:
                 pairs_tri_fork_fraction=forks[0])
 
 
-def phase_grouped(scn, inp, dev, smi: str) -> dict:
+def phase_grouped(scn, inp, dev, smi: str, logs: dict) -> dict:
     """Phase 8 on one scene: the grouped-pair trace once as a user calls
     it (launch counts 0 before, read after), its kernel against its plain
-    version on the same schedule and against ``trace_plain``, then times."""
+    version on the same schedule (phase 2's bounds, the rays that differ in
+    any bit, the counts equal) and against ``trace_plain``, two launches
+    bit-equal, its launch plan and ptxas report, then times (``tree_ms``)."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.experiments import proto_grouped as pg
@@ -1051,35 +1057,53 @@ def phase_grouped(scn, inp, dev, smi: str) -> dict:
     check(launches["grouped_pairs"] == 1 and sum(launches.values()) == 1,
           f"{name}: trace_grouped launches {launches}, want grouped_pairs once")
     sched = pg.build_schedule(g.feats, o, d)
-    sorted_plain, plain_ms = timed_once(lambda: pg.grouped_pairs_plain(g.feats, sched))
-    forks = hold(f"[phase 8] {name} grouped kernel vs plain", t, tri, hit,
-                 ch.Hit(*pg.unsort(sched, *sorted_plain)))
+    plain_stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    sorted_plain, plain_ms = timed_once(lambda: pg.grouped_pairs_plain(g.feats, sched, plain_stats))
+    plain = ch.Hit(*pg.unsort(sched, *sorted_plain))
+    forks = hold(f"[phase 8] {name} grouped kernel vs plain", t, tri, hit, plain)
+    bits = int(((tri != plain.tri) | (hit != plain.hit)
+                | (t.view(torch.int32) != plain.t.view(torch.int32))).sum())
     hold(f"[phase 8] {name} grouped kernel vs trace_plain", t, tri, hit, inp["ref"])
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    pg.grouped_pairs(g.feats, sched, stats=stats)
+    first = pg.grouped_pairs(g.feats, sched, stats=stats)
+    second = pg.grouped_pairs(g.feats, sched)
+    check(torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+          and torch.equal(first[1], second[1]), f"{name}: two grouped_pairs launches differ")
+    check(stats.tolist() == plain_stats.tolist(),
+          f"{name}: kernel counts {stats.tolist()}, plain {plain_stats.tolist()}")
     pairs, stagings = (int(x) for x in stats.cpu())
-    ms = cuda_ms(lambda: pg.grouped_pairs(g.feats, sched), iters=scn["iters"])
-    schedule_ms = cuda_ms(lambda: pg.build_schedule(g.feats, o, d), iters=scn["iters"])
-    whole_ms = cuda_ms(lambda: pg.trace_grouped(g.feats, o, d), iters=scn["iters"])
+    needed = inp["needed_pairs"]
+    check(needed <= pairs <= 1.25 * needed,
+          f"{name}: {pairs} pairs tested, needed {needed}: not within 1.25x")
+    plan = pg.launch_plan(sched.rt, sched.offsets.numel() - 1)
+    regs = ptxas(logs["grouped_pairs"], "grouped_pairs_kernel")
+    ms = tree_ms(lambda: pg.grouped_pairs(g.feats, sched), iters=scn["iters"])
+    schedule_ms = tree_ms(lambda: pg.build_schedule(g.feats, o, d), iters=scn["iters"])
+    whole_ms = tree_ms(lambda: pg.trace_grouped(g.feats, o, d), iters=scn["iters"])
     tiles = sched.offsets.numel() - 1
-    flops = inp["needed_pairs"] * FLOPS_PER_PAIR  # the pairs the function needs, not those tested
+    flops = needed * FLOPS_PER_PAIR  # the pairs the function needs, not those tested
     nbytes = n * (24 + 8) + 4 * 25 * tp + 8 * int(sched_pairs) + 4 * (tiles + 1)
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"[phase 8] {name} grouped: kernel {ms:.4f} ms, schedule {schedule_ms:.4f} ms, whole "
-        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, sorted trace_blocks path "
+    log(f"[phase 8] {name} grouped: kernel {ms:.4f} ms (ptxas {regs}; grid {plan['grid']} CUDA "
+        f"blocks of {plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory each, "
+        f"{plan['blocks_per_sm']} per SM), schedule {schedule_ms:.4f} ms, whole trace "
+        f"{whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, sorted trace_blocks path "
         f"{inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: grouped "
-        f"{pairs / n:.1f}, trace_blocks {inp['blocks_pairs'] / n:.1f}, trace_pairs "
-        f"{inp['pairs_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; scheduled (tile, "
-        f"block) pairs {int(sched_pairs)} of {tiles * g.feats.block_bounds.shape[0]}, block stagings {stagings}; plain {plain_ms:.1f} "
-        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, {nbytes} bytes) [{smi}]")
+        f"{pairs / n:.1f} ({pairs / max(needed, 1):.4f} of needed), trace_blocks "
+        f"{inp['blocks_pairs'] / n:.1f}, trace_pairs {inp['pairs_pairs'] / n:.1f}, needed "
+        f"{needed / n:.1f}; scheduled (tile, block) pairs {int(sched_pairs)} of "
+        f"{tiles * g.feats.block_bounds.shape[0]}, block stagings {stagings} (counts equal to "
+        f"plain's); rays differing from plain in any bit {bits}; plain {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, {nbytes} bytes), "
+        f"{flops / ms / 1e9:.2f} TFLOP/s on the needed pairs [{smi}]")
     return dict(
         name=f"trace_grouped:{name}", route="cuda",
         source="ensem3a_openclraytracer_tpu_torch/csrc/grouped_pairs.cu",
         replaces="experiments/proto_grouped.py:49", launches=launches["grouped_pairs"],
         max_abs_err=forks[2], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, rays=n, pairs_tested=pairs, pairs_per_ray=pairs / n,
-        pairs_needed=inp["needed_pairs"], block_stagings=stagings,
-        scheduled_pairs=int(sched_pairs), schedule_ms=schedule_ms,
+        pairs_needed=needed, block_stagings=stagings, rays_differing_bits=bits,
+        scheduled_pairs=int(sched_pairs), schedule_ms=schedule_ms, plan=plan, ptxas=regs,
         trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"], sorted_blocks_trace_ms=inp["trace_ms"],
         trace_pairs_ms=inp["pairs_ms"], trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
         trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, tri_fork_fraction=forks[0],
@@ -1119,9 +1143,9 @@ def phase_compact(scn, inp, dev, smi: str) -> dict:
     for q in queues:
         pc.pair_compact(g.feats, o, d, q, stats=stats, out=buf)
     pairs, stagings = (int(x) for x in stats.cpu())
-    kernels_ms = cuda_ms(lambda: [pc.pair_compact(g.feats, o, d, q, out=buf) for q in queues],
+    kernels_ms = tree_ms(lambda: [pc.pair_compact(g.feats, o, d, q, out=buf) for q in queues],
                          iters=scn["iters"])
-    whole_ms = cuda_ms(lambda: pc.trace_compact(g.feats, o, d), iters=scn["iters"])
+    whole_ms = tree_ms(lambda: pc.trace_compact(g.feats, o, d), iters=scn["iters"])
     live = [int(q.tile_live.sum()) for q in queues]
     pieces = pc.profile(g.feats, o, d, runs=3)
     slots, tiles = buf.numel(), queues[0].tile_blk.numel()
@@ -2391,7 +2415,7 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
     ]
     t8 = time.perf_counter()
     inputs = [proto_inputs(scn, dev, smi) for scn in proto_scenes]
-    kernels += [phase_grouped(scn, inp, dev, smi) for scn, inp in zip(proto_scenes, inputs)]
+    kernels += [phase_grouped(scn, inp, dev, smi, logs) for scn, inp in zip(proto_scenes, inputs)]
     t9 = time.perf_counter()
     log(f"[phase 8] wall {t9 - t8:.1f} s")
     kernels += [phase_compact(scn, inp, dev, smi) for scn, inp in zip(proto_scenes, inputs)]

@@ -6,24 +6,44 @@
 // triangle block that some ray of the tile may hit, front to back -- became a
 // flat (tile, block) pair list walked by a sequential grid, one split-bf16
 // matmul per pair, the best hit carried between grid steps as packed
-// (t | row) keys.  Here the same schedule (built by tensor ops in
-// experiments/proto_grouped.py build_schedule of the port) is walked by one
-// CUDA block per tile, since CUDA blocks run in no order: the block loops over
-// its tile's segment of the pair list, stages the pair's 25 x 256 feature
-// floats in shared memory (ch::stage_block), and every ray of the tile that
-// is still in the running tests them in exact f32 (ch::test_block; lexicographic
-// (t, tri), as ops/closest_hit.trace_plain).  A ray is in the running while its
-// best t is not below the pair's lod, the least entry distance of the tile's
-// rays into that block; the tile stops once no ray is (a block-wide
-// __syncthreads_and, the TPU's per-step `run` test).  lod only grows along a
-// tile's list and the entry is margined, so the stop is exact.
-// One thread per ray, RT threads per CUDA block (RT = the tile, 32..1024).
+// (t | row) keys.  The same schedule (built by tensor ops in
+// experiments/proto_grouped.py build_schedule of the port) is walked here by
+// SUB-ray sub-tiles: each tile of rt rays is cut into rt / sub CUDA blocks of
+// sub = min(SUB, the largest power of two dividing rt) threads, one per ray,
+// and each walks its tile's whole list.  Per pair:
+//   1. stop: once none of the sub-tile's rays has a best t at or beyond the
+//      pair's lod (the least entry distance of the tile's rays into its block;
+//      lod only grows along a list) the sub-tile is done (__syncthreads_and);
+//   2. cull: a ray takes part only if its own margined slab entry into the
+//      block (ch::block_entry) is <= its best t: a block it enters beyond its
+//      best t holds no nearer hit, so the result does not change;
+//   3. compaction: the rays that take part are listed in shared memory (warp
+//      ballots and a prefix over the warps; the warps' counts alternate
+//      between two halves by pair parity, so a pair that no ray takes part in
+//      ends at the stop barrier, with no list, test or further barrier);
+//   4. test: the A listed rays are paired (rays a and a + P, P = ceil(A / 2)),
+//      the block's triangles are cut into C = sub / P chunks, and the P x C
+//      (ray pair, chunk) items are spread over all threads, neighbouring
+//      threads on neighbouring pairs of one chunk, so a triangle's features
+//      are one broadcast read for the warp that feeds two pair tests; the
+//      pair test is ch::test_packed's, term for term;
+//   5. fold: each ray's best hit is a 64-bit key (float bits of t) << 32 | tri
+//      in shared memory, lowered with atomicMin by each item that improved it:
+//      exact whatever the order (lexicographic (t, tri); t > MIN_HIT_DIST > 0,
+//      so its bits order as unsigned integers).
+// The block's packed features (TriFeatures.packed: 256 triangles x 28 floats,
+// 28,672 contiguous bytes) arrive by a TMA bulk copy (cp.async.bulk, completion
+// on an mbarrier) into one of two shared buffers, issued by one thread for the
+// next pair while this pair is culled, compacted and tested.
 // What bounds it on an H100: FP32 operations, about 45 per (ray, triangle) pair
-// tested, at 67 TFLOP/s; rays, the pair list and the features (read once per
-// staging, from L2) are small beside them.  The design keeps the TPU
-// schedule as it was (no per-ray cull inside a tile; at RT = 1024 and 65,536
-// rays only 64 CUDA blocks, on fewer than half of the 132 SMs): it is the
-// prototype, ported to compare schedules, not tuned.
+// the closest hit needs, at 67 TFLOP/s; rays, the schedule and the features
+// (read once per staging, from L2) are small beside them.  What holds it
+// instead is instruction issue in the pair test (two rays per item halve the
+// shared-memory reads per test) and, on long lists, the cull and barriers of
+// pairs that few rays take part in.  The price of the design: a ray's state lives in shared memory,
+// about 68 KB per CUDA block (two feature buffers, the rays' features and
+// keys), so at most three CUDA blocks of 256 threads share an SM; a pair that
+// rays take part in costs three block barriers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,15 +52,64 @@
 namespace {
 
 constexpr int MAX_RT = 1024;
+constexpr int SUB = 256;                            // rays per sub-tile, at most
+constexpr int BUF4 = ch::TRI_TILE * ch::PACK4;      // float4s of one staged block
+constexpr int BUF_BYTES = BUF4 * 16;                // 28,672
 
-__global__ void __launch_bounds__(MAX_RT)
+// Dynamic shared memory of a CUDA block of `sub` threads: two feature
+// buffers, then per ray two float4s and a float of features, a key and a
+// list slot, then the mbarriers and two halves of the warps' counts.
+__host__ __device__ constexpr size_t smem_bytes(int sub) {
+  return 2 * BUF_BYTES + sub * (32 + 4 + 8 + 4) + 2 * 8 + 2 * (sub / 32) * 4;
+}
+
+__device__ __forceinline__ unsigned long long hit_key(float t, int tri) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | static_cast<unsigned>(tri);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// One thread: copy `bytes` of packed features from `src` into `dst`,
+// completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+
+__global__ void __launch_bounds__(SUB, 3)
 grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d, int n_rays,
-                     ch::Feats f, const int* __restrict__ offsets, const int* __restrict__ blk,
+                     int rt, const float4* __restrict__ packed, const float* __restrict__ bounds,
+                     int tile, const int* __restrict__ offsets, const int* __restrict__ blk,
                      const float* __restrict__ lod, float* __restrict__ out_t,
                      int* __restrict__ out_tri, unsigned long long* __restrict__ stats) {
-  __shared__ __align__(16) float feat[ch::FEAT_ROWS * ch::TRI_TILE];
+  extern __shared__ __align__(128) float4 smem[];
+  const int sub = blockDim.x;
+  float4* buf = smem;                          // [2][BUF4]
+  float4* q0 = smem + 2 * BUF4;                // [sub] r6[0..3] (r6[0..2] = d)
+  float4* q1 = q0 + sub;                       // [sub] r6[4..5], o[0..1]
+  float* oz = reinterpret_cast<float*>(q1 + sub);                              // [sub] o[2]
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(oz + sub);  // [sub]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(keys + sub);                     // [2]
+  int* list = reinterpret_cast<int*>(bar + 2);                                 // [sub]
+  int* wcnt = list + sub;                                                      // [2][sub / 32]
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = threadIdx.x, lane = r & 31, warp = r >> 5;
+  const long long i = static_cast<long long>(blockIdx.x) * sub + r;
   const bool active = i < n_rays;
   float o[3], d[3];
 #pragma unroll
@@ -48,58 +117,194 @@ grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ 
     o[k] = active ? ray_o[3 * i + k] : 0.0f;
     d[k] = active ? ray_d[3 * i + k] : (k == 2 ? 1.0f : 0.0f);
   }
-  const ch::Ray r = ch::make_ray(o, d);
-  float best_t = ch::MAX_DIST;
-  int best_i = 0;
-  unsigned long long pairs = 0, stagings = 0;
-
-  const int end = offsets[blockIdx.x + 1];
-  for (int s = offsets[blockIdx.x]; s < end; ++s) {
-    const float l = lod[s];
-    // every thread reaches this barrier, dead lanes included; it also keeps
-    // the previous block's features in use until every lane is done with them
-    if (__syncthreads_and(!active || best_t < l)) break;
-    const int j = blk[s];
-    ch::stage_block(f, j, feat);
-    ++stagings;
-    __syncthreads();
-    if (active && !(best_t < l)) {
-      pairs += f.tile;
-      ch::test_block(r, feat, j * f.tile, f.tile, best_t, best_i);
-    }
+  const ch::Ray ray = ch::make_ray(o, d);
+  q0[r] = make_float4(ray.r6[0], ray.r6[1], ray.r6[2], ray.r6[3]);
+  q1[r] = make_float4(ray.r6[4], ray.r6[5], ray.o[0], ray.o[1]);
+  oz[r] = ray.o[2];
+  keys[r] = hit_key(ch::MAX_DIST, 0);
+  if (r == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar + 1)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  const int g = blockIdx.x / (rt / sub);
+  const int first = offsets[g], len = offsets[g + 1] - first;
+  const uint32_t bytes = static_cast<uint32_t>(tile) * ch::PACK4 * 16;
+  if (r == 0 && len > 0) bulk_copy(buf, packed + static_cast<size_t>(blk[first]) * tile * ch::PACK4,
+                                   bytes, bar);
+
+  unsigned long long pairs = 0, stagings = 0;
+  int step = 0;
+  for (; step < len; ++step) {
+    const int s = first + step, j = blk[s];
+    const float best = __uint_as_float(static_cast<unsigned>(keys[r] >> 32));
+    const bool want = active && ch::block_entry(ray, bounds, j) <= best;
+    const unsigned ball = __ballot_sync(0xffffffffu, want);
+    int* cnt = wcnt + (step & 1) * (sub / 32);  // alternate halves: no barrier closes a step
+    if (lane == 0) cnt[warp] = __popc(ball);
+    // every thread reaches this barrier; it also ends the previous pair's
+    // reads of the buffer that the next copy overwrites
+    if (__syncthreads_and(!active || best < lod[s])) break;
+    if (r == 0) {
+      ++stagings;
+      if (step + 1 < len)
+        bulk_copy(buf + ((step + 1) & 1) * BUF4,
+                  packed + static_cast<size_t>(blk[s + 1]) * tile * ch::PACK4, bytes,
+                  bar + ((step + 1) & 1));
+    }
+    int base = 0, n_list = 0;
+    for (int w = 0; w < sub / 32; ++w) {
+      const int c = cnt[w];
+      base += w < warp ? c : 0;
+      n_list += c;
+    }
+    if (n_list == 0) {  // no ray tests this block: its copy must land before the buffer is reused
+      if (r == 0) wait_parity(smem_addr(bar + (step & 1)), (step >> 1) & 1);
+      continue;
+    }
+    if (want) {
+      list[base + __popc(ball & ((1u << lane) - 1u))] = r;
+      pairs += tile;
+    }
+    __syncthreads();
+    wait_parity(smem_addr(bar + (step & 1)), (step >> 1) & 1);
+
+    // (ray pair, chunk) items: rays a and a + P of the list (P = half the
+    // list, rounded up), C chunks of L triangles; at most one item per thread
+    const int npair = (n_list + 1) / 2;
+    const int chunks = max(1, sub / npair);
+    const int span = (tile + chunks - 1) / chunks;
+    if (r < npair * chunks) {
+      const int a = r % npair, lo = (r / npair) * span, hi = min(lo + span, tile);
+      const bool two = a + npair < n_list;
+      const int slot[2] = {list[a], two ? list[a + npair] : list[a]};
+      float r6[2][6], ro[2][3], best_t[2];
+      int best_i[2];
+      bool found[2] = {false, false};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float4 x0 = q0[slot[k]], x1 = q1[slot[k]];
+        const float v[9] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w, oz[slot[k]]};
+#pragma unroll
+        for (int m = 0; m < 6; ++m) r6[k][m] = v[m];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) ro[k][m] = v[6 + m];
+        const unsigned long long key = keys[slot[k]];
+        best_t[k] = __uint_as_float(static_cast<unsigned>(key >> 32));
+        best_i[k] = static_cast<int>(key & 0xffffffffu);
+      }
+      const float4* f4 = buf + (step & 1) * BUF4;
+      const int base_tri = j * tile;
+      for (int c = lo; c < hi; ++c) {
+        float f[ch::FEAT_ROWS];
+#pragma unroll
+        for (int v = 0; v < 6; ++v) {
+          const float4 x = f4[ch::PACK4 * c + v];
+          f[4 * v] = x.x;
+          f[4 * v + 1] = x.y;
+          f[4 * v + 2] = x.z;
+          f[4 * v + 3] = x.w;
+        }
+        f[24] = reinterpret_cast<const float*>(f4 + ch::PACK4 * c + 6)[0];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float w[3];
+#pragma unroll
+          for (int e = 0; e < 3; ++e) {
+            float acc = f[6 * e] * r6[k][0];
+#pragma unroll
+            for (int m = 1; m < 6; ++m) acc = acc + f[6 * e + m] * r6[k][m];
+            w[e] = acc;
+          }
+          const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
+                              (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
+          const float den = f[22] * r6[k][0] + f[23] * r6[k][1] + f[24] * r6[k][2];
+          if (!inside || den == 0.0f) continue;
+          const float num = f[18] * ro[k][0] + f[19] * ro[k][1] + f[20] * ro[k][2] + f[21];
+          const float t = num / den;
+          const int gi = base_tri + c;
+          if (t > ch::MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && gi < best_i[k]))) {
+            best_t[k] = t;
+            best_i[k] = gi;
+            found[k] = true;
+          }
+        }
+      }
+      if (found[0]) atomicMin(&keys[slot[0]], hit_key(best_t[0], best_i[0]));
+      if (two && found[1]) atomicMin(&keys[slot[1]], hit_key(best_t[1], best_i[1]));
+    }
+    __syncthreads();
+  }
+  // a copy still in flight (the pair the sub-tile stopped at) must land
+  // before the CUDA block's shared memory is given back
+  if (r == 0 && step < len) wait_parity(smem_addr(bar + (step & 1)), (step >> 1) & 1);
 
   if (active) {
-    const bool hit = best_t < ch::MISS_T;
-    out_t[i] = hit ? best_t : ch::MAX_DIST;
-    out_tri[i] = hit ? best_i : 0;
+    const unsigned long long key = keys[r];
+    const float t = __uint_as_float(static_cast<unsigned>(key >> 32));
+    const bool hit = t < ch::MISS_T;
+    out_t[i] = hit ? t : ch::MAX_DIST;
+    out_tri[i] = hit ? static_cast<int>(key & 0xffffffffu) : 0;
   }
   if (stats != nullptr) {
     for (int off = 16; off > 0; off >>= 1) pairs += __shfl_down_sync(0xffffffffu, pairs, off);
-    if ((threadIdx.x & 31) == 0 && pairs) atomicAdd(&stats[0], pairs);
-    if (threadIdx.x == 0 && stagings) atomicAdd(&stats[1], stagings);
+    if (lane == 0 && pairs) atomicAdd(&stats[0], pairs);
+    if (r == 0 && stagings) atomicAdd(&stats[1], stagings);
   }
+}
+
+// Sub-tile width for tiles of rt rays: the largest power of two dividing rt,
+// at most SUB.
+int sub_width(int rt) { return (rt & -rt) < SUB ? (rt & -rt) : SUB; }
+
+// Lets the kernel take its dynamic shared memory (above the 48 KB default).
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(grouped_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(SUB));
 }
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t passed as void*): `tiles` CUDA blocks of
-// `rt` threads over rays [tiles * rt, 3] (only the first n_rays are read).
-// `offsets` [tiles + 1], `blk` and `lod` [offsets[tiles]...] are the schedule.
-// `stats` may be null, else it receives [pairs tested, block stagings]
-// (added).  Returns the cudaError_t of the launch (0 on success).
+// The launch geometry for tiles of `rt` rays: out = [CUDA blocks, threads
+// each, dynamic shared memory bytes each, CUDA blocks resident per SM (the
+// occupancy API)].  Returns the cudaError_t of the queries.
+extern "C" int grouped_pairs_plan(int rt, int tiles, int* out) {
+  if (rt < 32 || rt > MAX_RT || rt % 32 != 0 || tiles < 0) return (int)cudaErrorInvalidValue;
+  const int sub = sub_width(rt);
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  out[0] = tiles * (rt / sub);
+  out[1] = sub;
+  out[2] = (int)smem_bytes(sub);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], grouped_pairs_kernel, sub,
+                                                            smem_bytes(sub));
+}
+
+// Launch on `stream` (a cudaStream_t passed as void*): tiles * (rt / sub)
+// CUDA blocks of sub = min(SUB, the largest power of two dividing rt) threads
+// over rays [tiles * rt, 3] (only the first n_rays are read).  `packed`
+// [tp, 28] (TriFeatures.packed, 16-byte aligned), `bounds` [nb, 8];
+// `offsets` [tiles + 1], `blk` and `lod` [offsets[tiles]...] are the
+// schedule.  `stats` may be null, else it receives [pairs tested, block
+// stagings] (added).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int grouped_pairs_launch(const float* ray_o, const float* ray_d, int n_rays, int rt,
-                                    const float* edges, const float* plane, const float* normal_d,
-                                    const float* bounds, int tp, int tile, int nb,
-                                    const int* offsets, const int* blk, const float* lod,
+                                    const float* packed, const float* bounds, int tp, int tile,
+                                    int nb, const int* offsets, const int* blk, const float* lod,
                                     int tiles, float* out_t, int* out_tri,
                                     unsigned long long* stats, void* stream) {
   if (n_rays <= 0) return 0;
   if (rt < 32 || rt > MAX_RT || rt % 32 != 0 || (long long)tiles * rt < n_rays ||
-      tile <= 0 || tile > ch::TRI_TILE || nb <= 0 || tile * nb != tp)
+      tile <= 0 || tile > ch::TRI_TILE || nb <= 0 || tile * nb != tp ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const ch::Feats f{edges, plane, normal_d, bounds, tp, tile, nb, 1};
-  grouped_pairs_kernel<<<tiles, rt, 0, static_cast<cudaStream_t>(stream)>>>(
-      ray_o, ray_d, n_rays, f, offsets, blk, lod, out_t, out_tri, stats);
+  const int sub = sub_width(rt);
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  grouped_pairs_kernel<<<tiles * (rt / sub), sub, smem_bytes(sub),
+                         static_cast<cudaStream_t>(stream)>>>(
+      ray_o, ray_d, n_rays, rt, reinterpret_cast<const float4*>(packed), bounds, tile, offsets,
+      blk, lod, out_t, out_tri, stats);
   return (int)cudaGetLastError();
 }

@@ -6,9 +6,12 @@ schedule built by tensor ops (:func:`build_schedule`, the XLA work outside
 the TPU kernel) lists, per tile, every triangle block that the margined
 slab test of some ray of the tile passes, front to back, as a flat
 ``(tile, block)`` pair list.  The CUDA kernel ``csrc/grouped_pairs.cu``
-walks one tile's segment of that list per CUDA block, and stops a tile
-once every ray's best ``t`` is nearer than the next pair's entry distance.
-:func:`grouped_pairs_plain` is its plain version.
+cuts each tile into sub-tiles of :func:`sub_tile` rays, one CUDA block
+each, which walk their tile's segment of that list: a sub-tile stops once
+every ray's best ``t`` is nearer than the next pair's entry distance, and
+a ray tests a pair's block only if its own margined entry into the block
+is no farther than its best ``t``.  :func:`grouped_pairs_plain` is its
+plain version.
 
 The answer is exact f32 with the lexicographic ``(t, tri)`` tie rule, so
 it equals ``ops/closest_hit.trace_plain`` bit for bit on the CPU.
@@ -35,7 +38,8 @@ from ensem3a_openclraytracer_tpu_torch.experiments.common import MAX_RT, run_mai
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST
 
-RT = 1024  # rays per tile: one CUDA block of RT threads
+RT = 1024  # rays per tile of the schedule
+SUB = 256  # rays per sub-tile: one CUDA block of SUB threads (csrc/grouped_pairs.cu's SUB)
 
 # Launches of the CUDA kernel; only a launch on the card counts.
 LAUNCHES = {"grouped_pairs": 0}
@@ -99,41 +103,64 @@ def build_schedule(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tens
     )
 
 
+def sub_tile(rt: int) -> int:
+    """Rays per sub-tile, as ``grouped_pairs_launch`` picks them for tiles
+    of ``rt`` rays: the largest power of two that divides ``rt``, at most
+    :data:`SUB`."""
+    return min(SUB, rt & -rt)
+
+
 def grouped_pairs_plain(feats: ch.TriFeatures, sched: Schedule,
-                        stats: torch.Tensor | None = None):
+                        stats: torch.Tensor | None = None, sub: int | None = None):
     """The kernel's plain version: ``(t, tri)`` of the schedule's rays, in
-    its (sorted) order, ``[n]`` f32 and int32.  Step ``j`` takes the
-    ``j``-th pair of every tile that still runs: each ray whose best ``t``
-    is not yet below the pair's ``lod`` is tested against the pair's
-    block with ``ch.tri_t``, and keeps the lexicographic least ``(t,
-    tri)``.  A tile whose rays all have ``t < lod`` is done, since ``lod``
-    only grows along its list.  ``stats`` (int64 ``[2]``) receives the
-    (ray, triangle) pairs tested and the block stagings."""
+    its (sorted) order, ``[n]`` f32 and int32.  Each tile of ``rt`` rays is
+    cut into sub-tiles of ``sub`` rays (default :func:`sub_tile`), and each
+    sub-tile walks its tile's whole list.  Step ``j`` takes the ``j``-th
+    pair of every sub-tile that still runs; a sub-tile runs while one of
+    its rays has a best ``t`` not below the pair's ``lod`` (``lod`` only
+    grows along a list, so a sub-tile that stops is done).  Each ray of a
+    running sub-tile whose own margined entry into the pair's block
+    (``ch.block_entries``) is ``<=`` its best ``t`` tests the block with
+    ``ch.tri_t`` and keeps the lexicographic least ``(t, tri)``; a block
+    that its ray enters beyond its best ``t`` holds no nearer hit, so the
+    cull changes no result.  ``stats`` (int64 ``[2]``) receives the (ray,
+    triangle) pairs tested and the block stagings, one per step of each
+    running sub-tile."""
     n, rt = sched.n, sched.rt
+    sub = sub_tile(rt) if sub is None else sub
+    if sub <= 0 or rt % sub:
+        raise ValueError(f"sub-tiles of {sub} rays do not divide tiles of {rt}")
     dev = sched.o.device
     g = sched.offsets.numel() - 1
-    tp = feats.edges.shape[-1]
+    per = rt // sub
+    h = g * per  # sub-tiles
+    tp, nb = feats.edges.shape[-1], feats.block_bounds.shape[0]
     tile = min(ch.TRI_TILE, tp)
-    r6, q4, d = ch.ray_features(sched.o.view(g, rt, 3), sched.d.view(g, rt, 3))
-    live = (torch.arange(g * rt, device=dev) < n).view(g, rt)
-    best_t = torch.full((g, rt), MAX_DIST, dtype=torch.float32, device=dev)
-    best_i = torch.zeros((g, rt), dtype=torch.int64, device=dev)
-    start, counts = sched.offsets[:-1].long(), (sched.offsets[1:] - sched.offsets[:-1]).long()
+    entry = ch.block_entries(feats.block_bounds, sched.o, sched.d).view(h, sub, nb)
+    r6, q4, d = ch.ray_features(sched.o.view(h, sub, 3), sched.d.view(h, sub, 3))
+    live = (torch.arange(g * rt, device=dev) < n).view(h, sub)
+    best_t = torch.full((h, sub), MAX_DIST, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((h, sub), dtype=torch.int64, device=dev)
+    start = sched.offsets[:-1].long().repeat_interleave(per)
+    counts = (sched.offsets[1:] - sched.offsets[:-1]).long().repeat_interleave(per)
     cols = torch.arange(tile, device=dev)
     pairs = stagings = 0
     for j in range(int(counts.max()) if sched.lod.numel() else 0):
         s = start + torch.clamp(counts - 1, max=j)
         lod = sched.lod[s]
-        run = live & (j < counts)[:, None] & ~(best_t < lod[:, None])  # [G, rt]
+        run = live & (j < counts)[:, None] & ~(best_t < lod[:, None])  # [H, sub]
         act = torch.nonzero(run.any(dim=1)).squeeze(1)
         if act.numel() == 0:
             break
-        idx = sched.blk[s[act]].long()[:, None] * tile + cols  # [A, tile]
+        blk = sched.blk[s[act]].long()
+        bt, bi = best_t[act], best_i[act]
+        e = torch.gather(entry[act], 2, blk[:, None, None].expand(-1, sub, 1))[..., 0]
+        ra = live[act] & (e <= bt)  # [A, sub]: the rays that test the block
+        idx = blk[:, None] * tile + cols  # [A, tile]
         t = ch.tri_t(r6[act], q4[act], d[act], feats.edges[:, :, idx], feats.plane[:, idx],
-                     feats.normal_d[:, idx])  # [A, rt, tile]
+                     feats.normal_d[:, idx])  # [A, sub, tile]
         tmin, arg = torch.min(t, dim=2)
         tri = torch.gather(idx, 1, arg)
-        bt, bi, ra = best_t[act], best_i[act], run[act]
         better = ra & ((tmin < bt) | ((tmin == bt) & (tri < bi)))
         best_t[act] = torch.where(better, tmin, bt)
         best_i[act] = torch.where(better, tri, bi)
@@ -141,13 +168,13 @@ def grouped_pairs_plain(feats: ch.TriFeatures, sched: Schedule,
         stagings += act.numel()
     if stats is not None:
         stats += torch.tensor([pairs, stagings], dtype=torch.int64, device=stats.device)
-    h = ch._finish(best_t.view(-1)[:n], best_i.view(-1)[:n])
-    return h.t, h.tri.to(torch.int32)
+    res = ch._finish(best_t.view(-1)[:n], best_i.view(-1)[:n])
+    return res.t, res.tri.to(torch.int32)
 
 
 _KERNEL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # ray_o, ray_d, n, rt
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3  # edges, plane, normal_d, bounds; tp, tile, nb
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]  # offsets, blk, lod; tiles
     + [ctypes.c_void_p] * 4  # out_t, out_tri, stats, stream
 )
@@ -164,12 +191,28 @@ def _launcher():
     return fn
 
 
+def launch_plan(rt: int, tiles: int) -> dict:
+    """The kernel's launch for ``tiles`` tiles of ``rt`` rays, as the card
+    reports it: CUDA blocks, threads each, dynamic shared memory bytes each
+    and CUDA blocks resident per SM."""
+    from ensem3a_openclraytracer_tpu_torch import _build
+
+    fn = _build.load("grouped_pairs").grouped_pairs_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(rt, tiles, out)
+    if err != 0:
+        raise RuntimeError(f"grouped_pairs_plan failed: CUDA error {err}")
+    return dict(zip(("grid", "threads", "smem_bytes", "blocks_per_sm"), out))
+
+
 def grouped_pairs(feats: ch.TriFeatures, sched: Schedule, stats: torch.Tensor | None = None):
     """``(t, tri)`` of the schedule's rays (sorted order, ``[n]`` f32 and
-    int32) through the CUDA kernel ``csrc/grouped_pairs.cu`` for a
-    schedule on the card; a schedule on the CPU takes
-    :func:`grouped_pairs_plain`.  ``stats`` (int64 ``[2]``, optional)
-    receives the (ray, triangle) pairs tested and the block stagings."""
+    int32) through the CUDA kernel ``csrc/grouped_pairs.cu`` (sub-tiles of
+    :func:`sub_tile` rays; needs ``feats.packed``) for a schedule on the
+    card; a schedule on the CPU takes :func:`grouped_pairs_plain`.
+    ``stats`` (int64 ``[2]``, optional) receives the (ray, triangle) pairs
+    tested and the block stagings."""
     dev = sched.o.device
     if dev.type == "cpu":
         return grouped_pairs_plain(feats, sched, stats)
@@ -180,6 +223,7 @@ def grouped_pairs(feats: ch.TriFeatures, sched: Schedule, stats: torch.Tensor | 
     if rt % 32 or not 32 <= rt <= MAX_RT:
         raise ValueError(f"the kernel takes tiles of 32 to {MAX_RT} rays in steps of 32, not {rt}")
     tp, tile, nb = ch.check_features(feats, dev)
+    packed = ch.check_packed(feats, tp, dev)
     s_total = g * nb
     ch._check(sched.o, "o", (g * rt, 3), torch.float32, dev)
     ch._check(sched.d, "d", (g * rt, 3), torch.float32, dev)
@@ -196,8 +240,7 @@ def grouped_pairs(feats: ch.TriFeatures, sched: Schedule, stats: torch.Tensor | 
         return out_t.fill_(MAX_DIST), out_tri.zero_()
     err = _launcher()(
         sched.o.data_ptr(), sched.d.data_ptr(), n, rt,
-        feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
-        feats.block_bounds.data_ptr(), tp, tile, nb,
+        packed.data_ptr(), feats.block_bounds.data_ptr(), tp, tile, nb,
         sched.offsets.data_ptr(), sched.blk.data_ptr(), sched.lod.data_ptr(), g,
         out_t.data_ptr(), out_tri.data_ptr(), None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

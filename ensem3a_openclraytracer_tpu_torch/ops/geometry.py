@@ -23,6 +23,16 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+def dot_rn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`dot` as ``(a0*b0 + a1*b1) + a2*b2``, each product and sum
+    rounded on its own, as the port's CUDA kernels add a 3-vector on every
+    device: torch's CUDA ``sum`` need not add the three products in index
+    order, so on the card :func:`dot`'s bits can differ from the CPU's."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return (a0 * b0 + a1 * b1) + a2 * b2
+
+
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.where`` with a lane mask ``[N]`` broadcast over trailing axes."""
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
@@ -88,13 +98,14 @@ def rotate_euler_xyz_deg(v: torch.Tensor, angles_deg: torch.Tensor) -> torch.Ten
     return torch.einsum("ij,...j->...i", euler_xyz_matrix(angles_deg), v)
 
 
-def moller_trumbore(ray_o, ray_d, v0, v1, v2, eps: float = MT_EPSILON, cross=cross):
+def moller_trumbore(ray_o, ray_d, v0, v1, v2, eps: float = MT_EPSILON, cross=cross, dot=dot):
     """Batched Moller-Trumbore ray/triangle intersection.
 
     Returns ``(t, u, v, hit)``; ``t`` is ``MAX_DIST`` on a miss.  Front
     and back faces both hit, parallel rays (|det| < eps) miss, and only
-    ``t > eps`` counts (MathLib.cl:117-160).  ``cross``: :func:`cross`, or
-    :func:`cross_rn` where the bits must be a CUDA kernel's."""
+    ``t > eps`` counts (MathLib.cl:117-160).  ``cross`` and ``dot``:
+    :func:`cross` and :func:`dot`, or :func:`cross_rn` and :func:`dot_rn`
+    where the bits must be a CUDA kernel's on any device."""
     e1 = v1 - v0
     e2 = v2 - v0
     h = cross(ray_d, e2)

@@ -47,6 +47,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
     MAX_DIST,
     MIN_HIT_DIST,
     cross_rn,
+    dot_rn,
     moller_trumbore,
     ray_aabb,
 )
@@ -104,8 +105,9 @@ def trace_bvh_plain(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d, max_stack: int = 
     """Closest hit of ``[N]`` rays against the triangles ``v0/v1/v2 [T, 3]``
     through the tree: the JAX package's ``trace_bvh`` in tensor ops, one
     round per popped node, on whatever device the rays are on, its cross
-    products rounded op by op (``cross_rn``, as the kernel rounds them on
-    any build).  ``stats`` (int64 ``[5]``, optional) receives the nodes
+    and dot products rounded op by op (``cross_rn``, ``dot_rn``, as the
+    kernel rounds them), so its bits are the same on every device and
+    build.  ``stats`` (int64 ``[5]``, optional) receives the nodes
     popped, the leaf tests and the pushes dropped past ``max_stack``,
     added to what it holds;
     then the most nodes that one ray popped (the larger of that and what
@@ -137,7 +139,7 @@ def trace_bvh_plain(nodes: BVHNodes, v0, v1, v2, ray_o, ray_d, max_stack: int = 
 
         tsafe = torch.clamp(ti, min=0)
         t, _, _, mt_hit = moller_trumbore(ray_o, ray_d, v0[tsafe], v1[tsafe], v2[tsafe],
-                                          cross=cross_rn)
+                                          cross=cross_rn, dot=dot_rn)
         good = box_hit & is_leaf & mt_hit & (t > MIN_HIT_DIST) & (t < best_t)
         best_t = torch.where(good, t, best_t)
         best_i = torch.where(good, ti, best_i)

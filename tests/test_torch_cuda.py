@@ -7,7 +7,8 @@ its whole-render launch ``render_fused_resident`` against
 ``render_fused_plain`` and against one launch per sample), the Philox
 kernel (``uniforms`` against ``uniforms_plain``) and the two prototype
 closest-hit kernels
-(``trace_grouped`` and ``trace_compact`` against their plain versions),
+(``trace_grouped`` and ``trace_compact`` against their plain versions, the
+grouped kernel's counts too),
 the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
 ``trace_blocks`` and its plain version's counts) and the multi-block fused
 sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
@@ -20,7 +21,8 @@ CLI render's kernel launches, and ``--mesh 1,1`` joining ``nccl`` from
 ``torchrun``'s environment; and the tree: ``trace_bvh`` (kernel
 ``bvh_trace``) against ``trace_bvh_plain`` on the card and on the CPU
 (its five counts too, two launches equal, and on rays through Cornell's
-shared edges and rays grazing the outdoor ground), the
+shared edges and rays grazing the outdoor ground), the card's plain walk
+against the CPU's bit for bit on those rays, the
 device LBVH build on the card against the host build, and a tree trace
 under ``set_sync_debug_mode("error")``.  They skip without a card.  This file imports no JAX, so on a machine without
 JAX run it without the suite's conftest:
@@ -302,12 +304,17 @@ def test_grouped_kernel_matches_plain(cuda):
     t, tri, hit, pairs = pg.trace_grouped(g.feats, o, d, stats=stats)
     torch.cuda.synchronize()
     assert pg.LAUNCHES["grouped_pairs"] == before + 1
-    ref = pg.trace_grouped(g.feats, o, d, engine="plain")
+    plain_stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    ref = pg.trace_grouped(g.feats, o, d, engine="plain", stats=plain_stats)
     assert pg.LAUNCHES["grouped_pairs"] == before + 1
     assert int(pairs) == int(ref[3]) > 0
     _agree(t, tri, hit, ch.Hit(*ref[:3]))
     _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
     assert 0 < int(stats[0]) <= 8192 * g.feats.edges.shape[-1] and int(stats[1]) > 0
+    assert stats.tolist() == plain_stats.tolist()  # pairs tested, stagings
+    t2, tri2 = pg.grouped_pairs(g.feats, pg.build_schedule(g.feats, o, d))
+    t1, tri1 = pg.grouped_pairs(g.feats, pg.build_schedule(g.feats, o, d))
+    assert torch.equal(t1.view(torch.int32), t2.view(torch.int32)) and torch.equal(tri1, tri2)
 
 
 def test_compact_kernel_matches_plain(cuda):
@@ -707,8 +714,8 @@ def _hold_bvh_kernel(g, o, d, card_plain=True):
     CPU (the same arithmetic op for op: ``t``, ``tri``, ``hit`` equal), its
     five counts equal to the CPU walk's, a second launch bit-equal to the
     first, and with ``card_plain`` against ``trace_bvh_plain`` on the card
-    at phase 2's bounds (torch's CUDA reductions need not add a dot
-    product's terms in index order)."""
+    at phase 2's bounds (``test_bvh_plain_walk_on_card_equals_cpu_walk``
+    holds the card's walk to the CPU's bit for bit)."""
     before = tv.LAUNCHES["bvh_trace"]
     stats = torch.zeros(5, dtype=torch.int64, device=o.device)
     h = tv.trace_bvh(g.bvh, g.v0, g.v1, g.v2, o, d, stats=stats)
@@ -745,9 +752,9 @@ def test_bvh_kernel_matches_plain_on_ties(cuda, rays):
     """Rays through the edges that Cornell's triangles share (two triangles
     at about the same ``t``: the first one found must stay) and rays
     grazing the outdoor ground, held to the CPU walk as in
-    ``_hold_bvh_kernel``.  These rays are built to sit on knife edges, so
-    the card's own plain walk, whose sums may round in another order, is
-    no reference for them (it forks on ~4 % of the edge rays)."""
+    ``_hold_bvh_kernel``.  These rays are built to sit on knife edges; the
+    card's own plain walk is held to the CPU's on them by
+    ``test_bvh_plain_walk_on_card_equals_cpu_walk``."""
     if rays == "cornell_shared_edges":
         g = TREES["cornell"](cuda)[0]
         o, d = tt.shared_edge_rays(g, n_origins=32, per_edge=8)
@@ -756,6 +763,29 @@ def test_bvh_kernel_matches_plain_on_ties(cuda, rays):
         o, d = tt.grazing_rays(g, n=8192)
     assert o.device.type == "cuda"
     _hold_bvh_kernel(g, o, d, card_plain=False)
+
+
+@pytest.mark.parametrize("rays", ["cornell_shared_edges", "outdoor_64_grazing"])
+def test_bvh_plain_walk_on_card_equals_cpu_walk(cuda, rays):
+    """``trace_bvh_plain`` on the card against the same walk on the CPU, bit
+    for bit (``t``, ``tri``, ``hit`` and the five counts) on the knife-edge
+    rays: its cross and dot products are rounded op by op (``cross_rn``,
+    ``dot_rn``), so the walk does not depend on the device."""
+    if rays == "cornell_shared_edges":
+        g = TREES["cornell"](cuda)[0]
+        o, d = tt.shared_edge_rays(g, n_origins=32, per_edge=8)
+    else:
+        g = TREES["outdoor_64"](cuda)[0]
+        o, d = tt.grazing_rays(g, n=8192)
+    stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    h = tv.trace_bvh_plain(g.bvh, g.v0, g.v1, g.v2, o, d, stats=stats)
+    cpu = lambda x: x.cpu()
+    stats_c = torch.zeros(5, dtype=torch.int64)
+    hc = tv.trace_bvh_plain(tv.BVHNodes(*(cpu(x) for x in g.bvh)), *(cpu(x) for x in
+                            (g.v0, g.v1, g.v2, o, d)), stats=stats_c)
+    assert torch.equal(h.t.cpu().view(torch.int32), hc.t.view(torch.int32))
+    assert torch.equal(h.tri.cpu(), hc.tri) and torch.equal(h.hit.cpu(), hc.hit)
+    assert torch.equal(stats.cpu(), stats_c)
 
 
 def test_bvh_device_build_on_card_equals_host(cuda):

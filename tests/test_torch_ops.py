@@ -110,6 +110,29 @@ def test_moller_trumbore_and_slabs():
                                   np.asarray(jg.aabb_hit(*map(J, (o, d, lo, hi)))))
 
 
+def test_rounded_dot_and_cross_equal_numpy_float32():
+    """``dot_rn`` and ``cross_rn`` round each product, sum and difference on
+    its own, in the order the CUDA kernels use: bit-equal to numpy's
+    float32 ``(a0*b0 + a1*b1) + a2*b2`` and ``a1*b2 - a2*b1, ...``, with
+    magnitudes spread over 2^-20..2^20 so that the order of the sums shows."""
+    rng = np.random.default_rng(11)
+    a, b = (rng.normal(size=(N, 3)) * 2.0 ** rng.integers(-20, 21, size=(N, 3))
+            for _ in range(2))
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    want_dot = (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+    want_cross = np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                           a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                           a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=-1)
+    assert want_dot.dtype == want_cross.dtype == np.float32
+    got_dot = tg.dot_rn(T(a), T(b)).numpy()
+    np.testing.assert_array_equal(got_dot.view(np.int32), want_dot.view(np.int32))
+    got_cross = tg.cross_rn(T(a), T(b)).numpy()
+    np.testing.assert_array_equal(got_cross.view(np.int32), want_cross.view(np.int32))
+    # the order matters on these inputs: another order of the sum gives other bits
+    other = a[:, 0] * b[:, 0] + (a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2])
+    assert (other.view(np.int32) != want_dot.view(np.int32)).any()
+
+
 def _sampling_draws():
     """``(v0, v1, v2, u1, u2, n, rough)`` of the sampling test (numpy seed 6)."""
     rng = np.random.default_rng(6)

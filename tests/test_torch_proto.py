@@ -145,6 +145,92 @@ def test_results_do_not_depend_on_tile_or_k(rt, k):
     _assert_exact(pc.trace_compact(g.feats, o, d, k=k, rt=rt), ref)
 
 
+def _pr3_counts(feats, s):
+    """``(pairs tested, stagings)`` of the walk without the per-ray cull and
+    without sub-tiles (one walker per tile, every ray whose best ``t`` is
+    not below the pair's ``lod`` testing the pair's block), written out
+    afresh tile by tile."""
+    tile = min(ch.TRI_TILE, feats.edges.shape[-1])
+    cols = torch.arange(tile)
+    pairs = stagings = 0
+    for g in range(s.offsets.numel() - 1):
+        rows = slice(g * s.rt, (g + 1) * s.rt)
+        r6, q4, d = ch.ray_features(s.o[rows], s.d[rows])
+        live = torch.arange(g * s.rt, (g + 1) * s.rt) < s.n
+        bt = torch.full((s.rt,), ch.MAX_DIST)
+        bi = torch.zeros(s.rt, dtype=torch.int64)
+        for slot in range(int(s.offsets[g]), int(s.offsets[g + 1])):
+            run = live & ~(bt < s.lod[slot])
+            if not bool(run.any()):
+                break
+            stagings += 1
+            pairs += int(run.sum()) * tile
+            idx = int(s.blk[slot]) * tile + cols
+            t = ch.tri_t(r6, q4, d, feats.edges[:, :, idx], feats.plane[:, idx],
+                         feats.normal_d[:, idx])
+            tmin, arg = torch.min(t, dim=1)
+            better = run & ((tmin < bt) | ((tmin == bt) & (idx[arg] < bi)))
+            bt, bi = torch.where(better, tmin, bt), torch.where(better, idx[arg], bi)
+    return pairs, stagings
+
+
+def _needed_pairs(feats, o, d, t):
+    """The pairs any closest hit culled by block needs: every triangle of
+    each block that the ray enters no farther than its closest hit."""
+    tile = min(ch.TRI_TILE, feats.edges.shape[-1])
+    return int((ch.block_entries(feats.block_bounds, o, d) <= t[:, None]).sum()) * tile
+
+
+@pytest.mark.parametrize("offset", [1e-4, 1e-2])
+@pytest.mark.parametrize("sub", [32, 128, pg.RT])
+def test_culled_sub_tiles_equal_trace_plain(sub, offset):
+    """The plain version with the per-ray cull and sub-tiles of ``sub``
+    rays gives ``trace_plain``'s hits bit for bit."""
+    g = _scene("outdoor100")[1]
+    o, d = _rays(g, offset, seed=9)
+    s = pg.build_schedule(g.feats, o, d)
+    t_s, tri_s = pg.grouped_pairs_plain(g.feats, s, sub=sub)
+    _assert_exact(pg.unsort(s, t_s, tri_s), ch.trace_plain(g.feats, o, d))
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_cull_counts_lie_between_needed_and_uncut(name):
+    """Pairs tested: at least the pairs the closest hit needs, at most the
+    walk without the cull, and the same for every sub-tile width (a ray
+    whose sub-tile has stopped would fail its own cull too).  Stagings, one
+    per step of each running sub-tile: the uncut walk's at ``sub = rt``,
+    more with narrower sub-tiles, never more than ``rt / sub`` times that,
+    and no sub-tile more than its tile's list."""
+    g = _scene(name)[1]
+    o, d = _rays(g, 1e-4, seed=10)
+    s = pg.build_schedule(g.feats, o, d)
+    ref = ch.trace_plain(g.feats, o, d)
+    needed = _needed_pairs(g.feats, o, d, ref.t)
+    uncut_pairs, uncut_stagings = _pr3_counts(g.feats, s)
+    lengths = (s.offsets[1:] - s.offsets[:-1]).long()
+    got = {}
+    for sub in (32, 128, pg.RT):
+        stats = torch.zeros(2, dtype=torch.int64)
+        pg.grouped_pairs_plain(g.feats, s, stats=stats, sub=sub)
+        got[sub] = [int(x) for x in stats]
+    assert got[pg.RT][1] == uncut_stagings
+    for sub, (pairs, stagings) in got.items():
+        assert needed <= pairs == got[pg.RT][0] <= uncut_pairs
+        assert uncut_stagings <= stagings <= (pg.RT // sub) * uncut_stagings
+        assert stagings <= (pg.RT // sub) * int(lengths.sum())
+    assert needed < uncut_pairs and got[pg.RT][0] < uncut_pairs  # the cull removes pairs here
+
+
+def test_sub_tile_width():
+    """``sub_tile``: the largest power of two dividing the tile, at most
+    ``SUB``; the plain version refuses sub-tiles that do not divide it."""
+    assert [pg.sub_tile(rt) for rt in (32, 96, 128, 384, 1024)] == [32, 32, 128, 128, pg.SUB]
+    g = _scene("outdoor40")[1]
+    o, d = _rays(g, 1e-4, seed=11, n=300)
+    with pytest.raises(ValueError, match="divide"):
+        pg.grouped_pairs_plain(g.feats, pg.build_schedule(g.feats, o, d, rt=128), sub=96)
+
+
 def _entries_np(bounds, o, d):
     """The margined slab entry in numpy f32, written out afresh."""
     f32 = np.float32
