@@ -74,8 +74,14 @@ path (record, replay, train step, optimisation) and its command line
    pairs tested per ray of each, all timed with ``tree_ms``;
 9. the same for the pair-compaction prototype
    (``experiments/proto_compact.trace_compact``, kernel ``pair_compact``,
-   one launch per round), with its rounds, live tiles per round and the
-   per-piece profile of its first round;
+   one launch per round, the fold into each ray's best key inside it):
+   the kernel's ``best_key`` after every round against its plain version
+   folded over the same rounds' queues (phase 2's bounds, the rays that
+   differ in any bit), counts equal (stagings per sub-tile), two launches
+   bit-equal, its ptxas report and launch plan, its rounds, live tiles and
+   real slots per round, times per round, per trace and of the whole
+   trace, the bound per launch and per trace, and the per-piece profile of
+   its first round (slab+sort, queue build, kernel with its fold);
 10. the block-queue closest hit (``ops/pairs.trace_pairs``, kernel
    ``pairs``, one cooperative launch per trace) in roles #3 and #4, on
    phase 2's rays and at each render's own trace shape (262,144 bounce
@@ -1111,71 +1117,115 @@ def phase_grouped(scn, inp, dev, smi: str, logs: dict) -> dict:
     )
 
 
-def phase_compact(scn, inp, dev, smi: str) -> dict:
+def compact_fold(feats, o, d, queues, fold) -> tuple:
+    """``(best keys, [pairs tested, stagings])`` of ``fold`` (the kernel or
+    its plain version) over recorded rounds, from no hit."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact as pc
+
+    best = torch.full((o.shape[0] + 1,), pc.NO_HIT_KEY, dtype=torch.int64, device=o.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+    for q in queues:
+        fold(feats, o, d, q, best, stats)
+    return best, stats
+
+
+def phase_compact(scn, inp, dev, smi: str, logs: dict) -> dict:
     """Phase 9 on one scene: the pair-compaction trace once as a user
-    calls it (launch counts 0 before, read after: one per round), its
-    kernel's keys against its plain version's on the same rounds' queues
-    and the result against ``trace_plain``, then times and the per-piece
-    profile of the first round."""
+    calls it (launch counts 0 before, read after: one per round), then on
+    the same rounds' queues the kernel's ``best_key`` after every round
+    against its plain version's fold (phase 2's bounds, the rays that
+    differ in any bit), the counts equal (stagings per sub-tile in both),
+    two launches bit-equal, the result against ``trace_plain``, the launch
+    plan and ptxas report, times (``tree_ms``: per round, per trace, the
+    whole trace) and the per-piece profile of the first round."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact as pc
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 
     g, o, d = inp["g"], inp["o"], inp["d"]
-    n, tp, name = o.shape[0], g.feats.edges.shape[-1], scn["name"]
+    f = g.feats
+    n, tp, name = o.shape[0], f.edges.shape[-1], scn["name"]
     queues = []
     reset_launches()
-    t, tri, hit, rounds = pc.trace_compact(g.feats, o, d, queues=queues)
+    t, tri, hit, rounds = pc.trace_compact(f, o, d, queues=queues)
     torch.cuda.synchronize()
     launches = read_launches()
     check(rounds > 0 and launches["pair_compact"] == rounds and sum(launches.values()) == rounds,
           f"{name}: trace_compact launches {launches}, want pair_compact once per round ({rounds})")
-    keys_p, plain_ms = timed_once(lambda: [pc.pair_compact_plain(g.feats, o, d, q) for q in queues])
     best = torch.full((n + 1,), pc.NO_HIT_KEY, dtype=torch.int64, device=dev)
-    for q, k in zip(queues, keys_p):
-        pc.combine(best, k, q.queue_rid)
-    plain = ch._finish(pc.key_t(best[:n]), best[:n] & 0xFFFFFFFF)
-    forks = hold(f"[phase 9] {name} compact kernel vs plain", t, tri, hit, plain)
-    hold(f"[phase 9] {name} compact kernel vs trace_plain", t, tri, hit, inp["ref"])
+    plain = best.clone()
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    buf = torch.empty(queues[0].queue_rid.numel(), dtype=torch.int64, device=dev)
-    for q in queues:
-        pc.pair_compact(g.feats, o, d, q, stats=stats, out=buf)
+    plain_stats = stats.clone()
+    plain_ms, bits, forks = 0.0, [], (0.0, 0.0, 0.0)
+    for i, q in enumerate(queues):
+        pc.pair_compact(f, o, d, q, best, stats)
+        plain_ms += timed_once(lambda: pc.pair_compact_plain(f, o, d, q, plain, plain_stats))[1]
+        forks = hold(f"[phase 9] {name} round {i + 1}: kernel best_key vs plain fold",
+                     *pc.key_hit(best[:n]), pc.key_hit(plain[:n]))
+        bits.append(int((best[:n] != plain[:n]).sum()))
+    check(stats.tolist() == plain_stats.tolist(),
+          f"{name}: kernel counts {stats.tolist()}, plain {plain_stats.tolist()}")
+    bit_equal(f"[phase 9] {name} the trace against its rounds refolded", ch.Hit(t, tri, hit),
+              pc.key_hit(best[:n]))
+    hold(f"[phase 9] {name} compact kernel vs trace_plain", t, tri, hit, inp["ref"])
+    again = compact_fold(f, o, d, queues, pc.pair_compact)
+    check(torch.equal(again[0], best) and again[1].tolist() == stats.tolist(),
+          f"{name}: two pair_compact launches per round differ")
     pairs, stagings = (int(x) for x in stats.cpu())
-    kernels_ms = tree_ms(lambda: [pc.pair_compact(g.feats, o, d, q, out=buf) for q in queues],
+    tiles = queues[0].tile_blk.numel()
+    rt = queues[0].queue_rid.numel() // tiles
+    plan = pc.launch_plan(rt, tiles)
+    regs = ptxas(logs["pair_compact"], "pair_compact_kernel")
+    scratch = best.clone()
+    round_ms = [tree_ms(lambda q=q: pc.pair_compact(f, o, d, q, scratch), iters=scn["iters"])
+                for q in queues]
+    kernels_ms = tree_ms(lambda: [pc.pair_compact(f, o, d, q, scratch) for q in queues],
                          iters=scn["iters"])
-    whole_ms = tree_ms(lambda: pc.trace_compact(g.feats, o, d), iters=scn["iters"])
+    whole_ms = tree_ms(lambda: pc.trace_compact(f, o, d), iters=scn["iters"])
     live = [int(q.tile_live.sum()) for q in queues]
-    pieces = pc.profile(g.feats, o, d, runs=3)
-    slots, tiles = buf.numel(), queues[0].tile_blk.numel()
-    flops = inp["needed_pairs"] * FLOPS_PER_PAIR / rounds  # per launch, as ms is
-    nbytes = n * 24 + 4 * 25 * tp + 16 * slots + 8 * tiles
-    bound_ms, bound_by = bound(flops, nbytes)
-    log(f"[phase 9] {name} compact: {rounds} rounds, live tiles per round {live} of {tiles}; "
-        f"kernel {kernels_ms:.4f} ms over the rounds ({kernels_ms / rounds:.4f} per launch), whole "
-        f"trace {whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, sorted trace_blocks path "
-        f"{inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: compact "
-        f"{pairs / n:.1f}, trace_blocks {inp['blocks_pairs'] / n:.1f}, trace_pairs "
-        f"{inp['pairs_pairs'] / n:.1f}, needed {inp['needed_pairs'] / n:.1f}; block stagings "
-        f"{stagings}; plain {plain_ms:.1f} ms over "
-        f"the rounds; bound per launch {bound_ms:.4f} ms by {bound_by} ({flops:.3e} FP32 ops, "
-        f"{nbytes} bytes) [{smi}]")
+    real = [int((q.queue_rid < n).sum()) for q in queues]
+    pieces = pc.profile(f, o, d, runs=3)
+    needed = inp["needed_pairs"]
+    flops = needed * FLOPS_PER_PAIR  # per trace: the pairs the function needs, not those tested
+    # per launch, each input read once and each output written once: rays, packed
+    # features, slots, tiles' block and live flag, best_key read and written
+    nbytes = n * 24 + 4 * 28 * tp + 8 * rt * tiles + 8 * tiles + 16 * (n + 1)
+    bound_ms, bound_by = bound(flops / rounds, nbytes)
+    trace_bound_ms, _ = bound(flops, nbytes * rounds)
+    log(f"[phase 9] {name} compact: {rounds} rounds, live tiles per round {live} of {tiles}, real "
+        f"slots per round {real}; kernel with its fold {kernels_ms:.4f} ms per trace "
+        f"({kernels_ms / rounds:.4f} per launch; per round {[round(x, 4) for x in round_ms]}), "
+        f"whole trace {whole_ms:.4f} ms; ptxas {regs}; plan {plan['grid']} CUDA blocks of "
+        f"{plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory each, "
+        f"{plan['blocks_per_sm']} per SM; trace_blocks {inp['blocks_ms']:.4f} ms, sorted "
+        f"trace_blocks path {inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs "
+        f"per ray: compact {pairs / n:.1f} ({pairs / max(needed, 1):.4f} of needed), trace_blocks "
+        f"{inp['blocks_pairs'] / n:.1f}, trace_pairs {inp['pairs_pairs'] / n:.1f}, needed "
+        f"{needed / n:.1f}; block stagings {stagings} (counts equal to plain's); rays differing "
+        f"from plain in any bit per round {bits}; plain {plain_ms:.1f} ms over the rounds; bound "
+        f"per launch {bound_ms:.4f} ms by {bound_by} ({flops / rounds:.3e} FP32 ops, {nbytes} "
+        f"bytes), per trace {trace_bound_ms:.4f} ms; {flops / kernels_ms / 1e9:.2f} TFLOP/s on "
+        f"the needed pairs [{smi}]")
     log(f"[phase 9] {name} compact first round, per piece: slab+sort {pieces['pre_ms']:.4f} ms, "
-        f"queue build {pieces['queue_ms']:.4f} ms, pair kernel {pieces['kernel_ms']:.4f} ms, "
-        f"combine {pieces['combine_ms']:.4f} ms; blocks entered per ray mean "
-        f"{pieces['counts_mean']:.2f}, max {pieces['counts_max']}")
+        f"queue build {pieces['queue_ms']:.4f} ms, pair kernel with its fold "
+        f"{pieces['kernel_ms']:.4f} ms; blocks entered per ray mean {pieces['counts_mean']:.2f}, "
+        f"max {pieces['counts_max']}")
     return dict(
         name=f"trace_compact:{name}", route="cuda",
         source="ensem3a_openclraytracer_tpu_torch/csrc/pair_compact.cu",
         replaces="experiments/proto_compact.py:68", launches=launches["pair_compact"],
         max_abs_err=forks[2], ms=kernels_ms / rounds, plain_ms=plain_ms / rounds,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, rays=n, pairs_tested=pairs,
-        pairs_per_ray=pairs / n, pairs_needed=inp["needed_pairs"], block_stagings=stagings,
-        rounds=rounds, live_tiles=live,
-        tiles=tiles, kernel_ms_per_trace=kernels_ms, trace_ms=whole_ms,
-        trace_blocks_ms=inp["blocks_ms"], sorted_blocks_trace_ms=inp["trace_ms"],
-        trace_pairs_ms=inp["pairs_ms"], trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
+        pairs_per_ray=pairs / n, pairs_needed=needed, block_stagings=stagings,
+        rounds=rounds, live_tiles=live, real_slots=real, tiles=tiles, round_ms=round_ms,
+        kernel_ms_per_trace=kernels_ms, bound_ms_per_trace=trace_bound_ms,
+        tflops_needed=flops / kernels_ms / 1e9, rays_differing_bits=bits, plan=plan, ptxas=regs,
+        trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"],
+        sorted_blocks_trace_ms=inp["trace_ms"], trace_pairs_ms=inp["pairs_ms"],
+        trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
         trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, profile=pieces,
         tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
     )
@@ -2418,7 +2468,8 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
     kernels += [phase_grouped(scn, inp, dev, smi, logs) for scn, inp in zip(proto_scenes, inputs)]
     t9 = time.perf_counter()
     log(f"[phase 8] wall {t9 - t8:.1f} s")
-    kernels += [phase_compact(scn, inp, dev, smi) for scn, inp in zip(proto_scenes, inputs)]
+    kernels += [phase_compact(scn, inp, dev, smi, logs)
+                for scn, inp in zip(proto_scenes, inputs)]
     t10 = time.perf_counter()
     log(f"[phase 9] wall {t10 - t9:.1f} s")
 

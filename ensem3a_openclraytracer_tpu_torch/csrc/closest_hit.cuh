@@ -6,7 +6,7 @@
 //   lexicographic order, so ties keep the lowest triangle index whatever the
 //   visit order.  t >= 0.999 * MAX_DIST is a miss (t = MAX_DIST, tri = 0).
 //
-// Two layouts of one block's features in shared memory:
+// Three layouts of one block's features in shared memory:
 //   * packed (stage_packed / test_packed): per triangle the 25 feature rows
 //     of TriFeatures.packed as 6 float4s, then row 24 (the normal's z) of every
 //     triangle as a float; one 16-byte broadcast read feeds 4 of a pair test's
@@ -14,8 +14,12 @@
 //     one-block roles (csrc/closest_hit.cu on one block, csrc/fused_sample.cu)
 //     stage their block once per CUDA block and keep it; csrc/pairs.cuh
 //     stages queued blocks in the same layout.
+//   * packed rows copied whole (bulk_copy / test_two): PACK4 float4s per
+//     triangle, as TriFeatures.packed holds them, copied by TMA; the two
+//     prototypes' kernels (csrc/grouped_pairs.cu, csrc/pair_compact.cu)
+//     test two rays per read of a triangle;
 //   * row-major [FEAT_ROWS][TRI_TILE] (stage_block / test_block): 25 scalar
-//     reads per triangle, used by trace_culled and the two prototypes.
+//     reads per triangle, used by trace_culled.
 //
 // trace_culled (any number of triangle blocks; every thread of the CUDA block
 // must call it, inactive lanes included, since it holds barriers):
@@ -196,6 +200,92 @@ __device__ __forceinline__ void test_packed(const float4* f4, int base, int tile
       if (t > MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && g < best_i[k]))) {
         best_t[k] = t;
         best_i[k] = g;
+      }
+    }
+  }
+}
+
+// (float bits of t) << 32 | tri: ordered as (t, tri) for t >= 0, so a 64-bit
+// atomicMin keeps the lexicographic closest hit whatever the order.
+__device__ __forceinline__ unsigned long long hit_key(float t, int tri) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | static_cast<unsigned>(tri);
+}
+
+// A block of TriFeatures.packed rows copied whole into shared memory by TMA
+// (cp.async.bulk, completion on an mbarrier): PACK4 float4s per triangle,
+// rows 0-23 in the first six, row 24 in the seventh's x.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread: an mbarrier that one arrival (with its bytes) completes.  A
+// barrier of the CUDA block must follow before another thread waits on it.
+__device__ __forceinline__ void init_bar(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// One thread: copy `bytes` (a multiple of 16) from `src` into `dst`, both
+// 16-byte aligned, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+
+// test_packed's pair test for two rays (r6 = [d, d x o], ro = o) against
+// triangles [lo, hi) of a block copied whole (PACK4 float4s per triangle,
+// global index base + c), one broadcast read of a triangle feeding both
+// tests; best_t / best_i keep the lexicographic least (t, tri), found[k] is
+// set where ray k's best changed.
+__device__ __forceinline__ void test_two(const float4* f4, int base, int lo, int hi,
+                                         const float (&r6)[2][6], const float (&ro)[2][3],
+                                         float (&best_t)[2], int (&best_i)[2], bool (&found)[2]) {
+  for (int c = lo; c < hi; ++c) {
+    float f[FEAT_ROWS];
+#pragma unroll
+    for (int v = 0; v < 6; ++v) {
+      const float4 x = f4[PACK4 * c + v];
+      f[4 * v] = x.x;
+      f[4 * v + 1] = x.y;
+      f[4 * v + 2] = x.z;
+      f[4 * v + 3] = x.w;
+    }
+    f[24] = reinterpret_cast<const float*>(f4 + PACK4 * c + 6)[0];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float w[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        float acc = f[6 * e] * r6[k][0];
+#pragma unroll
+        for (int m = 1; m < 6; ++m) acc = acc + f[6 * e + m] * r6[k][m];
+        w[e] = acc;
+      }
+      const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
+                          (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
+      const float den = f[22] * r6[k][0] + f[23] * r6[k][1] + f[24] * r6[k][2];
+      if (!inside || den == 0.0f) continue;
+      const float num = f[18] * ro[k][0] + f[19] * ro[k][1] + f[20] * ro[k][2] + f[21];
+      const float t = num / den;
+      const int g = base + c;
+      if (t > MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && g < best_i[k]))) {
+        best_t[k] = t;
+        best_i[k] = g;
+        found[k] = true;
       }
     }
   }

@@ -63,34 +63,6 @@ __host__ __device__ constexpr size_t smem_bytes(int sub) {
   return 2 * BUF_BYTES + sub * (32 + 4 + 8 + 4) + 2 * 8 + 2 * (sub / 32) * 4;
 }
 
-__device__ __forceinline__ unsigned long long hit_key(float t, int tri) {
-  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | static_cast<unsigned>(tri);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
-      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-
-// One thread: copy `bytes` of packed features from `src` into `dst`,
-// completing on the mbarrier `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
-}
-
 __global__ void __launch_bounds__(SUB, 3)
 grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d, int n_rays,
                      int rt, const float4* __restrict__ packed, const float* __restrict__ bounds,
@@ -121,19 +93,18 @@ grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ 
   q0[r] = make_float4(ray.r6[0], ray.r6[1], ray.r6[2], ray.r6[3]);
   q1[r] = make_float4(ray.r6[4], ray.r6[5], ray.o[0], ray.o[1]);
   oz[r] = ray.o[2];
-  keys[r] = hit_key(ch::MAX_DIST, 0);
+  keys[r] = ch::hit_key(ch::MAX_DIST, 0);
   if (r == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar + 1)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    ch::init_bar(bar);
+    ch::init_bar(bar + 1);
   }
   __syncthreads();
 
   const int g = blockIdx.x / (rt / sub);
   const int first = offsets[g], len = offsets[g + 1] - first;
   const uint32_t bytes = static_cast<uint32_t>(tile) * ch::PACK4 * 16;
-  if (r == 0 && len > 0) bulk_copy(buf, packed + static_cast<size_t>(blk[first]) * tile * ch::PACK4,
-                                   bytes, bar);
+  if (r == 0 && len > 0)
+    ch::bulk_copy(buf, packed + static_cast<size_t>(blk[first]) * tile * ch::PACK4, bytes, bar);
 
   unsigned long long pairs = 0, stagings = 0;
   int step = 0;
@@ -150,7 +121,7 @@ grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ 
     if (r == 0) {
       ++stagings;
       if (step + 1 < len)
-        bulk_copy(buf + ((step + 1) & 1) * BUF4,
+        ch::bulk_copy(buf + ((step + 1) & 1) * BUF4,
                   packed + static_cast<size_t>(blk[s + 1]) * tile * ch::PACK4, bytes,
                   bar + ((step + 1) & 1));
     }
@@ -161,7 +132,7 @@ grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ 
       n_list += c;
     }
     if (n_list == 0) {  // no ray tests this block: its copy must land before the buffer is reused
-      if (r == 0) wait_parity(smem_addr(bar + (step & 1)), (step >> 1) & 1);
+      if (r == 0) ch::wait_parity(bar + (step & 1), (step >> 1) & 1);
       continue;
     }
     if (want) {
@@ -169,7 +140,7 @@ grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ 
       pairs += tile;
     }
     __syncthreads();
-    wait_parity(smem_addr(bar + (step & 1)), (step >> 1) & 1);
+    ch::wait_parity(bar + (step & 1), (step >> 1) & 1);
 
     // (ray pair, chunk) items: rays a and a + P of the list (P = half the
     // list, rounded up), C chunks of L triangles; at most one item per thread
@@ -195,51 +166,15 @@ grouped_pairs_kernel(const float* __restrict__ ray_o, const float* __restrict__ 
         best_t[k] = __uint_as_float(static_cast<unsigned>(key >> 32));
         best_i[k] = static_cast<int>(key & 0xffffffffu);
       }
-      const float4* f4 = buf + (step & 1) * BUF4;
-      const int base_tri = j * tile;
-      for (int c = lo; c < hi; ++c) {
-        float f[ch::FEAT_ROWS];
-#pragma unroll
-        for (int v = 0; v < 6; ++v) {
-          const float4 x = f4[ch::PACK4 * c + v];
-          f[4 * v] = x.x;
-          f[4 * v + 1] = x.y;
-          f[4 * v + 2] = x.z;
-          f[4 * v + 3] = x.w;
-        }
-        f[24] = reinterpret_cast<const float*>(f4 + ch::PACK4 * c + 6)[0];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float w[3];
-#pragma unroll
-          for (int e = 0; e < 3; ++e) {
-            float acc = f[6 * e] * r6[k][0];
-#pragma unroll
-            for (int m = 1; m < 6; ++m) acc = acc + f[6 * e + m] * r6[k][m];
-            w[e] = acc;
-          }
-          const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
-                              (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
-          const float den = f[22] * r6[k][0] + f[23] * r6[k][1] + f[24] * r6[k][2];
-          if (!inside || den == 0.0f) continue;
-          const float num = f[18] * ro[k][0] + f[19] * ro[k][1] + f[20] * ro[k][2] + f[21];
-          const float t = num / den;
-          const int gi = base_tri + c;
-          if (t > ch::MIN_HIT_DIST && (t < best_t[k] || (t == best_t[k] && gi < best_i[k]))) {
-            best_t[k] = t;
-            best_i[k] = gi;
-            found[k] = true;
-          }
-        }
-      }
-      if (found[0]) atomicMin(&keys[slot[0]], hit_key(best_t[0], best_i[0]));
-      if (two && found[1]) atomicMin(&keys[slot[1]], hit_key(best_t[1], best_i[1]));
+      ch::test_two(buf + (step & 1) * BUF4, j * tile, lo, hi, r6, ro, best_t, best_i, found);
+      if (found[0]) atomicMin(&keys[slot[0]], ch::hit_key(best_t[0], best_i[0]));
+      if (two && found[1]) atomicMin(&keys[slot[1]], ch::hit_key(best_t[1], best_i[1]));
     }
     __syncthreads();
   }
   // a copy still in flight (the pair the sub-tile stopped at) must land
   // before the CUDA block's shared memory is given back
-  if (r == 0 && step < len) wait_parity(smem_addr(bar + (step & 1)), (step >> 1) & 1);
+  if (r == 0 && step < len) ch::wait_parity(bar + (step & 1), (step >> 1) & 1);
 
   if (active) {
     const unsigned long long key = keys[r];

@@ -7,8 +7,9 @@ its whole-render launch ``render_fused_resident`` against
 ``render_fused_plain`` and against one launch per sample), the Philox
 kernel (``uniforms`` against ``uniforms_plain``) and the two prototype
 closest-hit kernels
-(``trace_grouped`` and ``trace_compact`` against their plain versions, the
-grouped kernel's counts too),
+(``trace_grouped`` and ``trace_compact`` against their plain versions,
+their counts too, two launches bit-equal, and the compaction kernel on
+partial sub-tiles),
 the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
 ``trace_blocks`` and its plain version's counts) and the multi-block fused
 sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
@@ -317,12 +318,22 @@ def test_grouped_kernel_matches_plain(cuda):
     assert torch.equal(t1.view(torch.int32), t2.view(torch.int32)) and torch.equal(tri1, tri2)
 
 
+def _compact_fold(feats, o, d, queues, fold):
+    """Best keys and counts of ``fold`` over recorded rounds, from no hit."""
+    best = torch.full((o.shape[0] + 1,), pc.NO_HIT_KEY, dtype=torch.int64, device=o.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+    for q in queues:
+        fold(feats, o, d, q, best, stats)
+    return best, stats
+
+
 def test_compact_kernel_matches_plain(cuda):
     g = tt.make_outdoor_scene(n_cubes=100, device=cuda)[0]
     o, d = common.bounce_rays(g, 8192, seed=3)
     before = pc.LAUNCHES["pair_compact"]
     stats = torch.zeros(2, dtype=torch.int64, device=cuda)
-    t, tri, hit, rounds = pc.trace_compact(g.feats, o, d, stats=stats)
+    queues = []
+    t, tri, hit, rounds = pc.trace_compact(g.feats, o, d, stats=stats, queues=queues)
     torch.cuda.synchronize()
     assert rounds > 0 and pc.LAUNCHES["pair_compact"] == before + rounds
     ref = pc.trace_compact(g.feats, o, d, engine="plain")
@@ -330,6 +341,33 @@ def test_compact_kernel_matches_plain(cuda):
     _agree(t, tri, hit, ch.Hit(*ref[:3]))
     _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
     assert 0 < int(stats[0]) <= 8192 * g.feats.edges.shape[-1] and int(stats[1]) > 0
+    # on the same rounds: counts equal to the plain version's, two launches bit-equal
+    plain_best, plain_stats = _compact_fold(g.feats, o, d, queues, pc.pair_compact_plain)
+    assert stats.tolist() == plain_stats.tolist()  # pairs tested, stagings per sub-tile
+    first, again = (_compact_fold(g.feats, o, d, queues, pc.pair_compact) for _ in range(2))
+    assert torch.equal(first[0], again[0]) and first[1].tolist() == stats.tolist()
+    _agree(*pc.key_hit(first[0][:-1]), pc.key_hit(plain_best[:-1]))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("rt", [32, 96, 1024])
+def test_compact_kernel_on_partial_sub_tiles(cuda, rt, k):
+    """Tiles whose sub-tiles are partly real and partly padding (3,000 rays,
+    tiles of 32, 96 and 1024 slots, 1 or 8 blocks a round): the kernel's
+    result and counts against its plain version's on the same rounds."""
+    g = tt.make_outdoor_scene(n_cubes=100, device=cuda)[0]
+    o, d = common.bounce_rays(g, 3000, seed=4)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    queues = []
+    t, tri, hit, rounds = pc.trace_compact(g.feats, o, d, k=k, rt=rt, stats=stats, queues=queues)
+    assert rounds == len(queues) > 0
+    sub = pc.sub_tile(rt)
+    real = torch.stack([(q.queue_rid.view(-1, sub) < 3000).sum(dim=1) for q in queues[:1]])
+    assert bool(((real > 0) & (real < sub)).any())  # a partial sub-tile
+    plain_best, plain_stats = _compact_fold(g.feats, o, d, queues, pc.pair_compact_plain)
+    assert stats.tolist() == plain_stats.tolist()
+    _agree(t, tri, hit, pc.key_hit(plain_best[:-1]))
+    _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
 
 
 @pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])

@@ -301,6 +301,113 @@ def test_compact_rounds_queue_each_pair_once_and_end(k):
     _assert_exact(out, ch.trace_plain(g.feats, o, d))
 
 
+def _round_queues(name, n=1000, k=pc.K, rt=128, seed=12):
+    """The scene's features, rays and the rounds' queues of one plain trace."""
+    g = _scene(name)[1]
+    o, d = _rays(g, 1e-4, seed=seed, n=n)
+    queues = []
+    out = pc.trace_compact(g.feats, o, d, k=k, rt=rt, queues=queues)
+    return g.feats, o, d, queues, out
+
+
+def _fold(feats, o, d, queues):
+    best = torch.full((o.shape[0] + 1,), pc.NO_HIT_KEY, dtype=torch.int64)
+    for q in queues:
+        pc.pair_compact_plain(feats, o, d, q, best)
+    return best
+
+
+def _slot_keys_afresh(feats, o, d, q):
+    """``(ray, key)`` of every real slot, one slot's block at a time: the key
+    ``(float bits of t) << 32 | tri`` of the least ``(t, tri)``, written
+    out afresh in numpy."""
+    n, tiles = o.shape[0], q.tile_blk.numel()
+    tile = min(ch.TRI_TILE, feats.edges.shape[-1])
+    rid = q.queue_rid.numpy()
+    slots = np.flatnonzero(rid < n)
+    rays = rid[slots]
+    idx = q.tile_blk.numpy()[slots // (rid.size // tiles)][:, None] * tile + np.arange(tile)
+    r6, q4, dd = ch.ray_features(o[rays][:, None], d[rays][:, None])
+    it = torch.as_tensor(idx)
+    t = ch.tri_t(r6, q4, dd, feats.edges[:, :, it], feats.plane[:, it],
+                 feats.normal_d[:, it])[:, 0].numpy()  # [slots, tile]
+    keys = np.where(t < ch.MAX_DIST, (t.view(np.int32).astype(np.int64) << 32) | idx,
+                    pc.NO_HIT_KEY)
+    return rays, keys.min(axis=1)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_plain_fold_equals_slot_keys_and_scatter_min(name):
+    """``pair_compact_plain``'s fold, round by round, equals each real
+    slot's key written out afresh and folded with ``np.minimum.at``."""
+    feats, o, d, queues, out = _round_queues(name)
+    best = torch.full((o.shape[0] + 1,), pc.NO_HIT_KEY, dtype=torch.int64)
+    want = np.full(o.shape[0] + 1, pc.NO_HIT_KEY, dtype=np.int64)
+    for q in queues:
+        pc.pair_compact_plain(feats, o, d, q, best)
+        np.minimum.at(want, *_slot_keys_afresh(feats, o, d, q))
+        assert np.array_equal(best.numpy(), want)
+    _assert_exact(out, pc.key_hit(best[:-1]))
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_compact_rounds_fold_in_any_order(name):
+    """The fold is a min: the rounds folded in reverse give the same keys."""
+    feats, o, d, queues, out = _round_queues(name, k=1)
+    assert len(queues) > 1
+    assert torch.equal(_fold(feats, o, d, queues), _fold(feats, o, d, queues[::-1]))
+    _assert_exact(out, pc.key_hit(_fold(feats, o, d, queues)[:-1]))
+
+
+@pytest.mark.parametrize("rt,k", [(32, 1), (96, 4), (128, 8), (1024, 4)])
+def test_real_slots_lead_each_block_run(rt, k):
+    """In every round, each block's run of tiles holds its real slots
+    first: every tile but the run's last is full, the last is real up to
+    some slot and padding after it, and dead tiles hold padding only.  So
+    a sub-tile whose first slot is padding holds no real slot, which is
+    what lets the kernel's sub-tiles leave on their first slot."""
+    n = 1000
+    feats, o, d, queues, _ = _round_queues("outdoor100", n=n, k=k, rt=rt, seed=13)
+    sub = pc.sub_tile(rt)
+    for q in queues:
+        real = (q.queue_rid < n).view(-1, rt)
+        live = q.tile_live.bool()
+        assert torch.equal(live, real.any(dim=1))
+        assert bool((real[:, 1:] <= real[:, :-1]).all())  # a prefix of each tile
+        blk = q.tile_blk[live]
+        assert bool((blk[1:] >= blk[:-1]).all())  # runs in block order
+        full = real[live].all(dim=1)
+        last = torch.cat([blk[1:] != blk[:-1], torch.ones(1, dtype=torch.bool)])
+        assert bool((full | last).all())  # only a run's last tile is partial
+        by_sub = real.reshape(-1, sub)
+        assert bool((by_sub[:, 0] | ~by_sub.any(dim=1)).all())
+
+
+def test_compact_sub_tile_width():
+    """``sub_tile``: the largest multiple of 32 dividing the tile, at most
+    ``SUB`` (``min(SUB, rt)`` wherever that divides it)."""
+    assert pc.SUB == 128
+    assert [pc.sub_tile(rt) for rt in (32, 96, 128, 192, 224, 1024)] == [32, 96, 128, 96, 32, 128]
+
+
+@pytest.mark.parametrize("rt", [96, 128, 1024])
+def test_trace_compact_counts_real_slots(rt):
+    """``trace_compact``'s stats: the real slots of every round times the
+    block's triangles, and one staging per sub-tile that holds a real
+    slot."""
+    g = _scene("outdoor100")[1]
+    n = 1000
+    o, d = _rays(g, 1e-4, seed=14, n=n)
+    stats = torch.zeros(2, dtype=torch.int64)
+    queues = []
+    pc.trace_compact(g.feats, o, d, rt=rt, stats=stats, queues=queues)
+    real = [(q.queue_rid < n) for q in queues]
+    tile = min(ch.TRI_TILE, g.feats.edges.shape[-1])
+    assert int(stats[0]) == sum(int(r.sum()) for r in real) * tile
+    sub = pc.sub_tile(rt)
+    assert int(stats[1]) == sum(int(r.view(-1, sub).any(dim=1).sum()) for r in real)
+
+
 def test_empty_batch_and_one_block_scene():
     g = tt.make_cornell_scene(device="cpu")[0]
     assert g.feats.block_bounds.shape[0] == 1
@@ -334,6 +441,10 @@ def test_cpu_wrappers_take_the_plain_versions():
         pc.trace_compact(g.feats, o, d, engine="fast")
     with pytest.raises(ValueError, match="cuda"):
         pc.profile(g.feats, o, d)
+    q = pc.build_round_queues(pc.precompute(g.feats, o, d), torch.zeros(500, dtype=torch.int64),
+                              torch.full((500,), ch.MAX_DIST), 1, 128, 8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pc.pair_compact(g.feats, o.to("meta"), d.to("meta"), q, torch.zeros(501, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("mod", [pg, pc], ids=["grouped", "compact"])
