@@ -18,15 +18,22 @@ path (record, replay, train step, optimisation) and its command line
    needed, the least time the card could take (from the needed pairs), and
    the resident kernel's registers;
 3. the main path at full size: ``Scene.load`` -> ``render_scene`` on six
-   renders, all on the fused engine.  Cornell (1 block) and Cornell with NEE
+   renders, all on the fused engine, each a replay of the graph that the
+   scene's first ``render_scene`` captured (``render_radiance_jit``; that
+   first call's warm-up, capture and instantiation on a line of their
+   own).  Cornell (1 block) and Cornell with NEE
    take it on ``csrc/fused_sample.cu``'s whole-render launch (``closest_hit``
    once, ``sample_fused`` once per render); outdoor_1000 (47 blocks),
    outdoor_1000 with a light panel and NEE, outdoor_1300 (61 blocks) and
    outdoor_12500 (586 blocks) on ``csrc/fused_queue.cu`` (``pairs`` once,
    ``sample_fused_queue`` once per sample, ``sample_fused`` and ``uniforms``
-   never).  The launch counts are set to 0 before each render and checked
-   after it; one more render of each is traced with ``torch.profiler``
-   (kernel time by name, device idle share);
+   never).  The launch counts are set to 0 before each scene's first
+   render (the main path: it launches every kernel through its wrapper,
+   then captures the graph, which launches none) and checked after it; a
+   replay is timed and counts nothing; one more replay of each is traced
+   with ``torch.profiler`` (kernel time by name, device idle share) and the
+   port's kernels in that trace (``ops/launches.count_kernels``) must be
+   the warm-up's;
 4. the same explicit random stream through the scan path with the kernel
    and with the plain scan on the card, at 64^2, 2 spp, 3 bounces: pixel
    forks below 2 %;
@@ -109,7 +116,8 @@ path (record, replay, train step, optimisation) and its command line
    cubes, a 4096x8192 sky, 128^2, 4 spp, sun): s per step, Mrays/s, peak
    memory, launches (the backward launches none of the port's kernels), a
    profile split into record kernels, the port's other kernels, replay
-   forward, backward and idle share, and one ``make_train_step`` step;
+   forward, backward and idle share, and two ``make_train_step`` steps (the
+   first captures the step's graph, the second replays it);
    (5) ``run_optimization`` on Cornell at 128^2, 8 spp, 12 iterations from
    perturbed colors: the loss falls, and a run stopped after 6 iterations
    and resumed from its checkpoint gives the same losses bit for bit;
@@ -118,10 +126,13 @@ path (record, replay, train step, optimisation) and its command line
    (1) ``cli render`` of Cornell (512^2, 64 spp) and outdoor_1000 (512^2,
    16 spp) at the ini's settings in chunks of 16 with a checkpoint after
    each, the launch counts set to 0 before each call and read after it
-   (Cornell: ``closest_hit`` and ``sample_fused`` once per chunk;
-   outdoor_1000: ``pairs`` once per chunk, ``sample_fused_queue`` once per
-   sample), wall and Mrays/s beside the same render without checkpoints
-   and ``render_scene``'s; (2) Cornell stopped after two chunks and
+   (the first chunk, which captures the chunk's graph: Cornell
+   ``closest_hit`` and ``sample_fused`` once; outdoor_1000 ``pairs`` once,
+   ``sample_fused_queue`` once per sample), and a traced call whose trace
+   holds every chunk's kernels (Cornell: ``closest_hit`` and
+   ``sample_fused`` once per chunk; outdoor_1000: ``pairs`` once per chunk,
+   ``sample_fused_queue`` once per sample), wall and Mrays/s beside the
+   same render without checkpoints and ``render_scene``'s; (2) Cornell stopped after two chunks and
    resumed: ``accum`` bit-equal to the uninterrupted run's, and the image
    equal to the float64 mean of its four ``render_radiance`` chunk calls
    (0 forks at 1e-3); (3) ``render --mesh 1,1`` with ``torchrun``'s
@@ -140,8 +151,27 @@ path (record, replay, train step, optimisation) and its command line
    launches equal, times warm and with L2 flushed, ptxas registers, stack
    frame and spills; on phase 10's 327,680 rays against ``pairs.cu``; Cornell, outdoor_1300 and
    outdoor_12500 loaded with ``use_bvh=True`` and rendered (``bvh_trace``
-   once per trace, the time per launch inside the profiled render); replay
-   gradients on a tree-only Cornell, card against CPU.
+   once per trace, the time per launch inside the profiled render; replays,
+   after a first call that captures); replay gradients on a tree-only
+   Cornell, card against CPU;
+14. the compiled entry points as captured CUDA graphs (``utils/graphs.py``):
+   ``render_radiance_jit`` against ``render_radiance`` (Cornell, Cornell
+   with NEE, outdoor_1300 on 2b, a tree-only outdoor_1300 on the scan
+   estimator), the progressive chunk function against its eager form (and
+   a Cornell render stopped after two chunks and resumed, against the
+   float64 fold of eager chunks), ``make_train_step``'s step against
+   ``step.eager`` (the Cornell trainer at 128^2, 8 spp, with three chained
+   steps; the texel step; Cornell value+grad at 512^2 and
+   ``GRAPH_STEP_SPP`` samples): the first call (warm-up, capture under
+   ``set_sync_debug_mode("error")``, instantiation, pool bytes), the first
+   call, the first replay and a replay with a new key bit-equal to eager,
+   the port's kernels the first call and the eager call launch (counted
+   by the wrappers; a replay counts none) against those a profiled replay
+   ran (counted in its trace), a render replayed after the camera, a
+   material's colour, the emitters' power, the sun and (NEE) the lights
+   changed, bit-equal to eager on the new values (Cornell with NEE,
+   outdoor_1300), eager and graphed walls (median of ``GRAPH_RUNS``), and
+   one profiled eager call and replay (kernels, device busy, idle share).
 
 Every check that fails ends the run with a non-zero exit code and no
 result line.  Without a card, the script fails.  The next-to-last line is
@@ -278,22 +308,41 @@ def ptxas(log_text: str, kernel: str) -> dict:
     return info
 
 
-def launch_counters():
-    from ensem3a_openclraytracer_tpu_torch.experiments import proto_compact, proto_grouped
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit, fused, pairs, rng, traversal
+def launch_registry():
+    """``ops/launches``, the one registry of the wrappers' counters, with
+    every wrapper module imported (the prototypes' too)."""
+    from ensem3a_openclraytracer_tpu_torch.experiments import (  # noqa: F401
+        proto_compact,
+        proto_grouped,
+    )
+    from ensem3a_openclraytracer_tpu_torch.ops import (  # noqa: F401
+        closest_hit,
+        fused,
+        launches,
+        pairs,
+        rng,
+        traversal,
+    )
 
-    return (closest_hit.LAUNCHES, pairs.LAUNCHES, fused.LAUNCHES, rng.LAUNCHES,
-            proto_grouped.LAUNCHES, proto_compact.LAUNCHES, traversal.LAUNCHES)
+    return launches
 
 
 def reset_launches():
-    for counts in launch_counters():
-        for k in counts:
-            counts[k] = 0
+    launch_registry().reset()
 
 
 def read_launches() -> dict:
-    return {k: v for counts in launch_counters() for k, v in counts.items()}
+    return launch_registry().read()
+
+
+def traced_launches(prof) -> dict:
+    """The port's kernels that a torch.profiler trace saw run, by counter
+    (``ops/launches.count_kernels``): a graph replay runs no wrapper, so
+    its launches are counted here."""
+    import torch
+
+    return launch_registry().count_kernels(
+        ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def role_rays(geom, cam, dev, seed: int, res: int = 512, n_bounce: int = 65536):
@@ -410,6 +459,42 @@ def timed_render(scene, overrides: dict, seed: int = 0):
     return img, time.perf_counter() - t0
 
 
+def first_render(scene, overrides: dict, label: str, smi: str) -> tuple:
+    """The first ``render_scene`` of a loaded scene at its settings: the call
+    that renders eagerly (the warm-up) and captures its graph
+    (``render_radiance_jit``), with the launch counts set to 0 just before
+    it and read just after it: the wrappers count the warm-up's launches,
+    the capture runs none.  Its wall and the capture's parts on a line of
+    their own; ``(wall, launches)``."""
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance_jit
+
+    graph = render_radiance_jit.graph
+    captures = graph.captures
+    reset_launches()
+    _, first_s = timed_render(scene, overrides, seed=1)
+    launches = read_launches()
+    check(graph.captures == captures + 1, f"{label}: the first render_scene captured "
+          f"{graph.captures - captures} graphs, want 1")
+    cap = graph.last_capture
+    recorded = {k: v for k, v in launches.items() if v}
+    check(cap["launches"] == recorded, f"{label}: the graph recorded {cap['launches']}, the "
+          f"warm-up launched {recorded}")
+    log(f"{label}: first render_scene call {first_s:.3f} s: warm-up {cap['warm_up_s']:.3f} s, "
+        f"graph capture {cap['capture_s']:.3f} s, instantiation {cap['instantiate_s']:.3f} s, "
+        f"pool {cap['pool_bytes'] / 1e6:.1f} MB; warm-up launches {recorded} [{smi}]")
+    return first_s, launches
+
+
+def replayed(scene, overrides: dict, label: str):
+    """A later ``render_scene``, a replay of the captured graph: it runs no
+    wrapper, so the launch counts stay at 0.  ``(image, wall)``."""
+    reset_launches()
+    img, dt = timed_render(scene, overrides)
+    counted = {k: v for k, v in read_launches().items() if v}
+    check(not counted, f"{label}: a replay counted launches {counted}")
+    return img, dt
+
+
 def phase_main_path(scn, dev, workdir: Path, smi: str):
     import torch
 
@@ -425,11 +510,10 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     fused = fused_by_default(scene.geometry, dev)
     check(fused, f"{scn['scene']}: {nb} blocks, the default engine is not the fused one")
     ov = dict(scn.get("overrides", {}))
-    timed_render(scene, {**ov, "resolution": 64, "spp": 1}, seed=1)  # warm-up
-
-    reset_launches()
-    img, dt = timed_render(scene, ov)
-    launches = read_launches()
+    # the main path: the scene's first render_scene, which launches every kernel
+    # through its wrapper (then captures); later renders replay the graph
+    first_s, launches = first_render(scene, ov, f"[phase 3] {scn['name']}", smi)
+    img, dt = replayed(scene, ov, f"[phase 3] {scn['name']}")
 
     # the primary trace of a multi-block scene goes through the pairs kernel,
     # of a one-block scene through closest_hit; the samples of a multi-block
@@ -448,13 +532,13 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     check(launches == expected, f"{scn['name']}: launches {launches}, want {expected}")
     rays = res * res * (1 + spp * (mb + 1) * (2 if sun else 1))  # counted as bench.py counts
     log(f"[phase 3] {scn['name']} ({scene.num_tris} tris, {nb} blocks) {res}^2 {spp} spp {mb} "
-        f"bounces sun={sun} engine=fused: load {load_s:.2f} s, render "
+        f"bounces sun={sun} engine=fused: load {load_s:.2f} s, replayed render "
         f"{dt:.3f} s, {rays / dt / 1e6:.1f} Mrays/s, mean {mean:.4f}, launches {launches} "
         f"[{smi}]")
     info = dict(name=scn["name"], res=res, spp=spp, max_bounce=mb, sun=sun, blocks=nb,
                 engine="fused", seconds=dt, mrays_per_s=rays / dt / 1e6,
-                launches=launches, mean=mean)
-    info.update(phase_profile(scene, scn["name"], ov))
+                launches=launches, mean=mean, first_call_s=first_s)
+    info.update(phase_profile(scene, scn["name"], ov, want=expected))
     return scene, info
 
 
@@ -474,18 +558,29 @@ KERNEL_GROUPS = {
 }
 
 
-def phase_profile(scene, name: str, overrides: dict, phase: str = "3") -> dict:
-    """Where the time goes in one more render of the scene, traced with
-    torch.profiler: device time of each of the port's kernels and of the
-    other kernels, and the device's idle share of the traced window."""
+def union_length(spans) -> float:
+    """The length of the union of ``(start, end)`` spans: a device's busy
+    time from its kernels' spans."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def phase_profile(scene, name: str, overrides: dict, phase: str = "3",
+                  want: dict = None) -> dict:
+    """Where the time goes in one more render of the scene (a replay of its
+    graph), traced with torch.profiler: device time of each of the port's
+    kernels and of the other kernels, and the device's idle share of the
+    traced window.  The port's kernels in the trace, by counter, must equal
+    ``want`` (the warm-up's launches)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_scene
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with launch_registry().trace() as prof:
         t0 = time.perf_counter()
         render_scene(scene, seed=2, overrides=overrides)
         torch.cuda.synchronize()
@@ -500,11 +595,10 @@ def phase_profile(scene, name: str, overrides: dict, phase: str = "3") -> dict:
     if not spans:
         log(f"[phase {phase}] {name}: profiler saw no device time: breakdown not measured")
         return dict(profile="not measured")
-    busy, end = 0.0, -float("inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    traced = traced_launches(prof)
+    check(want is None or traced == want, f"[phase {phase}] {name}: the profiled replay ran "
+          f"{traced}, the warm-up launched {want}")
+    busy = union_length(spans)
     total_us = sum(by_name.values())
     ours = lambda k, subs: any(x in k for x in subs)
     group_us = {g: sum(v for k, v in by_name.items() if ours(k, subs))
@@ -517,8 +611,10 @@ def phase_profile(scene, name: str, overrides: dict, phase: str = "3") -> dict:
         + ", ".join(f"{g} {v / 1e3:.1f} ms = {v / total_us:.3f}" for g, v in group_us.items())
         + f" of device time; other kernels {other_us / 1e3:.1f} ms, largest: "
         + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for v, k in top))
+    log(f"[phase {phase}] {name} profiled replay ran the port's kernels {traced}")
     out = dict(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-               idle_share=1 - busy / wall_us, other_kernels_ms=other_us / 1e3)
+               idle_share=1 - busy / wall_us, other_kernels_ms=other_us / 1e3,
+               replay_launches=traced)
     for g, v in group_us.items():
         out[f"{g}_ms"] = v / 1e3
         out[f"{g}_share"] = v / total_us
@@ -1339,7 +1435,7 @@ OTHER_PORT_SUBS = KERNEL_GROUPS["closest_hit"] + KERNEL_GROUPS["pairs"] + KERNEL
 
 
 def no_launches(**want) -> dict:
-    out = {k: 0 for counts in launch_counters() for k in counts}
+    out = dict.fromkeys(read_launches(), 0)
     out.update(want)
     return out
 
@@ -1555,10 +1651,9 @@ def grad_profile(forward, seed: int) -> dict:
     port's other kernels, of the rest of the forward (the replay) and of
     the backward, and the device's idle share of the profiled window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with launch_registry().trace() as prof:
         t0 = time.perf_counter()
         with record_function("grad:forward"):
             loss, leaves = forward(seed)
@@ -1589,11 +1684,7 @@ def grad_profile(forward, seed: int) -> dict:
             groups["replay_forward"] += dur
     if not spans:
         return dict(profile="not measured")
-    busy, end = 0.0, -float("inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = union_length(spans)
     busy_us = busy / 1e3
     out = {f"{k}_ms": v / 1e6 for k, v in groups.items()}
     top = sorted(backward_by_name.items(), key=lambda kv: -kv[1])[:3]
@@ -1673,6 +1764,9 @@ def phase_train_step(role, dev, smi: str) -> dict:
     prof = grad_profile(forward, 4)
     init, step = make_train_step(g, m, e, c, Adam(5e-2), **kw)
     p, st = init()
+    # the first step captures the step's graph (utils/graphs); the second replays it
+    _, first_ms = timed_once(
+        lambda: step(p, st, target, torch.Generator(device=dev).manual_seed(6)))
     (p2, _, loss2), train_ms = timed_once(
         lambda: step(p, st, target, torch.Generator(device=dev).manual_seed(5)))
     check(bool(torch.isfinite(loss2)), f"{name}: non-finite train-step loss")
@@ -1686,7 +1780,10 @@ def phase_train_step(role, dev, smi: str) -> dict:
         f"{rec_bytes / 1e9:.3f} GB + {(peak - rec_bytes - ibl_bytes) / esc_bytes:.1f} [spp*N, 3] "
         f"escape tensors of {esc_bytes / 1e9:.4f} GB + one IBL-sized texel gradient of "
         f"{ibl_bytes / 1e9:.3f} GB; max |texel grad| {texel_grad}; train step (Adam, clamps) "
-        f"{train_ms / 1e3:.4f} s [{smi}]")
+        f"{train_ms / 1e3:.4f} s replayed, its first call {first_ms / 1e3:.4f} s (warm-up "
+        f"{step.graph.last_capture['warm_up_s']:.3f} s, capture "
+        f"{step.graph.last_capture['capture_s']:.3f} s, instantiation "
+        f"{step.graph.last_capture['instantiate_s']:.3f} s) [{smi}]")
     if "max_escape_tensors" in role:  # the replay keeps records and escapes, not every bounce
         limit = rec_bytes + role["max_escape_tensors"] * esc_bytes
         check(peak <= limit, f"{name}: peak memory {peak} B above records + "
@@ -1704,7 +1801,8 @@ def phase_train_step(role, dev, smi: str) -> dict:
     return dict(name=name, res=res, spp=spp, max_bounce=mb, sun=sun, blocks=nb,
                 ibl=list(e.ibl.shape), step_s=step_s, mrays_per_s=rays / step_s / 1e6,
                 launches=fwd, peak_bytes=peak, base_bytes=base, record_bytes=rec_bytes,
-                escape_bytes=esc_bytes, ibl_bytes=ibl_bytes, train_step_s=train_ms / 1e3, **prof)
+                escape_bytes=esc_bytes, ibl_bytes=ibl_bytes, train_step_s=train_ms / 1e3,
+                train_step_first_call_s=first_ms / 1e3, **prof)
 
 
 def phase_trainer(dev, smi: str, workdir: Path) -> dict:
@@ -1875,6 +1973,14 @@ def cli_render(scn, path: Path, workdir: Path, smi: str, tag: str, extra=()) -> 
                 accum=st.accum)
 
 
+def traced_call(fn) -> tuple:
+    """``fn()`` under torch.profiler (``launches.trace``): ``(its result,
+    the port's kernels the trace saw run, by counter)``."""
+    with launch_registry().trace() as prof:
+        out = fn()
+    return out, traced_launches(prof)
+
+
 def phase_product(dev, smi: str, workdir: Path, main_renders: dict) -> dict:
     """Phase 12: the CLI's renders at the ini's settings with their launch
     counts, a stopped and resumed render against an uninterrupted one and
@@ -1909,20 +2015,29 @@ def phase_product(dev, smi: str, workdir: Path, main_renders: dict) -> dict:
             cli(["render", str(path), "--resolution", "64", "--spp", "16",
                  "--out", str(workdir / "warm.png")])  # warm-up
             info = cli_render(scn, path, workdir, smi, scn["name"])
+            # the wrappers count the first chunk, which warms up and captures the chunk's
+            # graph; the later chunks replay it, and a trace counts every chunk's kernels
             chunks = spp // CLI_CHUNK
-            want = {**zero, scn["hit"]: chunks,
-                    scn["sample"]: chunks if scn["sample"] == "sample_fused" else spp}
+            fused_sample = scn["sample"] == "sample_fused"
+            want = {**zero, scn["hit"]: 1, scn["sample"]: 1 if fused_sample else CLI_CHUNK}
             check(info["launches"] == want, f"{scn['name']}: cli launches {info['launches']}, "
-                  f"want {want}")
+                  f"want the first chunk's {want}")
             # the same render without checkpoints, and render_scene (one call)
+            nockpt = ["render", str(path), "--chunk-spp", str(CLI_CHUNK), "--out"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            cli(["render", str(path), "--chunk-spp", str(CLI_CHUNK),
-                 "--out", str(workdir / "nockpt" / "out.png")])
+            cli(nockpt + [str(workdir / "nockpt" / "out.png")])
             torch.cuda.synchronize()
             info["seconds_no_checkpoint"] = time.perf_counter() - t0
+            _, traced = traced_call(lambda: cli(nockpt + [str(workdir / "traced" / "out.png")]))
+            want = {**zero, scn["hit"]: chunks, scn["sample"]: chunks if fused_sample else spp}
+            check(traced == want, f"{scn['name']}: a traced cli render ran {traced}, want {want}")
+            info["traced_launches"] = traced
+            log(f"[phase 12] {scn['name']}: cli render, first chunk's launches "
+                f"{info['launches']}; a traced cli render ran {traced}")
             scene = Scene.load(str(path), device=dev)
-            _, info["render_scene_seconds"] = timed_render(scene, {})
+            first_render(scene, {}, f"[phase 12] {scn['name']}", smi)
+            _, info["render_scene_seconds"] = replayed(scene, {}, f"[phase 12] {scn['name']}")
             log(f"[phase 12] {scn['name']}: cli {info['seconds']:.3f} s with checkpoints, "
                 f"{info['seconds_no_checkpoint']:.3f} s without, render_scene "
                 f"{info['render_scene_seconds']:.3f} s (phase 3: "
@@ -2013,8 +2128,11 @@ def phase_product(dev, smi: str, workdir: Path, main_renders: dict) -> dict:
         text = cli(["bench", *BENCH_ARGS])
         bench = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
         check([b["metric"] for b in bench] == ["cornell_forward_mrays_per_s",
-                                               "cornell_fwdbwd_mrays_per_s"]
-              and all(b["value"] > 0 and b["card"] for b in bench), f"bench lines {bench}")
+                                               "cornell_fwdbwd_mrays_per_s",
+                                               "cornell_train_step_mrays_per_s",
+                                               "first_call_seconds"]
+              and all(b["value"] > 0 for b in bench[:3]) and all(b["card"] for b in bench),
+              f"bench lines {bench}")
         for b in bench:
             log(json.dumps(b))
         log(f"[phase 12] bench {time.perf_counter() - t0:.1f} s [{smi}]")
@@ -2284,8 +2402,10 @@ def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
     """13.4 on one scene: its written files loaded with ``Scene.load(...,
     use_bvh=True)`` and rendered with ``render_scene`` at the ini settings
     (the scan estimator: the pack has no features), the launch counts set
-    to 0 just before and read just after; the image against the features
-    pack's scan render (same seed and stream); one more render profiled."""
+    to 0 just before its first call and read just after (the warm-up's
+    launches); a replay timed, the image against the features pack's scan
+    render (same seed and stream); one more replay profiled, its kernels
+    counted from the trace."""
     import dataclasses
 
     import torch
@@ -2305,10 +2425,8 @@ def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
           f"{scn['name']}: Scene.load(use_bvh=True) is not a tree-only pack")
     check(not fused_by_default(scene.geometry, dev), f"{scn['name']}: a tree pack took fused")
     sun = float(scene.env_params().sun_power) != 0.0
-    timed_render(scene, {"resolution": 64, "spp": 1}, seed=1)  # warm-up
-    reset_launches()
-    img, dt = timed_render(scene, {})
-    launches = read_launches()
+    _, launches = first_render(scene, {}, f"[phase 13] {scn['name']} tree", smi)
+    img, dt = replayed(scene, {}, f"[phase 13] {scn['name']} tree")
     traces = 1 + spp * (mb + 1 + (1 if sun else 0))
     want = {k: 0 for k in launches}
     want.update(bvh_trace=traces, uniforms=launches["uniforms"])
@@ -2316,7 +2434,7 @@ def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
     check(tuple(img.shape) == (res, res, 3) and bool(torch.isfinite(img).all()),
           f"{scn['name']}: tree image {tuple(img.shape)}")
     feat_scene = dataclasses.replace(scene, geometry=pack_geometry(scene.mesh, device=dev))
-    timed_render(feat_scene, {"resolution": 64, "spp": 1, "fused": False}, seed=1)
+    first_render(feat_scene, {"fused": False}, f"[phase 13] {scn['name']} features scan", smi)
     img_f, dt_f = timed_render(feat_scene, {"fused": False})
     frac, med, mx = image_forks(img, img_f)
     rays = res * res * (1 + spp * (mb + 1) * (2 if sun else 1))
@@ -2329,7 +2447,7 @@ def phase_tree_render(scn, dev, workdir: Path, smi: str) -> dict:
     info = dict(name=f"{scn['name']}_tree", res=res, spp=spp, max_bounce=mb, sun=sun,
                 engine="scan", seconds=dt, mrays_per_s=rays / dt / 1e6, launches=launches,
                 load_s=load_s, features_scan_seconds=dt_f, pixel_forks=frac, median_diff=med)
-    info.update(phase_profile(scene, f"{scn['name']}_tree", {}, phase="13"))
+    info.update(phase_profile(scene, f"{scn['name']}_tree", {}, phase="13", want=launches))
     return info
 
 
@@ -2494,6 +2612,340 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
                      "product": product}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the compiled entry points as captured CUDA graphs (utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_RUNS = 5  # warm calls timed per path, eager and graphed: the median is kept
+GRAPH_TRAIN = dict(res=128, spp=8, max_bounce=4, steps=3)  # the trainer's steps (phase 11's)
+# phase 14's Cornell value+grad step at 512^2: phase 11 times the graphed step at its 100
+# samples; here at 16 the eager calls and the profiles of its 40 k kernels keep the script short
+GRAPH_STEP_SPP = 16
+GRAPH_RES = 512  # the renders', the progressive chunk's and the Cornell step's resolution
+
+
+def median_s(fn, runs: int = GRAPH_RUNS) -> float:
+    """Median wall of ``fn(i)`` over ``runs`` calls, each ended by a
+    synchronize."""
+    import torch
+
+    times = []
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(10 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def profiled(fn) -> dict:
+    """``fn()`` once under torch.profiler, ended by a synchronize: the device
+    kernels it ran, memsets and copies, the device's busy time (the union of
+    their spans), its idle share of the window and the port's kernels among
+    them, by counter."""
+    import torch
+
+    with launch_registry().trace() as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, kernels, other = [], 0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start = ev.time_range.start
+        spans.append((start, start + ev.time_range.elapsed_us()))
+        name = ev.name.lower()
+        if "memset" in name or "memcpy" in name:
+            other += 1
+        else:
+            kernels += 1
+    if not spans:
+        return dict(profile="not measured")
+    busy = union_length(spans)
+    return dict(kernels=kernels, memsets_and_copies=other, wall_ms=wall_us / 1e3,
+                device_busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
+                port_launches=traced_launches(prof))
+
+
+def same_tensors(a, b) -> bool:
+    """Equal structure and every tensor equal bit for bit."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.utils.graphs import flatten
+
+    (la, sa), (lb, sb) = flatten(a), flatten(b)
+    return sa == sb and len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def graph_path(name: str, graphed, eager, graph, smi: str, runs: int = GRAPH_RUNS) -> dict:
+    """One path of phase 14.  ``graphed(seed)`` and ``eager(seed)`` call the
+    graphed entry point and its eager form on the same inputs with a
+    generator seeded ``seed``; ``graph`` is the entry point's ``Graphed``.
+    The first call captures (its wall, warm-up, capture, instantiation and
+    pool bytes are printed on a line of their own); it, the first replay
+    (same seed) and a replay with a new key must equal the eager call bit
+    for bit.  The wrappers count the launches of the first call's warm-up,
+    which must be the eager call's, and none in a replay; the graph must
+    have recorded them, and a profiled replay must run them (counted in its
+    trace).  Then eager and graphed walls (median of ``runs``) and one
+    profiled call of each."""
+    import torch
+
+    captures = graph.captures
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    first = graphed(1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_launches = read_launches()
+    check(graph.captures == captures + 1, f"[phase 14] {name}: the first call captured "
+          f"{graph.captures - captures} graphs, want 1")
+    cap = dict(graph.last_capture)
+    log(f"[phase 14] {name}: first call {first_s:.3f} s = warm-up {cap['warm_up_s']:.3f} s + "
+        f"capture {cap['capture_s']:.3f} s + instantiation {cap['instantiate_s']:.3f} s + "
+        f"copies; graph pool {cap['pool_bytes'] / 1e6:.1f} MB; port kernel launches the graph "
+        f"recorded {cap['launches']} [{smi}]")
+    reset_launches()
+    ref1 = eager(1)
+    eager_launches = read_launches()
+    reset_launches()
+    rep1 = graphed(1)
+    replay_launches = read_launches()
+    ref2, rep2 = eager(2), graphed(2)
+    torch.cuda.synchronize()
+    equal = dict(first_call=same_tensors(first, ref1), first_replay=same_tensors(rep1, ref1),
+                 new_key=same_tensors(rep2, ref2))
+    check(all(equal.values()), f"[phase 14] {name}: graphed vs eager bit-equal {equal}")
+    check(not same_tensors(rep1, rep2), f"[phase 14] {name}: a new key gave the same output")
+    nonzero = {k: v for k, v in eager_launches.items() if v}
+    counted = {k: v for k, v in replay_launches.items() if v}
+    check(first_launches == eager_launches and not counted and cap["launches"] == nonzero,
+          f"[phase 14] {name}: launches first call {first_launches}, replay {counted}, "
+          f"recorded by the capture {cap['launches']}, eager {eager_launches}")
+    eager_s = median_s(eager, runs)
+    graph_s = median_s(graphed, runs)
+    prof_e = profiled(lambda: eager(3))
+    prof_g = profiled(lambda: graphed(3))
+    check("kernels" in prof_g and "kernels" in prof_e,
+          f"[phase 14] {name}: the profiler saw no device time: the replay's kernels uncounted")
+    check(prof_g["port_launches"] == prof_e["port_launches"] == eager_launches,
+          f"[phase 14] {name}: the profiled replay ran {prof_g['port_launches']}, the profiled "
+          f"eager call {prof_e['port_launches']}, the eager call launched {eager_launches}")
+    check(graph.captures == captures + 1, f"[phase 14] {name}: warm calls captured again")
+    show = lambda p: ("not measured" if "kernels" not in p else
+                      f"{p['kernels']} kernels + {p['memsets_and_copies']} memsets/copies, "
+                      f"wall {p['wall_ms']:.1f} ms, device busy {p['device_busy_ms']:.1f} ms, "
+                      f"idle share {p['idle_share']:.3f}")
+    log(f"[phase 14] {name}: port kernels of the first call's warm-up {nonzero}, counted in "
+        f"a profiled replay {prof_g['port_launches']} [{smi}]")
+    log(f"[phase 14] {name}: bit-equal to eager {equal}; wall eager {eager_s:.4f} s, graphed "
+        f"{graph_s:.4f} s ({eager_s / graph_s:.2f}x; median of {runs}); profiled eager: "
+        f"{show(prof_e)}; profiled replay: {show(prof_g)} [{smi}]")
+    return dict(name=name, bit_equal=equal, first_call_s=first_s, capture=cap,
+                launches=nonzero, eager_s=eager_s, graph_s=graph_s, profile_eager=prof_e,
+                profile_graph=prof_g, runs=runs)
+
+
+def graph_renders(dev, smi: str) -> list:
+    """14.1: ``render_radiance_jit`` against ``render_radiance`` on Cornell
+    (whole-render launch), Cornell with NEE, outdoor_1300 (2b) and a
+    tree-only outdoor_1300 (the scan estimator: ``bvh_trace`` and the RNG
+    kernel), at phase 3's and phase 13's settings."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import (
+        render_radiance,
+        render_radiance_jit,
+    )
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
+
+    cornell = tt.make_cornell_scene(device=dev)
+    outdoor = tt.make_outdoor_scene(n_cubes=1300, device=dev)
+    tree = tt.make_outdoor_scene(n_cubes=1300, use_bvh=True, device=dev)
+    main = dict(height=GRAPH_RES, width=GRAPH_RES, max_bounce=4)
+    paths = [
+        ("render:cornell", cornell, dict(main, spp=MAIN_SPP, sun_enabled=False)),
+        ("render:cornell_nee", cornell, dict(main, spp=MAIN_SPP, sun_enabled=False, nee=True,
+                                             lights=build_light_pack(cornell[0], cornell[1]))),
+        ("render:outdoor_1300", outdoor, dict(main, spp=16, sun_enabled=True)),
+        ("render:outdoor_1300_tree", tree, dict(main, spp=16, sun_enabled=True)),
+    ]
+    out = []
+    for name, scene, kw in paths:
+        gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+        out.append(graph_path(name, lambda s: render_radiance_jit(*scene, gen(s), **kw),
+                              lambda s: render_radiance(*scene, gen(s), **kw),
+                              render_radiance_jit.graph, smi))
+        if name in ("render:cornell_nee", "render:outdoor_1300"):
+            out[-1]["new_values"] = graph_new_values(name, scene, kw)
+    return out
+
+
+def new_values(scene, kw) -> list:
+    """``(label, (geom, materials, env, camera), kw)``: the scene with one
+    copied input changed at a time (the camera, a material's colour, the
+    emitters' power, the sun, the NEE lights), then all of them."""
+    import torch
+
+    g, m, e, c = scene
+    shift = lambda t, v: t + torch.as_tensor(v, dtype=t.dtype, device=t.device)
+    m_color = m._replace(color=m.color * 0.8 + 0.1)
+    m_power = m._replace(roughness=torch.where(m.mtype == 0, m.roughness * 1.25, m.roughness))
+    e_sun = e._replace(sun_power=e.sun_power * 0.5 + 0.25,
+                       sun_angles_deg=shift(e.sun_angles_deg, [3.0, -2.0, 1.0]))
+    c_new = c._replace(position=shift(c.position, [0.05, -0.03, 0.02]),
+                       rotation_deg=shift(c.rotation_deg, [1.0, -1.0, 0.5]))
+    out = [("camera", (g, m, e, c_new), kw), ("material colour", (g, m_color, e, c), kw),
+           ("emitter power", (g, m_power, e, c), kw), ("sun", (g, m, e_sun, c), kw)]
+    kw_all = kw
+    if kw.get("lights") is not None:
+        lp, d = kw["lights"], [0.01, 0.0, -0.01]
+        kw_all = dict(kw, lights=lp._replace(v0=shift(lp.v0, d), v1=shift(lp.v1, d),
+                                             v2=shift(lp.v2, d), power=lp.power * 1.5))
+        out.append(("lights", (g, m, e, c), kw_all))
+    m_all = m_color._replace(roughness=m_power.roughness)
+    out.append(("all", (g, m_all, e_sun, c_new), kw_all))
+    return out
+
+
+def graph_new_values(name: str, scene, kw) -> dict:
+    """After the capture, each copied input given new values (``new_values``)
+    and the IBL, read in place, changed in place: each replay bit-equal to
+    ``render_radiance`` on the new values, and no new capture."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import (
+        render_radiance,
+        render_radiance_jit,
+    )
+
+    graph = render_radiance_jit.graph
+    captures = graph.captures
+    dev = scene[1].color.device
+    gen = lambda: torch.Generator(device=dev).manual_seed(4)
+    before = render_radiance_jit(*scene, gen(), **kw)
+    equal, moved = {}, {}
+    for label, args, kw2 in new_values(scene, kw):
+        img = render_radiance_jit(*args, gen(), **kw2)
+        equal[label] = torch.equal(img, render_radiance(*args, gen(), **kw2))
+        moved[label] = not torch.equal(img, before)
+    ibl = scene[2].ibl
+    saved = ibl.clone()
+    ibl.mul_(0.75)
+    img = render_radiance_jit(*scene, gen(), **kw)
+    equal["IBL in place"] = torch.equal(img, render_radiance(*scene, gen(), **kw))
+    moved["IBL in place"] = not torch.equal(img, before)
+    ibl.copy_(saved)
+    check(all(equal.values()) and moved["all"] and graph.captures == captures,
+          f"[phase 14] {name}: replays on new values bit-equal to eager {equal}, changed the "
+          f"image {moved}, {graph.captures - captures} new captures")
+    log(f"[phase 14] {name}: replays after new values, bit-equal to eager on them {equal}; "
+        f"image changed {moved}; no new capture")
+    return dict(bit_equal=equal, changed=moved)
+
+
+def graph_progressive(dev, smi: str, workdir: Path) -> dict:
+    """14.2: the progressive chunk function (Cornell 512^2, chunks of
+    ``CLI_CHUNK`` samples) against its eager form, and a render stopped after
+    two chunks and resumed whose sum equals the float64 fold of eager
+    ``render_radiance`` chunks bit for bit."""
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import iteration_generator
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
+    from ensem3a_openclraytracer_tpu_torch.models.progressive import ProgressiveRenderer
+
+    g, m, e, c = tt.make_cornell_scene(device=dev)
+    res, spp, mb = GRAPH_RES, MAIN_SPP, 4
+    kw = dict(height=res, width=res, max_bounce=mb, chunk_spp=CLI_CHUNK, sun_enabled=False)
+    r = ProgressiveRenderer(g, m, e, c, base_seed=7, **kw)
+    gen = lambda s: iteration_generator(7, s, dev)
+    info = graph_path("progressive:cornell_chunk", lambda s: r._chunk_fn(gen(s)),
+                      lambda s: r._render.eager(g, m, e, c, gen(s)), r._render.graph, smi)
+    ckpt = str(workdir / "graphs_progressive.npz")
+    ProgressiveRenderer(g, m, e, c, base_seed=7, **kw).render(2 * CLI_CHUNK, checkpoint_path=ckpt)
+    resumed = ProgressiveRenderer.resume(ckpt, g, m, e, c, **kw)
+    resumed.render(spp)
+    acc = np.zeros((res, res, 3))
+    for i in range(spp // CLI_CHUNK):
+        chunk = render_radiance(g, m, e, c, gen(i), height=res, width=res, spp=CLI_CHUNK,
+                                max_bounce=mb, sun_enabled=False)
+        acc = acc + chunk.cpu().numpy().astype(np.float64) * CLI_CHUNK
+    equal = bool(np.array_equal(resumed.state.accum, acc))
+    check(equal, "[phase 14] progressive: the resumed graphed render differs from the eager fold")
+    log(f"[phase 14] progressive: Cornell {res}^2, {spp} spp in chunks of {CLI_CHUNK}, stopped "
+        f"after 2 chunks and resumed: accum bit-equal to the eager fold {equal}")
+    return dict(info, resumed_bit_equal=equal)
+
+
+def graph_steps(dev, smi: str) -> list:
+    """14.3: ``make_train_step``'s step against ``step.eager``: the Cornell
+    trainer (``GRAPH_TRAIN``: one step as a path, then three chained steps
+    from the same start, bit-equal), the texel step (phase 11's), and
+    Cornell value+grad at 512^2 (``GRAPH_STEP_SPP`` samples)."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import (
+        Adam,
+        iteration_generator,
+        make_train_step,
+    )
+    from ensem3a_openclraytracer_tpu_torch.scene.materials import default_sky
+
+    cornell = tt.make_cornell_scene(device=dev)
+    texel = tt.make_outdoor_scene(n_cubes=64, device=dev)
+    texel = (*texel[:2], texel[2]._replace(ibl=torch.as_tensor(default_sky(*TEXEL_IBL),
+                                                                device=dev)), texel[3])
+    t_res, t_spp, t_mb = GRAPH_TRAIN["res"], GRAPH_TRAIN["spp"], GRAPH_TRAIN["max_bounce"]
+    x_res, x_spp, x_mb = TEXEL_SHAPE
+    cases = [
+        ("step:cornell_trainer", cornell, dict(height=t_res, width=t_res, spp=t_spp,
+                                               max_bounce=t_mb, sun_enabled=False), GRAPH_RUNS),
+        ("step:outdoor64_texel", texel, dict(height=x_res, width=x_res, spp=x_spp,
+                                             max_bounce=x_mb, sun_enabled=True), GRAPH_RUNS),
+        ("step:cornell_fwdbwd", cornell, dict(height=GRAPH_RES, width=GRAPH_RES,
+                                              spp=GRAPH_STEP_SPP, max_bounce=4,
+                                              sun_enabled=False), GRAPH_RUNS),
+    ]
+    out = []
+    for name, (g, m, e, c), kw, runs in cases:
+        init, step = make_train_step(g, m, e, c, Adam(5e-2), **kw)
+        p, st = init()
+        target = torch.zeros((kw["height"], kw["width"], 3), device=dev)
+        gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+        info = graph_path(name, lambda s: step(p, st, target, gen(s)),
+                          lambda s: step.eager(p, st, target, gen(s)), step.graph, smi, runs)
+        if name == "step:cornell_trainer":
+            runs_of = {}
+            for label, fn in (("graphed", step), ("eager", step.eager)):
+                q, s_, losses = p, st, []
+                for i in range(GRAPH_TRAIN["steps"]):
+                    q, s_, loss = fn(q, s_, target, iteration_generator(5, i, dev))
+                    losses.append(loss)
+                runs_of[label] = (q, s_, losses)
+            equal = same_tensors(runs_of["graphed"], runs_of["eager"])
+            check(equal, f"[phase 14] {name}: {GRAPH_TRAIN['steps']} chained steps differ")
+            log(f"[phase 14] {name}: {GRAPH_TRAIN['steps']} chained steps bit-equal to eager "
+                f"{equal}: losses {[float(x) for x in runs_of['graphed'][2]]}")
+            info["chained_bit_equal"] = equal
+        out.append(info)
+        del step, init
+    return out
+
+
+def phase_graphs(dev, smi: str, workdir: Path) -> dict:
+    """Phase 14: every graphed entry point against its eager form."""
+    renders = graph_renders(dev, smi)
+    progressive = graph_progressive(dev, smi, workdir)
+    steps = graph_steps(dev, smi)
+    return dict(renders=renders, progressive=progressive, steps=steps)
+
+
 def main() -> int:
     import torch
 
@@ -2531,7 +2983,12 @@ def main() -> int:
     kernels += tree_lines
     log(f"[phase 13] wall {time.perf_counter() - t13:.1f} s")
 
-    summary = {"card": smi, **summary, "tree": tree}
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        graphs = phase_graphs(dev, smi, Path(tmp))
+    log(f"[phase 14] wall {time.perf_counter() - t14:.1f} s")
+
+    summary = {"card": smi, **summary, "tree": tree, "graphs": graphs}
     log(f"[summary] {json.dumps(summary)}")
     log(f"[summary] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -334,21 +334,41 @@ def _median_s(fn, dev, runs: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def _first_call_s(fn, dev) -> float:
+    """Wall time of ``fn(0)``, the call that captures a graph on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn(0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
 def cmd_bench(args) -> int:
-    """``bench.py``'s Cornell throughput metrics measured on the port: the
-    forward render (512^2, 100 spp, 4 bounces, no sun) and value+grad of
-    the image loss at the same shape, one JSON line each."""
+    """``bench.py``'s Cornell throughput metrics measured on the port, as the
+    JAX package times its compiled functions: the forward render (512^2,
+    100 spp, 4 bounces, no sun) through ``render_radiance_jit``, value+grad
+    of the image loss at the same shape through a graphed
+    ``value_and_grad`` (as bench.py jits it), and a whole train step (the
+    same value+grad, Adam and the clamps) through ``make_train_step``, one
+    JSON line each, timed after the call that captures their graphs; then a
+    line with those first calls' seconds (capture included)."""
     if args.scaling:
         return cmd_bench_scaling(args)
     import torch
 
     from ensem3a_openclraytracer_tpu_torch._device import resolve_device
     from ensem3a_openclraytracer_tpu_torch.models.optimize import (
+        Adam,
         TrainableParams,
+        make_train_step,
         value_and_grad,
     )
-    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance_jit
+    from ensem3a_openclraytracer_tpu_torch.ops.rng import key_from_generator
     from ensem3a_openclraytracer_tpu_torch.testing import make_cornell_scene
+    from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
     from ensem3a_openclraytracer_tpu_torch.utils.profiling import rays_per_render
 
     dev = resolve_device(args.device)
@@ -368,15 +388,29 @@ def cmd_bench(args) -> int:
                           "value": round(rays_per_render(res, spp, mb, False) / seconds / 1e6, 3),
                           "unit": "Mrays/s", "seconds": seconds, **where}), flush=True)
 
+    forward = lambda i: render_radiance_jit(geom, materials, env, camera, gen(i), **kw)
     with torch.no_grad():
-        emit("cornell_forward_mrays_per_s", _median_s(
-            lambda i: render_radiance(geom, materials, env, camera, gen(i), **kw), dev))
+        first = {"forward": _first_call_s(forward, dev)}
+        emit("cornell_forward_mrays_per_s", _median_s(forward, dev))
+
+    def loss_and_grads(params, target, key):
+        return value_and_grad(params, target, geom, materials, env, camera, key=key, **kw)
 
     params = TrainableParams.from_scene_params(materials, env)
     target = torch.zeros((res, res, 3), device=dev)
+    graphed = Graphed(loss_and_grads)
+    fwdbwd = lambda i: graphed(params, target, key_from_generator(gen(i), dev))
+    first["fwdbwd"] = _first_call_s(fwdbwd, dev)
+    emit("cornell_fwdbwd_mrays_per_s", _median_s(fwdbwd, dev))
+    graphed.clear()  # its memory pool, before the step captures its own
 
-    emit("cornell_fwdbwd_mrays_per_s", _median_s(
-        lambda i: value_and_grad(params, target, geom, materials, env, camera, gen(i), **kw), dev))
+    init, step = make_train_step(geom, materials, env, camera, Adam(1e-2), **kw)
+    params, opt_state = init()
+    train = lambda i: step(params, opt_state, target, gen(i))
+    first["train_step"] = _first_call_s(train, dev)
+    emit("cornell_train_step_mrays_per_s", _median_s(train, dev))
+    print(json.dumps({"metric": "first_call_seconds", **first, "unit": "s",
+                      "note": "warm-up and graph capture on the card", **where}), flush=True)
     return 0
 
 

@@ -41,6 +41,7 @@ from ensem3a_openclraytracer_tpu_torch.experiments.common import (
     run_main,
 )
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST
 
 RT = 1024  # slots per queue tile
@@ -51,7 +52,7 @@ NO_HIT_KEY = int(torch.tensor(MAX_DIST, dtype=torch.float32).view(torch.int32)) 
 TILE_CHUNK = 64  # queue tiles per step of the plain version (bounds its memory)
 
 # Launches of the CUDA kernel (one per round); only a launch on the card counts.
-LAUNCHES = {"pair_compact": 0}
+LAUNCHES = launches.counter({"pair_compact": ("pair_compact_kernel",)})
 
 
 class Visit(NamedTuple):

@@ -36,13 +36,14 @@ import torch
 from ensem3a_openclraytracer_tpu_torch._device import DeviceLike
 from ensem3a_openclraytracer_tpu_torch.experiments.common import MAX_RT, run_main
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST
 
 RT = 1024  # rays per tile of the schedule
 SUB = 256  # rays per sub-tile: one CUDA block of SUB threads (csrc/grouped_pairs.cu's SUB)
 
 # Launches of the CUDA kernel; only a launch on the card counts.
-LAUNCHES = {"grouped_pairs": 0}
+LAUNCHES = launches.counter({"grouped_pairs": ("grouped_pairs_kernel",)})
 
 
 class Schedule(NamedTuple):

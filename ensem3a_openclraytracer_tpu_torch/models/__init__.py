@@ -16,6 +16,7 @@ from ensem3a_openclraytracer_tpu_torch.models.optimize import (
 from ensem3a_openclraytracer_tpu_torch.models.pathtracer import (
     render_image,
     render_radiance,
+    render_radiance_jit,
     render_scene,
     trace,
 )
@@ -43,6 +44,7 @@ __all__ = [
     "render_for_grad",
     "render_image",
     "render_radiance",
+    "render_radiance_jit",
     "render_radiance_replay",
     "render_scene",
     "replay_radiance",

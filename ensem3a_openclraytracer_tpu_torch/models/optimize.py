@@ -13,6 +13,15 @@ state is plain tensors, so a run stopped at iteration k resumes from an
 ``i`` renders with the generator :func:`iteration_generator` makes from
 (base seed, ``i``).  The JAX package's ``fold_in(key, i)`` plays that part
 there; the two packages' streams differ.
+
+The train step of :func:`make_train_step` is the counterpart of the JAX
+package's ``jax.jit`` step: on a one-rank mesh on the card the whole step
+(record, replay, backward, the fixed-point gradient sums, Adam and the
+clamps) is one captured CUDA graph (``utils/graphs.Graphed``), replayed
+with each step's inputs copied in and its key words drawn before the
+replay; on the CPU and on a mesh of several ranks it runs eagerly.
+:func:`value_and_grad` stays eager, as the JAX package's un-jitted
+function does.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.parallel.mesh import Mesh, single_device_mesh
 from ensem3a_openclraytracer_tpu_torch.parallel.render import fold_ranks, render_rows
 from ensem3a_openclraytracer_tpu_torch.scene.materials import EnvParams, MaterialParams
+from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
 
 
 class TrainableParams(NamedTuple):
@@ -74,7 +84,7 @@ def render_for_grad(params: TrainableParams, geom, materials: MaterialParams, en
     next-event estimator, and ``mis=True`` (implies NEE) renders with the
     scan estimator, since the recorder has no MIS mode.  ``stream`` may
     hold explicit ``uniforms`` / ``light_uniforms`` in place of the
-    generator's.
+    generator's, and ``key`` the generator's key words on a one-rank mesh.
 
     It returns this rank's rows ``[height / dp, width, 3]`` of ``mesh``
     (``parallel/mesh``; default 1x1, the whole image), averaged over the
@@ -171,13 +181,22 @@ def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, opt
     ``optimizer`` and clamps colors to [0, 1] and powers, roughness and
     texels to >= 0.  The inputs are not modified.  The target is this
     rank's rows of ``mesh`` (default 1x1) and every rank takes the same
-    update."""
+    update.
+
+    On a one-rank mesh on the card ``step`` replays one captured CUDA
+    graph of the whole step (module docstring): the first step captures
+    it, the spp chunking of the replay decided before the capture; the key
+    words are drawn from ``gen`` before each replay, so a step gives the
+    same update bit for bit, graph or eager.  ``step.graph`` is its
+    ``Graphed`` (None on several ranks) and ``step.eager(params, opt_state,
+    target, gen)`` the same step without a graph."""
     kw = dict(height=height, width=width, spp=spp, max_bounce=max_bounce,
               sun_enabled=sun_enabled, nee=nee, lights=lights, mis=mis, mesh=mesh)
 
-    def step(params: TrainableParams, opt_state: AdamState, target: torch.Tensor,
-             gen: Optional[torch.Generator]):
-        loss, grads = value_and_grad(params, target, geom, materials, env, camera, gen, **kw)
+    def update(params: TrainableParams, opt_state: AdamState, target: torch.Tensor,
+               gen: Optional[torch.Generator] = None, key: Optional[torch.Tensor] = None):
+        loss, grads = value_and_grad(params, target, geom, materials, env, camera, gen, key=key,
+                                     **kw)
         with torch.no_grad():
             new, opt_state = optimizer.update(grads, opt_state, TrainableParams(*params))
             new = TrainableParams(
@@ -188,6 +207,16 @@ def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, opt
                 ibl=torch.clamp(new.ibl, min=0.0),
             )
         return new, opt_state, loss
+
+    graphed = Graphed(update) if mesh is None or mesh.size == 1 else None
+
+    def step(params: TrainableParams, opt_state: AdamState, target: torch.Tensor,
+             gen: Optional[torch.Generator]):
+        if graphed is None:  # several ranks: the gradient sum over the mesh stays eager
+            return update(params, opt_state, target, gen)
+        return graphed(params, opt_state, target, key=rng.key_from_generator(gen, target.device))
+
+    step.graph, step.eager = graphed, update  # the captures, and the step without a graph
 
     def init(params: Optional[TrainableParams] = None):
         p = TrainableParams.from_scene_params(materials, env) if params is None else params

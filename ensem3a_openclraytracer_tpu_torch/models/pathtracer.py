@@ -39,6 +39,14 @@ engine draws the same stream inside its kernel, with ``N`` indexed by
 position in its (Morton-permuted, on multi-block scenes) batch.  Trace
 outputs are detached; on the scan path material and environment tensors
 stay live, so autograd reaches them.  The fused engine is forward-only.
+
+Entry points: :func:`render_radiance` runs eagerly, as the JAX package's
+un-jitted function does; :func:`render_radiance_jit`, its counterpart of
+``jax.jit(render_radiance)``, replays a captured CUDA graph of the whole
+render on the card (``utils/graphs.Graphed``: the geometry pack and the
+IBL read in place, the other tensors copied in, the key words drawn from
+``gen`` before the replay) and runs eagerly on the CPU.  :func:`render_scene`
+calls it.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     MaterialParams,
 )
 from ensem3a_openclraytracer_tpu_torch.scene.scene import GeometryPack, LightPack
+from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
 
 class _Escape(NamedTuple):
     """Per-lane escape record: a path leaves the scene at most once."""
@@ -144,13 +153,19 @@ def radiance_for_rays(
     light_uniforms: Optional[torch.Tensor] = None,
     mis: bool = False,
     engine: str = "kernel",
+    key: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Radiance ``[N, 3]`` of a primary-ray batch: the unclamped mean
     over ``spp`` samples.  ``fused`` picks the engine (module docstring;
     ``None`` chooses).  ``engine="plain"`` sends every kernel's work to
-    its plain version even on the card (a reference for the kernels)."""
+    its plain version even on the card (a reference for the kernels).
+    ``key`` (``[2]`` int32, ``ops/rng.key_from_generator``) may stand in
+    for ``gen``: the key words that ``gen`` would give.  Explicit
+    ``uniforms`` take the place of both."""
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r}")
+    if key is not None and gen is not None:
+        raise ValueError("give one random source: gen or key")
     if mis and not nee:
         raise ValueError("mis=True requires nee=True (and lights)")
     if nee and lights is None:
@@ -175,9 +190,8 @@ def radiance_for_rays(
                              "stream (no explicit uniforms)")
         if _needs_grad(materials, env, lights):
             raise ValueError("the fused engine is forward-only: differentiate with fused=False")
-    if uniforms is None and gen is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
+    if uniforms is None and key is None:
+        key = rng.key_from_generator(gen, dev)
     tr = lambda o, d: trace(geom, o, d, engine)
 
     primary_hit = tr(ray_o, ray_d)
@@ -188,7 +202,6 @@ def radiance_for_rays(
         return sample_ibl(env.ibl, d, bilinear=ibl_bilinear) * env.ibl_power
 
     primary_miss_rad = select(primary_hit.hit, torch.zeros_like(ray_d), env_radiance(ray_d))
-    key = rng.key_from_generator(gen, dev) if uniforms is None else None
 
     if fused:
         # prepared once per render; multi-block scenes permute the rays by
@@ -255,8 +268,9 @@ def radiance_for_rays(
         emis_w = torch.ones_like(primary_hit.t)
         zeros3 = torch.zeros_like(ray_d)
         no = torch.zeros_like(primary_hit.hit)
-        esc = _Escape(escaped=no, p=zeros3, dir=zeros3 + ray_d.new_tensor([0.0, 0.0, 1.0]),
-                      thr=zeros3, glass=no)
+        up = torch.zeros_like(ray_d)
+        up[:, 2] = 1.0  # made on the device: a graph captures no copy from the host
+        esc = _Escape(escaped=no, p=zeros3, dir=up, thr=zeros3, glass=no)
         sampled = None
         for j in range(max_bounce + 1):
             u1, u2 = us[j, :, 0], us[j, :, 1]
@@ -347,6 +361,39 @@ def render_radiance(
     return rad.reshape(height, width, 3)
 
 
+_RENDER_GRAPHS = Graphed(render_radiance, in_place=("geom", "env.ibl"))
+
+
+def render_radiance_jit(
+    geom: GeometryPack,
+    materials: MaterialParams,
+    env: EnvParams,
+    camera: CameraParams,
+    gen: Optional[torch.Generator] = None,
+    *,
+    height: int,
+    width: int,
+    **kwargs,
+) -> torch.Tensor:
+    """:func:`render_radiance` as one captured CUDA graph on the card, the
+    counterpart of the JAX package's ``render_radiance_jit``: the first call
+    with new Python settings (its ``static_argnames``: ``height``,
+    ``width``, ``spp``, ``max_bounce``, ``sun_enabled``, ``ibl_bilinear``,
+    ``nee``, ``fused``, ``glass_mode``, ``mis``), shapes, geometry pack or
+    IBL renders eagerly and captures; later calls replay.  A graph goes,
+    with its memory, when the pack or the IBL it reads is freed
+    (``render_radiance_jit.graph.clear()`` drops them all).  The key words are
+    drawn from ``gen`` (seed 0 when None) before the replay, so the same
+    generator gives the same image bit for bit, graph or eager.  Forward
+    only; on CPU tensors it runs :func:`render_radiance` eagerly."""
+    if kwargs.get("uniforms") is None and kwargs.get("key") is None:
+        kwargs["key"] = rng.key_from_generator(gen, geom.v0.device)
+    return _RENDER_GRAPHS(geom, materials, env, camera, height=height, width=width, **kwargs)
+
+
+render_radiance_jit.graph = _RENDER_GRAPHS  # its captures (utils/graphs.Graphed)
+
+
 def render_image(*args, **kwargs) -> torch.Tensor:
     """Radiance clamped to [0, 1] (the reference's output stage,
     Raytracing.cl:216-219)."""
@@ -355,8 +402,9 @@ def render_image(*args, **kwargs) -> torch.Tensor:
 
 def render_scene(scene, seed: int = 0, overrides: Optional[dict] = None) -> torch.Tensor:
     """Render a loaded ``Scene`` at its ini settings on the scene's
-    device; ``overrides`` may set resolution, spp, max_bounce, nee, mis,
-    glass_mode or fused.  Returns the clamped image ``[res, res, 3]``."""
+    device through :func:`render_radiance_jit`; ``overrides`` may set
+    resolution, spp, max_bounce, nee, mis, glass_mode or fused.  Returns the
+    clamped image ``[res, res, 3]``."""
     overrides = overrides or {}
     rs = scene.config.render_settings()
     res = int(overrides.get("resolution", rs.resolution))
@@ -373,7 +421,7 @@ def render_scene(scene, seed: int = 0, overrides: Optional[dict] = None) -> torc
         nee = lights is not None
     gen = torch.Generator(device=scene.device)
     gen.manual_seed(int(seed))
-    radiance = render_radiance(
+    radiance = render_radiance_jit(
         scene.geometry, materials, env, scene.camera_params(), gen,
         height=res, width=res, spp=spp, max_bounce=max_bounce, sun_enabled=sun_enabled,
         lights=lights, nee=nee, mis=mis and nee,

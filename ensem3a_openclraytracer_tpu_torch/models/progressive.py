@@ -8,12 +8,16 @@ renders with :func:`~ensem3a_openclraytracer_tpu_torch.models.optimize.iteration
 ``(base_seed, i)``, a pure function of the two, so a resumed or retried
 chunk draws the samples it drew before.
 
-Each chunk is one ``parallel/render.render_radiance_sharded`` call with
-the default engine, gathered on every rank of ``mesh``; without a mesh it
-runs on a 1x1 mesh, which renders ``render_radiance``'s chunk bit for
-bit.  Its radiance times ``chunk_spp`` is added, in float64 and on the
-device, to a copy of ``accum``; the copy comes back to the host only at
-checkpoints and at the end (the fold).  The sum is the same left fold whatever the
+Each chunk is one call of a ``parallel/render.make_sharded_renderer``
+function with the default engine, gathered on every rank of ``mesh``;
+without a mesh it runs on a 1x1 mesh, which renders ``render_radiance``'s
+chunk bit for bit.  On a one-rank mesh on the card that function is a
+captured CUDA graph, as the JAX package jits its chunk function: the
+first chunk captures it, and every later chunk replays it with its own
+key words.  Checkpoints, retries and the float64 sum stay eager.  Its
+radiance times ``chunk_spp`` is added, in float64 and on the device, to a
+copy of ``accum``; the copy comes back to the host only at checkpoints
+and at the end (the fold).  The sum is the same left fold whatever the
 checkpoint interval, so a render stopped and resumed is bit-equal to one
 that ran through.  ``state.spp_done`` counts folded samples only; the
 samples still on the device are ``spp_pending``.
@@ -31,7 +35,7 @@ import torch
 
 from ensem3a_openclraytracer_tpu_torch.models.optimize import iteration_generator
 from ensem3a_openclraytracer_tpu_torch.parallel.mesh import Mesh, single_device_mesh
-from ensem3a_openclraytracer_tpu_torch.parallel.render import render_radiance_sharded
+from ensem3a_openclraytracer_tpu_torch.parallel.render import gather_image, make_sharded_renderer
 
 
 @dataclass
@@ -95,14 +99,14 @@ class ProgressiveRenderer:
                                                spp_done=0, base_seed=base_seed)
         self.spp_pending = 0  # rendered samples not yet folded into state.accum
         self._acc = None  # on the device: state.accum plus the pending chunks
-        self._kw = dict(height=height, width=width, spp=chunk_spp, max_bounce=max_bounce,
-                        sun_enabled=sun_enabled, lights=lights, nee=nee,
-                        glass_mode=glass_mode, mis=mis)
+        self._render = make_sharded_renderer(
+            self.mesh, height=height, width=width, spp=chunk_spp, max_bounce=max_bounce,
+            sun_enabled=sun_enabled, lights=lights, nee=nee, glass_mode=glass_mode, mis=mis)
 
     def _chunk_fn(self, gen: torch.Generator) -> torch.Tensor:
         """One chunk's mean radiance ``[H, W, 3]``."""
-        return render_radiance_sharded(self.mesh, self.geom, self.materials, self.env,
-                                       self.camera, gen, gather=True, **self._kw)
+        rows = self._render(self.geom, self.materials, self.env, self.camera, gen)
+        return gather_image(self.mesh, rows)
 
     def _chunk_with_retry(self, index: int) -> torch.Tensor:
         for attempt in range(self.max_chunk_retries + 1):

@@ -306,7 +306,8 @@ def replay_radiance(records: PathRecords, geom: GeometryPack, materials: Materia
         n, mt, col, rough, ior = prim
         emit_ok = torch.ones_like(live)
         esc_thr = zero3
-        esc_dir = zero3 + ray_d.new_tensor([0.0, 0.0, 1.0])  # keeps the IBL lookup NaN-free
+        esc_dir = torch.zeros_like(ray_d)
+        esc_dir[:, 2] = 1.0  # keeps the IBL lookup NaN-free; made on the device for graphs
         esc_sun = torch.full((n_rays,), -1, dtype=torch.int32, device=ray_d.device)
         esc_glass = torch.zeros_like(live)
         for j in range(mb1):
@@ -435,12 +436,14 @@ def radiance_for_rays_replay(
     nee: bool = False,
     lights: Optional[LightPack] = None,
     light_uniforms: Optional[torch.Tensor] = None,
+    key: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Differentiable counterpart of ``radiance_for_rays(..., fused=False)``:
     the same estimator and, without explicit uniforms, the same Philox
-    stream (two key words drawn from ``gen``, seed 0 when None), but the
-    backward pass never traces.  ``nee=True`` (with ``lights``) records
-    shadow-ray visibility and replays the NEE estimator.
+    stream (two key words drawn from ``gen``, seed 0 when None, or given
+    as ``key``), but the backward pass never traces.  ``nee=True`` (with
+    ``lights``) records shadow-ray visibility and replays the NEE
+    estimator.
 
     ``spp_chunk`` bounds the live record memory: samples are recorded and
     replayed ``spp_chunk`` at a time under ``torch.utils.checkpoint``, and
@@ -451,11 +454,9 @@ def radiance_for_rays_replay(
     samples."""
     dev = ray_o.device
     n_rays = ray_o.shape[0]
-    key = None
-    if uniforms is None:
-        if gen is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(0)
+    if key is not None and gen is not None:
+        raise ValueError("give one random source: gen or key")
+    if uniforms is None and key is None:
         key = rng.key_from_generator(gen, dev)
     if spp_chunk is None:
         per_sample = n_rays * (max_bounce + 1) * (36 if nee else 16)

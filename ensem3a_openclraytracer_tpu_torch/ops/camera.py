@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import euler_xyz_matrix, normalize
@@ -22,6 +21,15 @@ def focal_distance(fov_rad) -> torch.Tensor:
     return 1.0 / (2.0 * torch.tan(torch.as_tensor(fov_rad, dtype=torch.float32) / 2.0))
 
 
+def _centres(n: int, dev) -> torch.Tensor:
+    """``(i + 0.5) / n`` for ``i < n`` in float32, made on ``dev`` (no copy
+    from the host, so a CUDA graph can capture it) and divided by a tensor:
+    on the card a division by a Python number multiplies by its rounded
+    reciprocal, which is not always the quotient."""
+    i = torch.arange(n, dtype=torch.float32, device=dev)
+    return (i + 0.5) / torch.full((), n, dtype=torch.float32, device=dev)
+
+
 def camera_rays(position: torch.Tensor, rot_deg: torch.Tensor, fov_deg: torch.Tensor,
                 height: int, width: int):
     """One primary ray per pixel: ``(origins [H*W, 3], unit directions
@@ -29,11 +37,8 @@ def camera_rays(position: torch.Tensor, rot_deg: torch.Tensor, fov_deg: torch.Te
     dev = position.device
     fov_rad = fov_deg.to(torch.float32) * (math.pi / 180.0)
     f = focal_distance(fov_rad)
-    rows = (np.arange(height, dtype=np.float32) + 0.5) / height
-    cols = (np.arange(width, dtype=np.float32) + 0.5) / width
-    gx, gz = np.meshgrid(cols - 0.5, (0.5 - rows) * (height / width), indexing="xy")
-    gx = torch.as_tensor(gx, device=dev)
-    gz = torch.as_tensor(gz, device=dev)
+    rows, cols = _centres(height, dev), _centres(width, dev)
+    gz, gx = torch.meshgrid((0.5 - rows) * (height / width), cols - 0.5, indexing="ij")
     local = torch.stack([gx, f.expand_as(gx), gz], dim=-1)
     m = euler_xyz_matrix(rot_deg.to(torch.float32))
     d = normalize(torch.einsum("ij,hwj->hwi", m, local)).reshape(-1, 3)

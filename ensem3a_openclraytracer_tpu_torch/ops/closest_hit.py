@@ -28,6 +28,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST, MIN_HIT_DIST
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 
@@ -40,7 +41,8 @@ MAX_KERNEL_BLOCKS = 16384
 
 # Launches of the CUDA kernel, by kernel name.  Only a launch on the card
 # counts; the CPU path runs the plain version and counts nothing.
-LAUNCHES = {"closest_hit": 0}
+LAUNCHES = launches.counter(
+    {"closest_hit": ("resident_hit_kernel", "closest_hit_kernel")})
 
 
 class TriFeatures(NamedTuple):

@@ -52,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
     EMISSIVE,
     GLASS,
@@ -87,7 +88,8 @@ N_ATTR = 8
 # :func:`render_fused_resident`, or one sample through
 # :func:`sample_fused_blocks`), ``sample_fused_queue`` counts
 # ``csrc/fused_queue.cu``.  Only a launch on the card counts.
-LAUNCHES = {"sample_fused": 0, "sample_fused_queue": 0}
+LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_sample_kernel"),
+                             "sample_fused_queue": ("fused_queue_kernel",)})
 
 # Scenes of at least this many triangle blocks take ``csrc/fused_queue.cu``
 # on the card (:func:`sample_fused_queue`); one-block scenes keep
@@ -422,7 +424,12 @@ class _Launch:
                      self.nb)
         self.mid = (tri_attrs.data_ptr(), *(ptr(x) for x in light_cols), n_lights,
                     ptr(uniforms), ptr(key), int(sample))
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    @property
+    def stream(self) -> int:
+        """The stream current when the kernel launches (under graph capture,
+        the capture's)."""
+        return torch.cuda.current_stream(self.dev).cuda_stream
 
     def tail(self, record):
         """One sample's outputs ``(rad, esc_thr, esc_dir[, u, tri, sun_tri])``

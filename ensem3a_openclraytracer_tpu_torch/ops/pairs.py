@@ -28,6 +28,7 @@ from typing import List, Tuple
 import torch
 
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 
@@ -43,7 +44,7 @@ NO_HIT_KEY = int(torch.tensor(MAX_DIST, dtype=torch.float32).view(torch.int32)) 
 _NO_KEY = torch.iinfo(torch.int64).max
 
 # Launches of the CUDA kernel; only a launch on the card counts.
-LAUNCHES = {"pairs": 0}
+LAUNCHES = launches.counter({"pairs": ("pairs_kernel",)})
 
 
 def key_t(key: torch.Tensor) -> torch.Tensor:

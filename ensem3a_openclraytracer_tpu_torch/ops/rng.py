@@ -26,16 +26,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
 _MASK = 0xFFFFFFFF
 
 # Launches of the CUDA kernel; only a launch on the card counts.
-LAUNCHES = {"uniforms": 0}
+LAUNCHES = launches.counter({"uniforms": ("uniforms_kernel",)})
 
 
 def philox4x32_10(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
@@ -69,9 +71,13 @@ def fold_seed(seed: int, i: int) -> int:
     return (w[0] << 32) | w[1]
 
 
-def key_from_generator(gen: torch.Generator, device: torch.device) -> torch.Tensor:
+def key_from_generator(gen: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
     """Two random key words ``[2]`` int32 (uint32 bit patterns) drawn from
-    ``gen`` on ``device``: the kernels read them there, with no host sync."""
+    ``gen`` (``None``: a generator seeded 0) on ``device``: the kernels read
+    them there, with no host sync."""
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
     return torch.randint(-(2 ** 31), 2 ** 31, (2,), generator=gen, device=device,
                          dtype=torch.int64).to(torch.int32)
 

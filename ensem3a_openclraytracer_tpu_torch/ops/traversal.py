@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import _check
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import (
     MAX_DIST,
@@ -56,7 +57,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 MAX_STACK = 64
 
 # Launches of the CUDA kernel; only a launch on the card counts.
-LAUNCHES = {"bvh_trace": 0}
+LAUNCHES = launches.counter({"bvh_trace": ("bvh_trace_kernel",)})
 
 
 class BVHNodes(NamedTuple):

@@ -14,7 +14,8 @@ seeded ``fold_seed(fold_seed(seed, dp_idx), sp_idx)``
 ``fold_in(fold_in(key, dp), sp)``; ``seed`` is the caller's integer, or
 is drawn from the caller's generator.  A mesh of one rank renders with
 the caller's generator itself, so a 1x1 sharded render is
-``render_radiance``'s image bit for bit.  Explicit ``uniforms`` /
+``render_radiance``'s image bit for bit; its sums over one rank are the
+rank's own tensor, with no collective.  Explicit ``uniforms`` /
 ``light_uniforms`` are sliced by row block and sample set instead, so the
 sharded image equals the unsharded one up to the order of the sum over
 samples.
@@ -22,14 +23,16 @@ samples.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Union
 
 import torch
 import torch.distributed as dist
 
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
-from ensem3a_openclraytracer_tpu_torch.ops.rng import fold_seed
+from ensem3a_openclraytracer_tpu_torch.ops.rng import fold_seed, key_from_generator
 from ensem3a_openclraytracer_tpu_torch.parallel.mesh import Mesh
+from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
 
 GenOrSeed = Optional[Union[torch.Generator, int]]
 
@@ -60,8 +63,8 @@ def shard_generator(mesh: Mesh, gen_or_seed: GenOrSeed, device) -> torch.Generat
 def fold_ranks(t: torch.Tensor, group, n: int) -> torch.Tensor:
     """The sum of ``t`` over the ``n`` ranks of ``group``, added in rank
     order on every rank (an all-gather, then a left fold); ``t`` itself
-    without a group."""
-    if group is None:
+    without a group or on one rank."""
+    if group is None or n == 1:
         return t
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=group)
@@ -94,7 +97,7 @@ def shard_target_image(mesh: Mesh, target: torch.Tensor) -> torch.Tensor:
 
 def gather_image(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
     """The whole image from every row block (an all-gather over ``dp``)."""
-    if mesh.dp_group is None:
+    if mesh.dp_group is None or mesh.dp == 1:
         return rows
     parts = [torch.empty_like(rows) for _ in range(mesh.dp)]
     dist.all_gather(parts, rows.contiguous(), group=mesh.dp_group)
@@ -104,21 +107,28 @@ def gather_image(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:
 def render_rows(mesh: Mesh, radiance: Callable, geom, materials, env, camera,
                 gen_or_seed: GenOrSeed = None, *, height: int, width: int, spp: int,
                 uniforms: Optional[torch.Tensor] = None,
-                light_uniforms: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
+                light_uniforms: Optional[torch.Tensor] = None,
+                key: Optional[torch.Tensor] = None, **kwargs) -> torch.Tensor:
     """This rank's rows ``[height / dp, width, 3]`` of the image, averaged
     over the ``sp`` group; ``radiance(geom, materials, env, ray_o, ray_d,
-    gen, spp=, uniforms=, light_uniforms=, **kwargs)`` renders a ray
-    batch (the forward estimator or the replay)."""
+    gen, spp=, uniforms=, light_uniforms=, key=, **kwargs)`` renders a ray
+    batch (the forward estimator or the replay).  ``key`` (the key words
+    of the one rank's generator, ``ops/rng.key_from_generator``) stands in
+    for ``gen_or_seed`` on a one-rank mesh."""
     _check_shape(mesh, height, spp)
+    if key is not None and mesh.size > 1:
+        raise ValueError("key names one rank's stream: give a mesh of several ranks a "
+                         "generator or a seed")
     h, spp_l = height // mesh.dp, spp // mesh.sp
     ray_o, ray_d = camera_rays(camera.position, camera.rotation_deg, camera.fov_deg,
                                height, width)
     px = slice(mesh.dp_idx * h * width, (mesh.dp_idx + 1) * h * width)
     ss = slice(mesh.sp_idx * spp_l, (mesh.sp_idx + 1) * spp_l)
     cut = lambda u: None if u is None else u[ss, :, px]
-    gen = None if uniforms is not None else shard_generator(mesh, gen_or_seed, ray_o.device)
+    gen = (None if uniforms is not None or key is not None
+           else shard_generator(mesh, gen_or_seed, ray_o.device))
     rad = radiance(geom, materials, env, ray_o[px], ray_d[px], gen, spp=spp_l,
-                   uniforms=cut(uniforms), light_uniforms=cut(light_uniforms), **kwargs)
+                   uniforms=cut(uniforms), light_uniforms=cut(light_uniforms), key=key, **kwargs)
     return _SampleMean.apply(rad, mesh).reshape(h, width, 3)
 
 
@@ -141,15 +151,30 @@ def render_radiance_sharded(mesh: Mesh, geom, materials, env, camera,
 
 
 def make_sharded_renderer(mesh: Mesh, *, height: int, width: int, spp: int, max_bounce: int,
-                          sun_enabled: bool = True, ibl_bilinear: bool = True):
+                          sun_enabled: bool = True, ibl_bilinear: bool = True, **kwargs):
     """``fn(geom, materials, env, camera, gen_or_seed) -> rows``: the
     sharded render at fixed settings, leaving the image sharded over
-    ``dp``."""
+    ``dp``; ``kwargs`` (``lights``, ``nee``, ``glass_mode``, ``mis``) as
+    ``models/pathtracer.radiance_for_rays``.
+
+    On a one-rank mesh ``fn`` is the counterpart of the JAX package's
+    jitted function: a captured CUDA graph of the render on the card
+    (``utils/graphs.Graphed``; the geometry pack and the IBL read in place,
+    the other tensors copied in, the key words drawn from this rank's generator
+    before the replay), eager on the CPU; ``fn.graph`` is its ``Graphed``
+    and ``fn.eager`` the same render without a graph.  A mesh of several
+    ranks renders eagerly: its collectives stay outside any graph."""
+    render = functools.partial(render_radiance_sharded, mesh, height=height, width=width,
+                               spp=spp, max_bounce=max_bounce, sun_enabled=sun_enabled,
+                               ibl_bilinear=ibl_bilinear, **kwargs)
+    if mesh.size > 1:
+        return render
+    graphed = Graphed(render, in_place=("geom", "env.ibl"))
 
     def fn(geom, materials, env, camera, gen_or_seed=None):
-        return render_radiance_sharded(mesh, geom, materials, env, camera, gen_or_seed,
-                                       height=height, width=width, spp=spp,
-                                       max_bounce=max_bounce, sun_enabled=sun_enabled,
-                                       ibl_bilinear=ibl_bilinear)
+        dev = geom.v0.device
+        key = key_from_generator(shard_generator(mesh, gen_or_seed, dev), dev)
+        return graphed(geom, materials, env, camera, key=key)
 
+    fn.graph, fn.eager = graphed, render  # the captures, and the render without a graph
     return fn

@@ -65,14 +65,19 @@ class EnvParams(NamedTuple):
     @staticmethod
     def create(sun_angles_deg=(0.0, 0.0, 0.0), sun_power=1.0, ibl_power=1.0,
                ibl=None, device: DeviceLike = None) -> "EnvParams":
+        """``ibl``: an ``[H, W, 3]`` image (array or tensor; the default
+        sky when None)."""
         dev = resolve_device(device)
         if ibl is None:
             ibl = default_sky(8, 16)
+        # a float32 tensor on the device is kept as it is
+        ibl = (ibl.to(device=dev, dtype=torch.float32) if isinstance(ibl, torch.Tensor)
+               else _f32(ibl, dev))
         return EnvParams(
             sun_angles_deg=_f32(sun_angles_deg, dev),
             sun_power=_f32(sun_power, dev),
             ibl_power=_f32(ibl_power, dev),
-            ibl=_f32(ibl, dev),
+            ibl=ibl,
         )
 
 

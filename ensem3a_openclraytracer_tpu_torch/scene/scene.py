@@ -15,7 +15,7 @@ features would never be read (``ops/closest_hit.trace``).
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -168,6 +168,9 @@ class Scene:
     light_faces: np.ndarray  # int32 indices of emissive faces (packed order)
     geometry: GeometryPack
     device: torch.device
+    # the IBL on the device, by file name: env_params() gives the same tensor
+    # on each call, which a graphed render reads in place (utils/graphs)
+    ibl_cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def load(obj_path: str, rebuild_accel: bool = True,
@@ -197,11 +200,18 @@ class Scene:
         return MaterialParams.from_table(self.material_table, device=self.device)
 
     def env_params(self, ibl: Optional[np.ndarray] = None) -> EnvParams:
+        """The ini's environment; its IBL is loaded once per file name and
+        the same device tensor is returned on every call (``ibl`` replaces
+        it)."""
         env = self.config.environment_settings()
         if ibl is None:
-            ibl = load_ibl_image(
-                env.ibl_file, fallback_dirs=(os.path.dirname(self.obj_path), "IBL")
-            )
+            if env.ibl_file not in self.ibl_cache:
+                self.ibl_cache.clear()
+                img = load_ibl_image(
+                    env.ibl_file, fallback_dirs=(os.path.dirname(self.obj_path), "IBL")
+                )
+                self.ibl_cache[env.ibl_file] = torch.as_tensor(img, device=self.device)
+            ibl = self.ibl_cache[env.ibl_file]
         return EnvParams.create(
             sun_angles_deg=env.sun_angles_deg, sun_power=env.sun_power,
             ibl_power=env.ibl_power, ibl=ibl, device=self.device,

@@ -203,10 +203,14 @@ def test_bench_prints_json_lines(capsys):
     assert main(["bench", "--resolution", "16", "--spp", "2", *CPU]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert [x["metric"] for x in lines] == ["cornell_forward_mrays_per_s",
-                                            "cornell_fwdbwd_mrays_per_s"]
-    for x in lines:
+                                            "cornell_fwdbwd_mrays_per_s",
+                                            "cornell_train_step_mrays_per_s", "first_call_seconds"]
+    for x in lines[:3]:
         assert x["unit"] == "Mrays/s" and x["value"] > 0 and x["device"] == "cpu"
         assert "vs_baseline" not in x and x["card"] is None
+    first = lines[3]
+    assert first["unit"] == "s" and all(first[k] > 0 for k in ("forward", "fwdbwd", "train_step"))
+    assert first["device"] == "cpu" and first["card"] is None
 
 
 def test_bench_scaling_in_one_process_prints_the_one_rank_record(tmp_path, capsys):

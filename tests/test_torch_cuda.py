@@ -25,8 +25,16 @@ CLI render's kernel launches, and ``--mesh 1,1`` joining ``nccl`` from
 shared edges and rays grazing the outdoor ground), the card's plain walk
 against the CPU's bit for bit on those rays, the
 device LBVH build on the card against the host build, and a tree trace
-under ``set_sync_debug_mode("error")``.  They skip without a card.  This file imports no JAX, so on a machine without
-JAX run it without the suite's conftest:
+under ``set_sync_debug_mode("error")``; and the compiled entry points
+(``utils/graphs``): ``render_radiance_jit`` (Cornell, Cornell NEE,
+outdoor_1300, a tree-only outdoor_1300), a progressive render resumed after
+two chunks, three trainer steps and the texel step, each bit-equal to its
+eager form on the first replay and on a new key, running the eager call's
+kernels (a profiler trace counts a replay's), a render replay on new
+camera, material, sun and light values bit-equal to eager on them, and a
+capture that meets a host sync raises.  They skip without a card.  This
+file imports no JAX, so on a machine without JAX run it without the
+suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -42,6 +50,7 @@ from ensem3a_openclraytracer_tpu_torch.experiments import proto_grouped as pg
 from ensem3a_openclraytracer_tpu_torch.models.pathtracer import _gather_surface
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
 from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
@@ -626,14 +635,21 @@ def test_gather_rows_backward_is_deterministic_on_card(cuda, rows):
 
 
 def _launches() -> dict:
-    return {k: v for counts in (ch.LAUNCHES, pp.LAUNCHES, fu.LAUNCHES, rng.LAUNCHES)
-            for k, v in counts.items()}
+    return launches.read()
 
 
 def _zero_launches() -> None:
-    for counts in (ch.LAUNCHES, pp.LAUNCHES, fu.LAUNCHES, rng.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    launches.reset()
+
+
+def _traced_launches(fn) -> dict:
+    """The port's kernels that a torch.profiler trace of ``fn()`` saw run,
+    by counter: a graph replay runs no wrapper, so its launches are counted
+    here."""
+    with launches.trace() as prof:
+        fn()
+    return launches.count_kernels(
+        ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.mark.parametrize("role", ["one_block", "61_blocks"])
@@ -669,7 +685,9 @@ def test_cli_render_launch_counts_on_card(cuda, case, tmp_path, monkeypatch):
     """``cli render`` on the card goes through the kernels: Cornell (one
     block) launches ``closest_hit`` and ``sample_fused`` once per chunk,
     outdoor_1000 (47 blocks) ``pairs`` once per chunk and
-    ``sample_fused_queue`` once per sample."""
+    ``sample_fused_queue`` once per sample.  The wrappers count the first
+    chunk (the chunk graph's warm-up); a profiler trace counts every
+    chunk's."""
     from ensem3a_openclraytracer_tpu_torch.cli import main
 
     monkeypatch.chdir(tmp_path)
@@ -677,13 +695,17 @@ def test_cli_render_launch_counts_on_card(cuda, case, tmp_path, monkeypatch):
             else lambda device: tt.make_outdoor_scene(n_cubes=1000, device=device))
     path = str(tmp_path / f"{case}.obj")
     tt.write_scene_files(path, *make(device="cpu"), resolution=64, spp=8, max_bounce=3)
+    argv = ["render", path, "--chunk-spp", "4", "--out", str(tmp_path / "o.png")]
     _zero_launches()
-    assert main(["render", path, "--chunk-spp", "4", "--out", str(tmp_path / "o.png")]) == 0
-    got = _launches()
-    want = ({"closest_hit": 2, "pairs": 0, "sample_fused": 2, "sample_fused_queue": 0}
-            if case == "cornell" else
-            {"closest_hit": 0, "pairs": 2, "sample_fused": 0, "sample_fused_queue": 8})
-    assert {k: got[k] for k in want} == want and got["uniforms"] == 0
+    assert main(argv) == 0
+    got = _launches()  # the first chunk, which warms up and captures; the second replays
+    first = ({"closest_hit": 1, "pairs": 0, "sample_fused": 1, "sample_fused_queue": 0}
+             if case == "cornell" else
+             {"closest_hit": 0, "pairs": 1, "sample_fused": 0, "sample_fused_queue": 4})
+    assert {k: got[k] for k in first} == first and got["uniforms"] == 0
+    traced = _traced_launches(lambda: main(argv))
+    want = {k: 2 * v for k, v in first.items()}
+    assert {k: traced[k] for k in want} == want and traced["uniforms"] == 0
 
 
 def test_cli_mesh_joins_nccl_from_torchrun_env(cuda, tmp_path, monkeypatch):
@@ -864,3 +886,210 @@ def test_bvh_trace_makes_no_host_sync_and_is_the_dispatch(cuda):
         tv.trace_bvh(g.bvh, g.v0.t().contiguous().t(), g.v1, g.v2, o, d)
     with pytest.raises(ValueError, match="row layout"):
         tv.trace_bvh(tv.BVHNodes(*(x.contiguous() for x in g.bvh)), g.v0, g.v1, g.v2, o, d)
+
+
+# --- the compiled entry points as captured CUDA graphs (utils/graphs.py) -------------------
+
+
+def _same(a, b) -> bool:
+    from ensem3a_openclraytracer_tpu_torch.utils.graphs import flatten
+
+    (la, sa), (lb, sb) = flatten(a), flatten(b)
+    return sa == sb and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _hold_graph(graphed, eager, graph):
+    """The first call captures one graph; it, the first replay and a replay
+    with a new key equal the eager call bit for bit, and a new key moves
+    the output.  The first call's warm-up launches the eager call's kernels
+    (counted by the wrappers), the graph recorded them, a replay counts
+    none, and a profiled replay runs them (counted in its trace)."""
+    captures = graph.captures
+    _zero_launches()
+    first = graphed(1)
+    warm = _launches()
+    assert graph.captures == captures + 1
+    _zero_launches()
+    replay = graphed(1)
+    assert not any(_launches().values())
+    _zero_launches()
+    ref = eager(1)
+    want = _launches()
+    assert _same(first, ref) and _same(replay, ref)
+    assert warm == want and sum(want.values()) > 0
+    assert graph.last_capture["launches"] == {k: v for k, v in want.items() if v}
+    assert _traced_launches(lambda: graphed(3)) == want
+    new = graphed(2)
+    assert _same(new, eager(2)) and not _same(new, replay)
+    assert graph.captures == captures + 1
+
+
+GRAPH_RENDERS = {  # role -> (scene maker, render settings)
+    "cornell": (lambda dev: tt.make_cornell_scene(device=dev), dict(spp=8, sun_enabled=False)),
+    "cornell_nee": (lambda dev: tt.make_cornell_scene(device=dev),
+                    dict(spp=8, sun_enabled=False, nee=True)),
+    "outdoor_1300": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, device=dev),
+                     dict(spp=4, sun_enabled=True)),
+    "outdoor_1300_tree": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, use_bvh=True,
+                                                            device=dev),
+                          dict(spp=4, sun_enabled=True)),
+}
+
+
+@pytest.mark.parametrize("role", sorted(GRAPH_RENDERS))
+def test_render_radiance_jit_graph_equals_eager(cuda, role):
+    """``render_radiance_jit`` on the card (one-block whole-render launch,
+    with NEE, 2b on 61 blocks, the scan estimator on a tree-only pack)
+    replays a graph bit-equal to ``render_radiance`` with the same
+    generator, running the same kernels."""
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import (
+        render_radiance,
+        render_radiance_jit,
+    )
+
+    make, kw = GRAPH_RENDERS[role]
+    g, m, e, c = make(cuda)
+    kw = dict(kw, height=128, width=128, max_bounce=4)
+    if kw.get("nee"):
+        kw["lights"] = build_light_pack(g, m)
+    gen = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    graphed = lambda s: render_radiance_jit(g, m, e, c, gen(s), **kw)
+    eager = lambda s: render_radiance(g, m, e, c, gen(s), **kw)
+    _hold_graph(graphed, eager, render_radiance_jit.graph)
+
+
+@pytest.mark.parametrize("role", ["cornell_nee", "outdoor_1300"])
+def test_render_replay_reads_new_input_values(cuda, role):
+    """After the capture, a replay reads the caller's current values of
+    every copied input: the camera, a material's colour, the emitters'
+    power, the sun and the NEE lights, each changed alone and all together,
+    render bit-equal to ``render_radiance`` on the new values with no new
+    capture; the IBL, read in place, changed in place, too."""
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import (
+        render_radiance,
+        render_radiance_jit,
+    )
+
+    make, kw = GRAPH_RENDERS[role]
+    g, m, e, c = make(cuda)
+    kw = dict(kw, height=128, width=128, max_bounce=4)
+    if kw.get("nee"):
+        kw["lights"] = build_light_pack(g, m)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(4)
+    graph = render_radiance_jit.graph
+    before = render_radiance_jit(g, m, e, c, gen(), **kw)
+    captures = graph.captures
+    shift = lambda t, v: t + torch.tensor(v, dtype=t.dtype, device=cuda)
+    m_color = m._replace(color=m.color * 0.8 + 0.1)
+    m_power = m._replace(roughness=torch.where(m.mtype == 0, m.roughness * 1.25, m.roughness))
+    e_sun = e._replace(sun_power=e.sun_power * 0.5 + 0.25,
+                       sun_angles_deg=shift(e.sun_angles_deg, [3.0, -2.0, 1.0]))
+    c_new = c._replace(position=shift(c.position, [0.05, -0.03, 0.02]),
+                       rotation_deg=shift(c.rotation_deg, [1.0, -1.0, 0.5]))
+    cases = [((g, m, e, c_new), kw), ((g, m_color, e, c), kw), ((g, m_power, e, c), kw),
+             ((g, m, e_sun, c), kw)]
+    kw_all = kw
+    if kw.get("nee"):
+        lp, d = kw["lights"], [0.01, 0.0, -0.01]
+        kw_all = dict(kw, lights=lp._replace(v0=shift(lp.v0, d), v1=shift(lp.v1, d),
+                                             v2=shift(lp.v2, d), power=lp.power * 1.5))
+        cases.append(((g, m, e, c), kw_all))
+    all_new = (g, m_color._replace(roughness=m_power.roughness), e_sun, c_new)
+    cases.append((all_new, kw_all))
+    for args, kw2 in cases:
+        assert torch.equal(render_radiance_jit(*args, gen(), **kw2),
+                           render_radiance(*args, gen(), **kw2))
+    assert not torch.equal(render_radiance_jit(*all_new, gen(), **kw_all), before)
+    e.ibl.mul_(0.75)
+    img = render_radiance_jit(g, m, e, c, gen(), **kw)
+    assert torch.equal(img, render_radiance(g, m, e, c, gen(), **kw))
+    if role == "outdoor_1300":  # its camera sees the sky; Cornell's closed box does not
+        assert not torch.equal(img, before)
+    assert graph.captures == captures
+
+
+def test_progressive_graph_resumed_equals_eager_fold(cuda, tmp_path):
+    """The progressive chunk function replays one graph per renderer
+    (bit-equal to its eager form on a new key too), and a render stopped
+    after two chunks and resumed equals the float64 fold of eager
+    ``render_radiance`` chunks bit for bit."""
+    from ensem3a_openclraytracer_tpu_torch.models.optimize import iteration_generator
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import render_radiance
+    from ensem3a_openclraytracer_tpu_torch.models.progressive import ProgressiveRenderer
+
+    g, m, e, c = tt.make_cornell_scene(device=cuda)
+    kw = dict(height=64, width=64, max_bounce=3, chunk_spp=4, sun_enabled=False)
+    gen = lambda s: iteration_generator(7, s, cuda)
+    r = ProgressiveRenderer(g, m, e, c, base_seed=7, **kw)
+    _hold_graph(lambda s: r._chunk_fn(gen(s)), lambda s: r._render.eager(g, m, e, c, gen(s)),
+                r._render.graph)
+    ckpt = str(tmp_path / "p.npz")
+    ProgressiveRenderer(g, m, e, c, base_seed=7, **kw).render(8, checkpoint_path=ckpt)
+    resumed = ProgressiveRenderer.resume(ckpt, g, m, e, c, **kw)
+    resumed.render(16)
+    assert resumed._render.graph.captures == 1
+    acc = np.zeros((64, 64, 3))
+    for i in range(4):
+        chunk = render_radiance(g, m, e, c, gen(i), height=64, width=64, spp=4, max_bounce=3,
+                                sun_enabled=False)
+        acc = acc + chunk.cpu().numpy().astype(np.float64) * 4
+    assert np.array_equal(resumed.state.accum, acc)
+
+
+def test_trainer_graph_steps_equal_eager(cuda):
+    """Three chained steps of the Cornell trainer (128^2, 8 spp) through the
+    step's graph equal ``step.eager``'s bit for bit, and the step on its
+    own replays bit-equal on a new key."""
+    from ensem3a_openclraytracer_tpu_torch.models import optimize as opt
+
+    g, m, e, c = tt.make_cornell_scene(device=cuda)
+    init, step = opt.make_train_step(g, m, e, c, opt.Adam(5e-2), height=128, width=128, spp=8,
+                                     max_bounce=4, sun_enabled=False)
+    p, st = init()
+    target = torch.zeros((128, 128, 3), device=cuda)
+    gen = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    _hold_graph(lambda s: step(p, st, target, gen(s)), lambda s: step.eager(p, st, target, gen(s)),
+                step.graph)
+    runs = {}
+    for label, fn in (("graph", step), ("eager", step.eager)):
+        q, s_, out = p, st, []
+        for i in range(3):
+            q, s_, loss = fn(q, s_, target, opt.iteration_generator(5, i, cuda))
+            out.append((q, s_, loss))
+        runs[label] = out
+    assert _same(runs["graph"], runs["eager"])
+    assert step.graph.captures == 1
+
+
+def test_texel_step_graph_equals_eager(cuda):
+    """The texel step (outdoor, 64 cubes, a 4096x8192 sky, 128^2, 4 spp, sun):
+    every trainable, the sky included, copied into the graph, the update
+    bit-equal to the eager step's."""
+    from ensem3a_openclraytracer_tpu_torch.models import optimize as opt
+    from ensem3a_openclraytracer_tpu_torch.scene.materials import default_sky
+
+    g, m, e, c = tt.make_outdoor_scene(n_cubes=64, device=cuda)
+    e = e._replace(ibl=torch.as_tensor(default_sky(4096, 8192), device=cuda))
+    init, step = opt.make_train_step(g, m, e, c, opt.Adam(5e-2), height=128, width=128, spp=4,
+                                     max_bounce=4, sun_enabled=True)
+    p, st = init()
+    target = torch.zeros((128, 128, 3), device=cuda)
+    gen = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    _hold_graph(lambda s: step(p, st, target, gen(s)), lambda s: step.eager(p, st, target, gen(s)),
+                step.graph)
+
+
+def test_capture_runs_under_sync_debug_error(cuda):
+    """A host sync inside a captured function raises (every capture runs
+    under ``set_sync_debug_mode("error")``), nothing is cached, and the mode
+    is put back; a function that syncs nowhere captures."""
+    from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
+
+    x = torch.arange(8.0, device=cuda)
+    bad = Graphed(lambda t: t * float(t.sum()))
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        bad(x)
+    assert bad.captures == 0 and torch.cuda.get_sync_debug_mode() == 0
+    good = Graphed(lambda t: t * t.sum())
+    good(x)
+    assert torch.equal(good(x + 1), (x + 1) * (x + 1).sum()) and good.captures == 1
