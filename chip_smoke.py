@@ -889,12 +889,16 @@ def phase_fused_queue(role, dev, smi: str):
     n = args[2].shape[0]
     key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)
     kw = dict(max_bounce=mb_t, sun_enabled=role["sun"], nee=nee, lights=lights)
-    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    fields = fu.queue_stats_fields(mb_t)
+    stats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
     out_k = fu.sample_fused(*args, key, 0, stats=stats, **kw)
-    pairs, stagings, rounds, slabs, syncs = (int(x) for x in stats.cpu())
-    traces, plain_stats = NeededPairs(g.feats), torch.zeros(5, dtype=torch.int64, device=dev)
+    named = dict(zip(fields, (int(x) for x in stats.cpu())))
+    pairs, stagings, rounds, slabs, syncs = (named[f] for f in fu.QUEUE_STATS[:5])
+    traces = NeededPairs(g.feats)
+    plain_stats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
     out_p, plain_ms = timed_once(lambda: fu.sample_fused_plain(
         *args, key, 0, stats=plain_stats, traces=traces, **kw))
+    plain_named = dict(zip(fields, (int(x) for x in plain_stats.cpu())))
     frac_t, med_t, max_t = image_forks(fused_image([out_k], e), fused_image([out_p], e))
     log(f"[phase 5] {role['name']} at {res_t}^2, {mb_t} bounces, own stream: kernel vs plain "
         f"pixel forks {frac_t:.5f}, median diff {med_t:.3e}, max diff {max_t:.3e}")
@@ -903,12 +907,24 @@ def phase_fused_queue(role, dev, smi: str):
     check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
     check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
     # shading float order forks a few knife-edge rays, so the counts may differ a little
-    ks, ps = stats[:4].tolist(), plain_stats[:4].tolist()
+    counted = [f for f in fields if f != "syncs" and not f.endswith("cycles")]
+    ks, ps = [named[f] for f in counted], [plain_named[f] for f in counted]
     gap = [abs(a - b) / max(b, 1) for a, b in zip(ks, ps)]
-    log(f"[phase 5] {role['name']}: kernel counts (pairs, stagings, rounds, slab tests) "
-        f"{ks}, plain {ps}, relative gaps {[round(x, 6) for x in gap]}; grid syncs {syncs}")
+    log(f"[phase 5] {role['name']}: kernel counts ({', '.join(counted)}) {ks}, plain {ps}, "
+        f"equal {ks == ps}, relative gaps {[round(x, 6) for x in gap]}; grid syncs {syncs}")
     check(max(gap) <= 0.01, f"{role['name']}: counts {ks} vs plain {ps} differ by more than 1 %")
     check(syncs > 0, f"{role['name']}: the kernel counted no grid syncs")
+    lanes = [named[f"lanes.{b}"] for b in range(mb_t + 1)]
+    check(sum(lanes) == named["segments"] and plain_named["segments"] == traces.rays,
+          f"{role['name']}: segments {named['segments']}, lanes by bounce {lanes}; the plain "
+          f"version counted {plain_named['segments']} and traced {traces.rays} rays")
+    phases = [named[f] for f in fu.QUEUE_STATS[8:]]
+    check(0 < named["sync_cycles"] < named["kernel_cycles"] and min(phases) >= 0
+          and sum(phases) > 0, f"{role['name']}: cycles {named}")
+    log(f"[phase 5] {role['name']}: grid-sync share {named['sync_cycles'] / named['kernel_cycles']:.4f} "
+        f"of the CUDA blocks' cycles; block 0's cycles by phase (shade, bounce trace, resolve, "
+        f"sun trace, finish) {[round(p / sum(phases), 4) for p in phases]}; pairs per segment "
+        f"{pairs / max(named['segments'], 1):.2f}; lanes by bounce {lanes}")
     if role.get("record"):
         check_record(role, args, mb_t, 6, f"{res_t}^2")
     ms = cuda_ms(lambda: fu.sample_fused(*args, key, 0, **kw), iters=role["iters"])
@@ -934,9 +950,9 @@ def phase_fused_queue(role, dev, smi: str):
     # a sample with nothing to trace (every lane dead): the launch's fixed cost, its lane
     # passes and the grid syncs around empty trace loops
     dead = args[:7] + (torch.zeros_like(args[7]),) + args[8:]
-    estats = torch.zeros(5, dtype=torch.int64, device=dev)
+    estats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
     fu.sample_fused(*dead, key, 0, stats=estats, **kw)
-    empty_syncs = int(estats[4])
+    empty_syncs = int(estats[fu.QUEUE_STATS.index("syncs")])
     empty_ms = cuda_ms(lambda: fu.sample_fused(*dead, key, 0, **kw), iters=role["iters"])
     log(f"[phase 5] {role['name']}: one sample under set_sync_debug_mode('error') passed; grid "
         f"{grid}; a sample with nothing to trace {empty_ms:.4f} ms ({empty_syncs} grid syncs "
@@ -950,6 +966,7 @@ def phase_fused_queue(role, dev, smi: str):
         pairs_needed=traces.pairs, slab_tests=slabs, block_stagings=stagings, rounds=rounds,
         pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t, grid=grid,
         empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs,
+        segments=named["segments"], grid_sync_share=named["sync_cycles"] / named["kernel_cycles"],
     )
 
 

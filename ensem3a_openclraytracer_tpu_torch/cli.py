@@ -127,8 +127,8 @@ def cmd_render(args) -> int:
     from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene
     from ensem3a_openclraytracer_tpu_torch.utils.image import save_png
     from ensem3a_openclraytracer_tpu_torch.utils.profiling import (
-        RenderMetrics,
         StageTimer,
+        rays_per_render,
         torch_trace,
     )
 
@@ -192,9 +192,9 @@ def cmd_render(args) -> int:
             # the raw clamp beside it, as the reference writes output/out.png
             # and output/src.png (main.py:101-104)
             save_png(np.clip(img, 0.0, 1.0), os.path.join(os.path.dirname(out) or ".", "src.png"))
-        m = RenderMetrics(wall, res, spp_done, max_bounce, sun_enabled)
+        mrays_per_s = rays_per_render(res, spp_done, max_bounce, sun_enabled) / wall / 1e6
         print(f"rendered {res}x{res} @ {spp_done} spp in {wall:.2f}s "
-              f"({m.mrays_per_s:.1f} Mrays/s) -> {out}", flush=True)
+              f"({mrays_per_s:.1f} Mrays/s) -> {out}", flush=True)
         if args.profile:
             print(f"torch trace -> {args.profile}")
         if args.verbose:

@@ -93,9 +93,34 @@ struct Params {
   float* u_rec;   // [mb+1, n, 2]
   int* tri_rec;   // [mb+1, n]
   int* sun_rec;   // [mb+1, n]
-  unsigned long long* stats;  // [pairs tested, stagings, rounds, slab tests, grid syncs] or null
+  unsigned long long* stats;  // [S_LANES + max_bounce + 1] (see below) or null
   State s;
 };
+
+// The slots of stats (ops/fused.QUEUE_STATS names them): pairs tested,
+// stagings, rounds and slab tests (bq::add_tally), grid syncs, segments
+// traced, the sum over CUDA blocks of thread 0's cycles inside grid syncs
+// and from entry to exit, CUDA block 0's cycles by phase, then the segments
+// of each bounce.
+constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
+enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
+constexpr int S_LANES = S_PHASE + N_PHASES;
+
+// Thread 0's clock (32 bits: a launch lasts far less than 2^32 cycles) in
+// shared memory, so that timing holds no register through the kernel: its
+// entry, and on CUDA block 0 the last mark and the cycles of each phase.
+struct Clock {
+  unsigned entry, last, phase[N_PHASES];
+};
+
+// On CUDA block 0's thread 0: the cycles since the last mark (or entry) to
+// phase ph.
+__device__ __forceinline__ void mark(Clock& c, int ph) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  const unsigned now = static_cast<unsigned>(clock());
+  c.phase[ph] += now - c.last;
+  c.last = now;
+}
 
 __device__ __forceinline__ void ld3(const float* a, int n, int i, float v[3]) {
 #pragma unroll
@@ -339,42 +364,75 @@ __global__ void __launch_bounds__(THREADS) fused_queue_kernel(Params P) {
   extern __shared__ __align__(16) float4 smem[];  // two staging buffers, or select's bounds
   __shared__ int4 s_work;
   __shared__ unsigned long long s_scan[THREADS];
+  __shared__ Clock s_clock;
   bq::cg::grid_group grid = bq::cg::this_grid();
   const int gtid = blockIdx.x * THREADS + threadIdx.x;
   const int stride = gridDim.x * THREADS;
   const int n = P.n;
 
+  if (threadIdx.x == 0) {
+    s_clock = Clock{};
+    s_clock.entry = s_clock.last = static_cast<unsigned>(clock());
+    bq::sync_cycles = 0;
+  }
   for (int j = gtid; j < P.q.nb; j += stride) P.q.cnt[j] = 0;
   if (gtid == 0) {
     P.q.ctrl->live[0] = 0;
     P.q.ctrl->live[1] = 0;
   }
+  // the rays listed for the trace that follows (read by the thread that
+  // clears the count at the trace's end): segments, and bounce b's
+  auto count_listed = [&](int b) {
+    if (gtid != 0 || P.stats == nullptr) return;
+    const unsigned long long listed = static_cast<unsigned>(__ldcg(&P.q.ctrl->live[0]));
+    if (listed == 0) return;
+    atomicAdd(&P.stats[S_SEGMENTS], listed);
+    atomicAdd(&P.stats[S_LANES + b], listed);
+  };
   const float sun_dir[3] = {P.sun_dir[0], P.sun_dir[1], P.sun_dir[2]};
   const float sun_power = P.sun_power[0];
   uint2 key = make_uint2(0u, 0u);
   if (P.key != nullptr) key = make_uint2(P.key[0], P.key[1]);
   bq::Tally tally;
-  bq::sync(grid, tally);
+  bq::sync<true>(grid, tally);
 
   // every thread of a warp takes part in each pass (the listing is warp-wide)
   for (int b = 0; b <= P.max_bounce; ++b) {
     for (int base = blockIdx.x * THREADS; base < n; base += stride)
       shade_lane(P, base + threadIdx.x, base + threadIdx.x < n, b, key, sun_power);
-    bq::sync(grid, tally);
-    bq::trace_rounds<K, true>(P.q, grid, smem, &s_work, s_scan, tally);
-    bq::sync(grid, tally);  // every thread has read the last live count before the next listing
+    bq::sync<true>(grid, tally);
+    mark(s_clock, SHADE);
+    count_listed(b);
+    bq::trace_rounds<K, true, true>(P.q, grid, smem, &s_work, s_scan, tally);
+    bq::sync<true>(grid, tally);  // every thread has read the last live count before the next listing
+    mark(s_clock, BOUNCE_TRACE);
     for (int base = blockIdx.x * THREADS; base < n; base += stride)
       resolve_lane(P, base + threadIdx.x, base + threadIdx.x < n, b, sun_dir);
     if (P.sun_enabled) {  // uniform over the launch
-      bq::sync(grid, tally);
-      bq::trace_rounds<K, true>(P.q, grid, smem, &s_work, s_scan, tally);
-      bq::sync(grid, tally);
+      bq::sync<true>(grid, tally);
+      mark(s_clock, RESOLVE);
+      count_listed(b);
+      bq::trace_rounds<K, true, true>(P.q, grid, smem, &s_work, s_scan, tally);
+      bq::sync<true>(grid, tally);
+      mark(s_clock, SUN_TRACE);
+    } else {
+      mark(s_clock, RESOLVE);
     }
   }
   for (int i = gtid; i < n; i += stride) finish_lane(P, i, sun_power);
   if (P.stats != nullptr) {
+    mark(s_clock, FINISH);
     bq::add_tally(P.stats, tally);
-    if (gtid == 0) atomicAdd(&P.stats[4], static_cast<unsigned long long>(tally.syncs));
+    if (threadIdx.x == 0) {
+      atomicAdd(&P.stats[S_SYNC_CYCLES], static_cast<unsigned long long>(bq::sync_cycles));
+      atomicAdd(&P.stats[S_KERNEL_CYCLES],
+                static_cast<unsigned long long>(static_cast<unsigned>(clock()) - s_clock.entry));
+    }
+    if (gtid == 0) {
+      atomicAdd(&P.stats[S_SYNCS], static_cast<unsigned long long>(tally.syncs));
+      for (int ph = 0; ph < N_PHASES; ++ph)
+        atomicAdd(&P.stats[S_PHASE + ph], static_cast<unsigned long long>(s_clock.phase[ph]));
+    }
   }
 }
 
@@ -427,9 +485,9 @@ extern "C" int fused_queue_grid(int* out) {
 // cudaStream_t passed as void*).  Arguments as fused_sample_launch's, except
 // the features: packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte
 // aligned; scratch of fused_queue_scratch_bytes(n, nb, nee) bytes, 16-byte
-// aligned, in any state.  `stats` may be null, else it receives [pairs
-// tested, block stagings, rounds, slab tests, grid syncs] (added).  Returns the
-// cudaError_t of the launch (0 on success).
+// aligned, in any state.  `stats` may be null, else it receives its
+// max_bounce + 14 slots (see S_LANES; added).  Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,
     const float* nrm, const int* mtype, const float* color, const float* rough,

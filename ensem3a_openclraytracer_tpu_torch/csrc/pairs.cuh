@@ -81,9 +81,18 @@ struct Tally {
   int rounds = 0, syncs = 0;
 };
 
-// A grid-wide sync, counted.
+// Thread 0's clock cycles inside this CUDA block's timed grid syncs.  Kept in
+// shared memory, 32 bits (a launch lasts far less than 2^32 cycles), so that
+// timing holds no register through the rounds.  The kernel zeroes it.
+__shared__ unsigned sync_cycles;
+
+// A grid-wide sync, counted, and with TIMED timed on thread 0.
+template <bool TIMED = false>
 __device__ __forceinline__ void sync(cg::grid_group& grid, Tally& tally) {
+  unsigned t0 = 0;
+  if (TIMED && threadIdx.x == 0) t0 = static_cast<unsigned>(clock());
   grid.sync();
+  if (TIMED && threadIdx.x == 0) sync_cycles += static_cast<unsigned>(clock()) - t0;
   ++tally.syncs;
 }
 
@@ -363,10 +372,11 @@ __device__ __forceinline__ void init_trace(const Queues& p, int n) {
 
 // The rounds, from ctrl->live[0] rays listed in live list 0 (their best and
 // cursor set, the per-block counts zero, ctrl->live[1] zero) until no ray is
-// live; every thread of the grid calls it after a grid sync.  On return both
+// live; every thread of the grid calls it after a grid sync.  TIMED times
+// its grid syncs (sync_cycles).  On return both
 // live counts and the per-block counts are zero again, and every block has
 // passed the last round's sync: the hits in best are final.
-template <int K, bool FRESH>
+template <int K, bool FRESH, bool TIMED = false>
 __device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem, int4* s_work,
                              unsigned long long* s_scan, Tally& tally) {
   const int gtid = blockIdx.x * THREADS + threadIdx.x;
@@ -378,14 +388,14 @@ __device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem
     const int* live_in = p.live + cur * p.n;
     select_round<K, FRESH>(p, n_live, live_in, p.live + (cur ^ 1) * p.n, &p.ctrl->live[cur ^ 1],
                            smem, tally.slabs);
-    sync(grid, tally);
+    sync<TIMED>(grid, tally);
     if (blockIdx.x == 0) scan_round(p, s_scan);
-    sync(grid, tally);
+    sync<TIMED>(grid, tally);
     fill_round<K>(p, n_live, live_in);
-    sync(grid, tally);
+    sync<TIMED>(grid, tally);
     test_round<FRESH>(p, smem, s_work, tally.pairs, tally.stagings);
     if (gtid == 0) p.ctrl->live[cur] = 0;  // list cur takes the round after next's survivors
-    sync(grid, tally);
+    sync<TIMED>(grid, tally);
   }
 }
 

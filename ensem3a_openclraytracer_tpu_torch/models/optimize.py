@@ -43,6 +43,7 @@ from ensem3a_openclraytracer_tpu_torch.parallel.mesh import Mesh, single_device_
 from ensem3a_openclraytracer_tpu_torch.parallel.render import fold_ranks, render_rows
 from ensem3a_openclraytracer_tpu_torch.scene.materials import EnvParams, MaterialParams
 from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
+from ensem3a_openclraytracer_tpu_torch.utils.profiling import span
 
 
 class TrainableParams(NamedTuple):
@@ -189,7 +190,9 @@ def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, opt
     words are drawn from ``gen`` before each replay, so a step gives the
     same update bit for bit, graph or eager.  ``step.graph`` is its
     ``Graphed`` (None on several ranks) and ``step.eager(params, opt_state,
-    target, gen)`` the same step without a graph."""
+    target, gen)`` the same step without a graph.  While a profiler
+    records, each call is the span ``train_step`` (``utils/profiling``),
+    with ``Graphed``'s spans inside it."""
     kw = dict(height=height, width=width, spp=spp, max_bounce=max_bounce,
               sun_enabled=sun_enabled, nee=nee, lights=lights, mis=mis, mesh=mesh)
 
@@ -212,9 +215,11 @@ def make_train_step(geom, materials: MaterialParams, env: EnvParams, camera, opt
 
     def step(params: TrainableParams, opt_state: AdamState, target: torch.Tensor,
              gen: Optional[torch.Generator]):
-        if graphed is None:  # several ranks: the gradient sum over the mesh stays eager
-            return update(params, opt_state, target, gen)
-        return graphed(params, opt_state, target, key=rng.key_from_generator(gen, target.device))
+        with span("train_step"):
+            if graphed is None:  # several ranks: the gradient sum over the mesh stays eager
+                return update(params, opt_state, target, gen)
+            return graphed(params, opt_state, target,
+                           key=rng.key_from_generator(gen, target.device))
 
     step.graph, step.eager = graphed, update  # the captures, and the step without a graph
 

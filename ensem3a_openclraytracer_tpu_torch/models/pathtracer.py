@@ -47,6 +47,14 @@ render on the card (``utils/graphs.Graphed``: the geometry pack and the
 IBL read in place, the other tensors copied in, the key words drawn from
 ``gen`` before the replay) and runs eagerly on the CPU.  :func:`render_scene`
 calls it.
+
+Tracing (``utils/profiling``, while a profiler records): spans
+``render_scene`` (inside it ``render_scene.settings``: the settings, the
+material, environment and camera tensors, the sun switch and the
+generator) and ``render_radiance_jit`` (the key draw and ``Graphed``'s
+spans), none inside the captured render.  A multi-block fused render gives
+its sample launches one counter buffer (``ops/fused.render_stats``), which
+:func:`render_radiance_jit` then keeps a clone of under ``"fused_queue"``.
 """
 
 from __future__ import annotations
@@ -78,7 +86,9 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     MaterialParams,
 )
 from ensem3a_openclraytracer_tpu_torch.scene.scene import GeometryPack, LightPack
+from ensem3a_openclraytracer_tpu_torch.utils import profiling
 from ensem3a_openclraytracer_tpu_torch.utils.graphs import Graphed
+from ensem3a_openclraytracer_tpu_torch.utils.profiling import span
 
 class _Escape(NamedTuple):
     """Per-lane escape record: a path leaves the scene at most once."""
@@ -133,6 +143,13 @@ def fused_by_default(geom: GeometryPack, device, *, uniforms=None, glass_mode: s
             and uniforms is None and glass_mode == "tint" and not mis and not needs_grad)
 
 
+def _fused_by_default(geom, materials, env, device, *, uniforms=None, glass_mode="tint",
+                      mis=False, lights=None, **_) -> bool:
+    """:func:`fused_by_default` for :func:`radiance_for_rays`' arguments."""
+    return fused_by_default(geom, device, uniforms=uniforms, glass_mode=glass_mode, mis=mis,
+                            needs_grad=_needs_grad(materials, env, lights))
+
+
 def radiance_for_rays(
     geom: GeometryPack,
     materials: MaterialParams,
@@ -178,8 +195,8 @@ def radiance_for_rays(
     dev = ray_o.device
     n_rays = ray_o.shape[0]
     if fused is None:
-        fused = fused_by_default(geom, dev, uniforms=uniforms, glass_mode=glass_mode, mis=mis,
-                                 needs_grad=_needs_grad(materials, env, lights))
+        fused = _fused_by_default(geom, materials, env, dev, uniforms=uniforms,
+                                  glass_mode=glass_mode, mis=mis, lights=lights)
     if fused:  # the JAX package's refusals
         if mis:
             raise ValueError("mis runs on the scan estimator (fused=False)")
@@ -216,9 +233,10 @@ def radiance_for_rays(
                       ibl_bilinear=ibl_bilinear, **kw)
         else:  # one launch per sample; the IBL and the sum here
             run = fused_ops.sample_fused_plain if engine == "plain" else fused_ops.sample_fused
+            stats = fused_ops.render_stats(dev, max_bounce).zero_()  # 2b's counters, one buffer
             acc = torch.zeros_like(ray_d)
             for s in range(spp):
-                rad, esc_thr, esc_dir = run(*f_args, key, s, **kw)
+                rad, esc_thr, esc_dir = run(*f_args, key, s, stats=stats, **kw)
                 acc = acc + rad + esc_thr * env_radiance(esc_dir)
         if order is not None:
             acc = torch.empty_like(acc).index_copy_(0, order, acc)
@@ -386,9 +404,29 @@ def render_radiance_jit(
     drawn from ``gen`` (seed 0 when None) before the replay, so the same
     generator gives the same image bit for bit, graph or eager.  Forward
     only; on CPU tensors it runs :func:`render_radiance` eagerly."""
-    if kwargs.get("uniforms") is None and kwargs.get("key") is None:
-        kwargs["key"] = rng.key_from_generator(gen, geom.v0.device)
-    return _RENDER_GRAPHS(geom, materials, env, camera, height=height, width=width, **kwargs)
+    with span("render_radiance_jit"):
+        dev = geom.v0.device
+        if kwargs.get("uniforms") is None and kwargs.get("key") is None:
+            kwargs["key"] = rng.key_from_generator(gen, dev)
+        out = _RENDER_GRAPHS(geom, materials, env, camera, height=height, width=width, **kwargs)
+        if profiling.recording():
+            _record_queue_stats(geom, materials, env, dev, kwargs)
+        return out
+
+
+def _record_queue_stats(geom, materials, env, dev, kwargs) -> None:
+    """After a multi-block fused render, a device clone of 2b's counters
+    (``ops/fused.render_stats``) into ``utils/profiling``'s record under
+    ``"fused_queue"``."""
+    fused = kwargs.get("fused")
+    if fused is None:
+        fused = _fused_by_default(geom, materials, env, dev, **kwargs)
+    if not fused or geom.feats.block_bounds.shape[0] == 1:
+        return
+    max_bounce = kwargs["max_bounce"]
+    stats = fused_ops.render_stats(dev, max_bounce, make=False)
+    if stats is not None:
+        profiling.record_counters("fused_queue", stats, fused_ops.queue_stats_fields(max_bounce))
 
 
 render_radiance_jit.graph = _RENDER_GRAPHS  # its captures (utils/graphs.Graphed)
@@ -405,26 +443,29 @@ def render_scene(scene, seed: int = 0, overrides: Optional[dict] = None) -> torc
     device through :func:`render_radiance_jit`; ``overrides`` may set
     resolution, spp, max_bounce, nee, mis, glass_mode or fused.  Returns the
     clamped image ``[res, res, 3]``."""
-    overrides = overrides or {}
-    rs = scene.config.render_settings()
-    res = int(overrides.get("resolution", rs.resolution))
-    spp = int(overrides.get("spp", rs.spp))
-    max_bounce = int(overrides.get("max_bounce", rs.max_bounce))
-    mis = bool(overrides.get("mis", False))
-    nee = bool(overrides.get("nee", False)) or mis
-    env = scene.env_params()
-    materials = scene.material_params()
-    sun_enabled = float(env.sun_power) != 0.0
-    lights = None
-    if nee:
-        lights = scene.light_pack(materials)
-        nee = lights is not None
-    gen = torch.Generator(device=scene.device)
-    gen.manual_seed(int(seed))
-    radiance = render_radiance_jit(
-        scene.geometry, materials, env, scene.camera_params(), gen,
-        height=res, width=res, spp=spp, max_bounce=max_bounce, sun_enabled=sun_enabled,
-        lights=lights, nee=nee, mis=mis and nee,
-        glass_mode=str(overrides.get("glass_mode", "tint")), fused=overrides.get("fused"),
-    )
-    return torch.clamp(radiance, 0.0, 1.0)
+    with span("render_scene"):
+        with span("render_scene.settings"):
+            overrides = overrides or {}
+            rs = scene.config.render_settings()
+            res = int(overrides.get("resolution", rs.resolution))
+            spp = int(overrides.get("spp", rs.spp))
+            max_bounce = int(overrides.get("max_bounce", rs.max_bounce))
+            mis = bool(overrides.get("mis", False))
+            nee = bool(overrides.get("nee", False)) or mis
+            env = scene.env_params()
+            materials = scene.material_params()
+            camera = scene.camera_params()
+            sun_enabled = float(env.sun_power) != 0.0
+            lights = None
+            if nee:
+                lights = scene.light_pack(materials)
+                nee = lights is not None
+            gen = torch.Generator(device=scene.device)
+            gen.manual_seed(int(seed))
+        radiance = render_radiance_jit(
+            scene.geometry, materials, env, camera, gen,
+            height=res, width=res, spp=spp, max_bounce=max_bounce, sun_enabled=sun_enabled,
+            lights=lights, nee=nee, mis=mis and nee,
+            glass_mode=str(overrides.get("glass_mode", "tint")), fused=overrides.get("fused"),
+        )
+        return torch.clamp(radiance, 0.0, 1.0)

@@ -101,6 +101,52 @@ LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_samp
 # NEE).
 QUEUE_MIN_BLOCKS = 2
 
+# The slots of ``csrc/fused_queue.cu``'s int64 ``stats``, in order: the
+# first five as ``csrc/fused_sample.cu``'s (pairs tested, block stagings,
+# trace rounds, slab tests in ``ops/pairs``' order, then grid syncs); the
+# segments traced (the rays listed for each trace: bounce rays with their
+# NEE shadow rays, then sun rays); the sum over CUDA blocks of thread 0's
+# clock cycles inside the grid syncs, and from the kernel's entry to its
+# exit; CUDA block 0's cycles by phase, each phase up to the grid sync that
+# ends it (shade with the launch's set-up, bounce-trace rounds, resolve,
+# sun-trace rounds, finish); last the segments of each bounce, whose number
+# follows ``max_bounce``.  Cycles are one SM's clock: only their ratios are
+# read.  The plain version counts the same, with no syncs and no cycles.
+QUEUE_STATS = ("pairs", "stagings", "rounds", "slabs", "syncs", "segments", "sync_cycles",
+               "kernel_cycles", "shade_cycles", "bounce_trace_cycles", "resolve_cycles",
+               "sun_trace_cycles", "finish_cycles")
+SEGMENTS = QUEUE_STATS.index("segments")
+
+
+def queue_stats_fields(max_bounce: int) -> tuple:
+    """The names of ``csrc/fused_queue.cu``'s stats slots at ``max_bounce``
+    (:data:`QUEUE_STATS`, then ``lanes.<bounce>``)."""
+    return QUEUE_STATS + tuple(f"lanes.{b}" for b in range(max_bounce + 1))
+
+
+def queue_stats_len(max_bounce: int) -> int:
+    """The length of ``csrc/fused_queue.cu``'s stats at ``max_bounce``."""
+    return len(QUEUE_STATS) + max_bounce + 1
+
+
+_RENDER_STATS: dict = {}
+
+
+def render_stats(device, max_bounce: int, make: bool = True) -> Optional[torch.Tensor]:
+    """The one stats buffer (:data:`QUEUE_STATS`) per device and
+    ``max_bounce`` that every multi-block render of ``models/pathtracer``
+    gives its sample launches: a render zeroes it, so a captured render
+    holds one zeroing node and writes it at a fixed address.  It is made on
+    first use, which the eager warm-up before a capture is; with
+    ``make=False`` None where it is not made yet.  No call reads it on the
+    host (``utils/profiling.record_counters`` keeps device clones)."""
+    key = (torch.device(device), int(max_bounce))
+    buf = _RENDER_STATS.get(key)
+    if buf is None and make:
+        buf = _RENDER_STATS[key] = torch.zeros(queue_stats_len(max_bounce), dtype=torch.int64,
+                                               device=key[0])
+    return buf
+
 
 def build_tri_attrs(face_n, face_mat, mtype, color, roughness, tp: int) -> torch.Tensor:
     """``[Tp, 8]`` attribute table (module docstring): each face's normal
@@ -191,12 +237,13 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     kernels trace (live lanes, NEE lanes that want the light, escaping
     lanes; every lane in record mode), the others reading a miss:
     ``trace_pairs_plain`` on scenes of more than one block, so ``stats``
-    (int64 ``[5]``, optional) receives what ``csrc/fused_queue.cu`` counts
-    there in its first four (pairs tested, block stagings, rounds, slab
-    tests; the plain version makes no grid syncs), and ``trace_plain`` on
-    one block (``stats`` untouched).  Both equal
-    ``trace_plain`` bit for bit.  ``traces`` (a list, optional) receives
-    each trace loop's ``(o, d, hit)``."""
+    (int64 ``[queue_stats_len(max_bounce)]``, optional) receives what
+    ``csrc/fused_queue.cu`` counts there (:data:`QUEUE_STATS`): pairs
+    tested, block stagings, rounds, slab tests, the segments traced and
+    each bounce's; the plain version makes no grid syncs and counts no
+    cycles.  On one block it traces with ``trace_plain`` (``stats``
+    untouched).  Both equal ``trace_plain`` bit for bit.  ``traces`` (a
+    list, optional) receives each trace loop's ``(o, d, hit)``."""
     n_rays = primary_p.shape[0]
     n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays)
     if uniforms is None:
@@ -222,10 +269,15 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         tri_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
         sun_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
     multi = feats.block_bounds.shape[0] > 1
+    if stats is not None and multi and tuple(stats.shape) != (queue_stats_len(max_bounce),):
+        raise ValueError(f"stats: want shape ({queue_stats_len(max_bounce)},) on "
+                         f"{feats.block_bounds.shape[0]} blocks, got {tuple(stats.shape)}")
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    lanes = [0] * mb1  # segments traced per bounce
 
     def trace_loop(o, d, act):
         idx = torch.nonzero(act).squeeze(1)
+        lanes[b] += idx.numel()
         oa, da = o[idx].contiguous(), d[idx].contiguous()
         h = trace_pairs_plain(feats, oa, da, stats=counts) if multi else trace_plain(feats, oa, da)
         if traces is not None:
@@ -305,6 +357,8 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     rad = rad + select(final_emis, thr * rough[:, None], zero3)
     if stats is not None and multi:
         stats[:4] += counts.to(stats.device)
+        stats[SEGMENTS] += sum(lanes)
+        stats[len(QUEUE_STATS):] += torch.tensor(lanes, dtype=torch.int64, device=stats.device)
     if record:
         return rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
     return rad, esc_thr, esc_dir
@@ -357,10 +411,13 @@ def sample_fused(feats: TriFeatures, *args, **kw):
     Philox stream of ``key`` (``[2]`` int32 on the rays' device) for
     ``sample`` (module docstring).  With ``nee``, ``lights`` is a
     ``LightPack`` whose columns the kernels read in place (its ``power`` is
-    the snapshot used, as the TPU kernel's).  ``stats`` (int64 ``[5]``,
-    optional) receives the (ray, triangle) pairs tested, the triangle-block
-    stagings, the trace rounds, the ray-box slab tests (the first four in
-    ``ops/pairs``' order) and the grid syncs, added to what it holds.
+    the snapshot used, as the TPU kernel's).  ``stats`` (int64, optional:
+    ``[5]`` on one block, ``[queue_stats_len(max_bounce)]`` on more)
+    receives the (ray, triangle) pairs tested, the triangle-block stagings,
+    the trace rounds, the ray-box slab tests (the first four in
+    ``ops/pairs``' order) and the grid syncs, added to what it holds; on
+    more blocks also the rest of :data:`QUEUE_STATS` and the segments of
+    each bounce.
 
     Scenes of ``QUEUE_MIN_BLOCKS`` blocks or more go to
     :func:`sample_fused_queue`, one-block scenes to
@@ -381,7 +438,8 @@ class _Launch:
 
     def __init__(self, feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color,
                  primary_rough, primary_live, in_dir, sun_dir, sun_power, key, sample, *,
-                 max_bounce, sun_enabled, uniforms, nee, lights, record, stats, ns=None):
+                 max_bounce, sun_enabled, uniforms, nee, lights, record, stats, ns=None,
+                 stats_slots=5):
         dev = primary_p.device
         if dev.type != "cuda":
             raise ValueError(f"the fused kernels run on cuda or cpu, not {dev}")
@@ -413,7 +471,7 @@ class _Launch:
         if key is not None:
             _check(key, "key", (2,), i32, dev)
         if stats is not None:
-            _check(stats, "stats", (5,), torch.int64, dev)
+            _check(stats, "stats", (stats_slots,), torch.int64, dev)
         ptr = lambda x: None if x is None else x.data_ptr()
         self.n, self.dev, self.mb1, self.sun, self.stats = n, dev, max_bounce + 1, sun_enabled, stats
         self.head = (n, max_bounce, int(sun_enabled), int(nee), int(record),
@@ -588,16 +646,18 @@ def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     """:func:`sample_fused` through ``csrc/fused_queue.cu`` for rays on the
     card: one cooperative launch per sample, every trace through block
     queues (``ops/pairs``' rounds, on every ray of the batch at once), no
-    host sync, no limit on the blocks.  Needs ``feats.packed``.  Rays on
-    the CPU take :func:`sample_fused_plain`, whose counts on a multi-block
-    scene are the kernel's."""
+    host sync, no limit on the blocks.  Needs ``feats.packed``.
+    ``stats`` (int64 ``[queue_stats_len(max_bounce)]``, optional) receives
+    :data:`QUEUE_STATS` and the segments of each bounce.  Rays on the CPU
+    take :func:`sample_fused_plain`, whose counts on a multi-block scene
+    are the kernel's (no syncs, no cycles)."""
     kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
               lights=lights, record=record)
     args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
             primary_live, in_dir, sun_dir, sun_power, key, sample)
     if primary_p.device.type == "cpu":
         return sample_fused_plain(*args, stats=stats, **kw)
-    run = _Launch(*args, stats=stats, **kw)
+    run = _Launch(*args, stats=stats, stats_slots=queue_stats_len(max_bounce), **kw)
     out, tail = run.tail(record)
     slots = run.n * (2 if nee else 1)  # a lane's NEE shadow ray shares the bounce trace
     if slots * PAIRS_K >= 2 ** 31:

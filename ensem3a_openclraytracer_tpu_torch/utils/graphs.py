@@ -47,6 +47,14 @@ captured once and replayed with one host call.
 
 The capture backend is an argument (:class:`CudaGraphs` by default), so
 the rules above can be tested on the CPU with a stand-in.
+
+Spans (``utils/profiling.span``, while a profiler records): each call is
+``graphs.call``; inside it ``graphs.key`` (flatten and key), then on a
+cached key ``graphs.copy_in``, ``graphs.replay`` and ``graphs.clone_out``,
+on a new key ``graphs.warm_up`` and ``graphs.capture`` (capture and
+instantiation), and on a device the backend does not take ``graphs.eager``.
+They are outside the captured function, so a graph, its key and its nodes
+are the same with a profiler on or off.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from typing import Any, Callable, Iterable, List, NamedTuple, Optional, Tuple
 import torch
 
 from ensem3a_openclraytracer_tpu_torch.ops import launches
+from ensem3a_openclraytracer_tpu_torch.utils.profiling import span
 
 MAX_GRAPHS = 8  # graphs kept per Graphed: each holds a memory pool on the card
 
@@ -188,6 +197,29 @@ class Graphed:
         self._graphs.clear()
 
     def __call__(self, *args, **kwargs):
+        with span("graphs.call"):
+            with span("graphs.key"):
+                found = self._lookup(args, kwargs)
+            if found is None:
+                with span("graphs.eager"):
+                    return self.fn(*args, **kwargs)
+            key, bound, parts, dev, entry = found
+            if entry is None:
+                return self._capture(key, bound, parts, dev)
+            self._graphs.move_to_end(key)
+            with span("graphs.copy_in"):
+                copied = [t for _, leaves, _, mask in parts for t, p in zip(leaves, mask) if not p]
+                for buf, t in zip(entry.inputs, copied):
+                    buf.copy_(t)
+            with span("graphs.replay"):
+                self.backend.replay(entry.graph, dev)
+            with span("graphs.clone_out"):
+                return unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
+
+    def _lookup(self, args, kwargs):
+        """``(key, bound arguments, their parts, device, entry)`` of a call
+        that the backend takes (``entry`` None for a new key); None for a
+        call with no tensor or on a device it does not take."""
         bound = self._sig.bind(*args, **kwargs)
         parts = [(name, *flatten(value), self._in_place_mask(name, value))
                  for name, value in bound.arguments.items()]
@@ -196,22 +228,14 @@ class Graphed:
         if len(devices) > 1:
             raise ValueError(f"a graphed call takes tensors on one device, not {devices}")
         if not devices or not self.backend.takes(next(iter(devices))):
-            return self.fn(*args, **kwargs)
+            return None
         dev = devices.pop()
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             raise ValueError("a graphed call returns no autograd graph: give it no tensor that "
                              "requires grad (differentiate the eager function)")
         key = tuple((name, spec, tuple(_signature(t, p) for t, p in zip(leaves, mask)))
                     for name, leaves, spec, mask in parts)
-        entry = self._graphs.get(key)
-        if entry is None:
-            return self._capture(key, bound, parts, dev)
-        self._graphs.move_to_end(key)
-        copied = [t for _, leaves, _, mask in parts for t, p in zip(leaves, mask) if not p]
-        for buf, t in zip(entry.inputs, copied):
-            buf.copy_(t)
-        self.backend.replay(entry.graph, dev)
-        return unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
+        return key, bound, parts, dev, self._graphs.get(key)
 
     def _in_place_mask(self, name: str, value: Any) -> List[bool]:
         """For each tensor leaf of argument ``name``, whether it is read in
@@ -234,13 +258,15 @@ class Graphed:
             bound.arguments[name] = unflatten(spec, bufs)
         run = lambda: self.fn(*bound.args, **bound.kwargs)
         t0 = time.perf_counter()
-        out = self.backend.warm_up(run, dev)
-        out_tensors, out_spec = flatten(out)
-        result = unflatten(out_spec, [t.clone() for t in out_tensors])
+        with span("graphs.warm_up"):
+            out = self.backend.warm_up(run, dev)
+            out_tensors, out_spec = flatten(out)
+            result = unflatten(out_spec, [t.clone() for t in out_tensors])
         warm_s = time.perf_counter() - t0
         before = launches.read()
         try:
-            graph, static_out, info = self.backend.capture(run, dev)
+            with span("graphs.capture"):
+                graph, static_out, info = self.backend.capture(run, dev)
             after = launches.read()
         finally:
             launches.restore(before)  # the capture ran no kernel

@@ -1,9 +1,26 @@
-"""Metrics and tracing: stage timers, rays/s accounting, profiler traces.
+"""Metrics and tracing: spans, counter records, stage timers, rays per
+render, profiler traces.
 
 Counterpart of the JAX package's ``utils/profiling.py``: named wall-clock
-stage timers that synchronize the card, Mrays/s from the estimator's ray
-count (``bench.py``'s accounting), and :func:`torch_trace`, a
-``torch.profiler`` context in place of ``jax.profiler``'s XLA trace.
+stage timers that synchronize the card, the estimator's ray count
+(``bench.py``'s accounting), and :func:`torch_trace`, a ``torch.profiler``
+context in place of ``jax.profiler``'s XLA trace.
+
+Tracing inside the program is switched on by a running profiler and by
+nothing else:
+
+* :func:`span` names a block of host code.  With no profiler recording it
+  is one shared no-op context (no allocation, no torch op); under a
+  profiler it is ``torch.profiler.record_function``, an event on the
+  profiler's clock, which the device's records share.  Spans of one call
+  nest, and nesting is the parent link.  No span goes inside a function
+  that is captured as a CUDA graph: it would run only at the capture.
+* :func:`record_counters` keeps a device clone of a counter buffer that a
+  kernel wrote (no host sync); :func:`counter_totals` sums the clones kept
+  under a name on the host (one sync, at read time), :func:`clear_counters`
+  drops them.  ``models/pathtracer.render_radiance_jit`` keeps 2b's
+  (``csrc/fused_queue.cu``) counters under ``"fused_queue"`` after each
+  multi-block render made while a profiler records.
 """
 
 from __future__ import annotations
@@ -13,9 +30,52 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
+
+recording = torch._C._autograd._profiler_enabled  # whether a profiler records: ~0.15 us
+
+NO_SPAN = contextlib.nullcontext()  # what span() gives with no profiler recording
+
+
+def span(name: str):
+    """A context that names the block ``name`` on the profiler's clock
+    while a profiler records, else the shared no-op :data:`NO_SPAN`."""
+    if not recording():
+        return NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+_COUNTERS: Dict[str, List[tuple]] = {}  # name -> [(device clone, its fields)]
+
+
+def record_counters(name: str, counts: torch.Tensor, fields: Sequence[str]) -> None:
+    """Keep a clone of the counter buffer ``counts`` (one dimension, a
+    slot per name in ``fields``) under ``name``, on its device, with no
+    host sync."""
+    fields = tuple(fields)
+    if counts.shape != (len(fields),):
+        raise ValueError(f"{name}: {len(fields)} fields for counts of shape {tuple(counts.shape)}")
+    _COUNTERS.setdefault(name, []).append((counts.detach().clone(), fields))
+
+
+def counter_totals(name: str) -> Optional[Dict[str, int]]:
+    """The sum of the records under ``name``, field by field (one host
+    sync), or None when there is none."""
+    kept = _COUNTERS.get(name)
+    if not kept:
+        return None
+    values = iter(torch.cat([t.to(kept[0][0].device) for t, _ in kept]).tolist())
+    totals: Dict[str, int] = {}
+    for f in (f for _, fields in kept for f in fields):
+        totals[f] = totals.get(f, 0) + int(next(values))
+    return totals
+
+
+def clear_counters() -> None:
+    """Drop every counter record."""
+    _COUNTERS.clear()
 
 
 def rays_per_render(res: int, spp: int, max_bounce: int, sun_enabled: bool) -> int:
@@ -50,16 +110,18 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str, sync=None):
-        """Time the block; ``sync`` (a CUDA tensor or device) makes the
-        stage end when the card has finished its work."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(sync)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        """Time the block, a :func:`span` named ``name``; ``sync`` (a CUDA
+        tensor or device) makes the stage end when the card has finished
+        its work."""
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                _sync(sync)
+                dt = time.perf_counter() - t0
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def summary(self) -> Dict[str, dict]:
         return {
@@ -88,28 +150,3 @@ def torch_trace(log_dir: Optional[str]):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@dataclass
-class RenderMetrics:
-    """One render's throughput record (the ``bench.py`` schema)."""
-
-    wall_s: float
-    res: int
-    spp: int
-    max_bounce: int
-    sun_enabled: bool
-
-    @property
-    def mrays_per_s(self) -> float:
-        return rays_per_render(self.res, self.spp, self.max_bounce,
-                               self.sun_enabled) / self.wall_s / 1e6
-
-    def json_line(self, metric: str = "forward_mrays_per_s",
-                  vs_baseline: Optional[float] = None) -> str:
-        return json.dumps({
-            "metric": metric,
-            "value": round(self.mrays_per_s, 3),
-            "unit": "Mrays/s",
-            "vs_baseline": round(vs_baseline, 3) if vs_baseline else 1.0,
-        })

@@ -162,16 +162,27 @@ def test_fused_kernel_matches_plain(cuda, role):
               lights=build_light_pack(g, m) if nee else None)
     kernel = "sample_fused_queue" if blocks >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
     before = dict(fu.LAUNCHES)
-    stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    slots = fu.queue_stats_len(mb) if blocks >= fu.QUEUE_MIN_BLOCKS else 5
+    stats = torch.zeros(slots, dtype=torch.int64, device=cuda)
     k = _image(fu.sample_fused(*args, stats=stats, **kw), e)
     torch.cuda.synchronize()
     assert fu.LAUNCHES == {**before, kernel: before[kernel] + 1}
-    p = _image(fu.sample_fused_plain(*args, **kw), e)
+    plain_stats = torch.zeros_like(stats)
+    p = _image(fu.sample_fused_plain(*args, stats=plain_stats, **kw), e)
     assert bool(torch.isfinite(k).all())
     diff = (k - p).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) < 0.02
     assert float(diff.median()) < 1e-5
     assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[3]) > 0
+    if blocks >= fu.QUEUE_MIN_BLOCKS:  # 2b's segments and cycles (ops/fused.QUEUE_STATS)
+        got = dict(zip(fu.queue_stats_fields(mb), stats.tolist()))
+        want = dict(zip(fu.queue_stats_fields(mb), plain_stats.tolist()))
+        lanes = [got[f"lanes.{b}"] for b in range(mb + 1)]
+        assert got["segments"] == sum(lanes) > 0
+        for f in ("pairs", "stagings", "rounds", "slabs", "segments", "lanes.0"):
+            assert abs(got[f] - want[f]) <= 0.01 * want[f], (f, got, want)
+        assert 0 < got["sync_cycles"] < got["kernel_cycles"]
+        assert min(got[f] for f in fu.QUEUE_STATS[8:]) >= 0 < got["shade_cycles"]
 
 
 RECORD = {  # role -> (scene maker, blocks, wrapper)
@@ -479,21 +490,27 @@ def test_queue_kernel_matches_plain(cuda, role):
     kw = dict(max_bounce=mb, sun_enabled=sun, uniforms=u, nee=nee,
               lights=build_light_pack(g, m) if nee else None)
     before = dict(fu.LAUNCHES)
-    stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    stats = torch.zeros(fu.queue_stats_len(mb), dtype=torch.int64, device=cuda)
     k = _image(fu.sample_fused_queue(*args, stats=stats, **kw), e)
     torch.cuda.synchronize()
     assert fu.LAUNCHES == {**before, "sample_fused_queue": before["sample_fused_queue"] + 1}
-    plain_stats = torch.zeros(5, dtype=torch.int64, device=cuda)
+    plain_stats = torch.zeros_like(stats)
     p = _image(fu.sample_fused_plain(*args, stats=plain_stats, **kw), e)
     assert bool(torch.isfinite(k).all())
     diff = (k - p).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) < 0.02
     assert float(diff.median()) < 1e-5
-    ks, ps = stats[:4].double(), plain_stats[:4].double()
+    # pairs, stagings, rounds, slab tests, segments, segments by bounce
+    counted = [0, 1, 2, 3, fu.SEGMENTS] + list(range(len(fu.QUEUE_STATS), len(stats)))
+    ks, ps = stats[counted].double(), plain_stats[counted].double()
     assert bool((ps > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats, plain_stats)
     # one sync to start, per bounce two around each trace loop, four per round
     loops = 1 + int(sun)
     assert int(stats[4]) == 1 + (mb + 1) * 2 * loops + 4 * int(stats[2]) and int(plain_stats[4]) == 0
+    named = dict(zip(fu.queue_stats_fields(mb), stats.tolist()))
+    assert 0 < named["sync_cycles"] < named["kernel_cycles"]
+    assert all(v == 0 for f, v in zip(fu.queue_stats_fields(mb), plain_stats.tolist())
+               if f.endswith("cycles"))
     if not nee:
         key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(4), cuda)
         rk = fu.sample_fused_queue(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)

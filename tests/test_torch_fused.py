@@ -169,7 +169,7 @@ def test_plain_traces_are_exact_and_counted(nee):
     kw = dict(max_bounce=MB, sun_enabled=True, nee=nee,
               lights=build_light_pack(g, m) if nee else None,
               uniforms=torch.as_tensor(_uniforms(41, n, 5 if nee else 2)))
-    traces, stats = [], torch.zeros(5, dtype=torch.int64)
+    traces, stats = [], torch.zeros(tf.queue_stats_len(MB), dtype=torch.int64)
     out = tf.sample_fused_plain(*args, stats=stats, traces=traces, **kw)
     assert len(traces) == 2 * (MB + 1)  # bounce (+ NEE) and sun per bounce
     total = torch.zeros(4, dtype=torch.int64)
@@ -179,6 +179,8 @@ def test_plain_traces_are_exact_and_counted(nee):
         pairs_plain(g.feats, o, d, stats=total)
     assert traces[0][0].shape[0] > n if nee else traces[0][0].shape[0] <= n
     assert torch.equal(stats[:4], total) and int(stats[4]) == 0  # no grid syncs in plain
+    named = dict(zip(tf.queue_stats_fields(MB), stats.tolist()))
+    assert all(named[f] == 0 for f in tf.QUEUE_STATS if f.endswith("cycles"))  # nor cycles
     assert bool((stats[:4] > 0).all()) and int(stats[2]) >= 1
     again = tf.sample_fused_plain(*args, **kw)  # counting changes nothing
     for a, b in zip(out, again):

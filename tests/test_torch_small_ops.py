@@ -1,8 +1,8 @@
 """The port's small modules against the JAX package's: ``ops/tonemap``
 (every mode), ``ops/geometry.rotate_axis_angle``,
 ``ops/camera.focal_distance`` (and ``camera_rays``, which now calls it),
-``utils/profiling`` (``rays_per_render``, ``RenderMetrics``,
-``StageTimer``, ``torch_trace``), ``version`` and ``scene.__all__``.
+``utils/profiling`` (``rays_per_render``, ``StageTimer``,
+``torch_trace``), ``version`` and ``scene.__all__``.
 Inputs are numpy draws; float results agree to 1e-6."""
 
 import json
@@ -87,14 +87,6 @@ def test_camera_rays_match_jax():
 @pytest.mark.parametrize("res,spp,mb,sun", [(512, 100, 4, False), (64, 3, 2, True)])
 def test_rays_per_render_matches_jax(res, spp, mb, sun):
     assert tprof.rays_per_render(res, spp, mb, sun) == jprof.rays_per_render(res, spp, mb, sun)
-
-
-@pytest.mark.parametrize("vs", [None, 1.7])
-def test_render_metrics_match_jax(vs):
-    args = (0.25, 128, 16, 3, True)
-    t, j = tprof.RenderMetrics(*args), jprof.RenderMetrics(*args)
-    assert abs(t.mrays_per_s - j.mrays_per_s) <= TOL * j.mrays_per_s
-    assert json.loads(t.json_line("m", vs)) == json.loads(j.json_line("m", vs))
 
 
 def test_stage_timer_accumulates():
