@@ -854,6 +854,7 @@ def phase_fused_queue(role, dev, smi: str):
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
     from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
     from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
@@ -907,7 +908,8 @@ def phase_fused_queue(role, dev, smi: str):
     check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
     check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
     # shading float order forks a few knife-edge rays, so the counts may differ a little
-    counted = [f for f in fields if f != "syncs" and not f.endswith("cycles")]
+    counted = [f for f in fields if f not in ("syncs", "split_rounds", "items")
+               and not f.endswith("cycles")]
     ks, ps = [named[f] for f in counted], [plain_named[f] for f in counted]
     gap = [abs(a - b) / max(b, 1) for a, b in zip(ks, ps)]
     log(f"[phase 5] {role['name']}: kernel counts ({', '.join(counted)}) {ks}, plain {ps}, "
@@ -918,12 +920,16 @@ def phase_fused_queue(role, dev, smi: str):
     check(sum(lanes) == named["segments"] and plain_named["segments"] == traces.rays,
           f"{role['name']}: segments {named['segments']}, lanes by bounce {lanes}; the plain "
           f"version counted {plain_named['segments']} and traced {traces.rays} rays")
-    phases = [named[f] for f in fu.QUEUE_STATS[8:]]
+    phases = [named[f] for f in fu.QUEUE_STATS[8:13]]
     check(0 < named["sync_cycles"] < named["kernel_cycles"] and min(phases) >= 0
           and sum(phases) > 0, f"{role['name']}: cycles {named}")
+    check(named["stagings"] <= named["items"] <= pp.S_MAX * named["stagings"]
+          and named["split_rounds"] <= rounds, f"{role['name']}: slices {named}")
     log(f"[phase 5] {role['name']}: grid-sync share {named['sync_cycles'] / named['kernel_cycles']:.4f} "
-        f"of the CUDA blocks' cycles; block 0's cycles by phase (shade, bounce trace, resolve, "
-        f"sun trace, finish) {[round(p / sum(phases), 4) for p in phases]}; pairs per segment "
+        f"of the CUDA blocks' cycles; rounds split into triangle slices {named['split_rounds']} of "
+        f"{rounds}, work items {named['items']} for {stagings} stagings; block 0's cycles by "
+        f"phase (shade, bounce trace, resolve, sun trace, finish) "
+        f"{[round(p / sum(phases), 4) for p in phases]}; pairs per segment "
         f"{pairs / max(named['segments'], 1):.2f}; lanes by bounce {lanes}")
     if role.get("record"):
         check_record(role, args, mb_t, 6, f"{res_t}^2")
@@ -967,6 +973,7 @@ def phase_fused_queue(role, dev, smi: str):
         pixel_fork_fraction=frac, pixel_fork_fraction_main_shape=frac_t, grid=grid,
         empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs,
         segments=named["segments"], grid_sync_share=named["sync_cycles"] / named["kernel_cycles"],
+        split_rounds=named["split_rounds"], work_items=named["items"],
     )
 
 

@@ -100,11 +100,13 @@ struct Params {
 // The slots of stats (ops/fused.QUEUE_STATS names them): pairs tested,
 // stagings, rounds and slab tests (bq::add_tally), grid syncs, segments
 // traced, the sum over CUDA blocks of thread 0's cycles inside grid syncs
-// and from entry to exit, CUDA block 0's cycles by phase, then the segments
-// of each bounce.
+// and from entry to exit, CUDA block 0's cycles by phase, the rounds that
+// ran with more than one triangle slice and the work items run (bq::Queues
+// split, added by the scan), then the segments of each bounce.
 constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
 enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
-constexpr int S_LANES = S_PHASE + N_PHASES;
+constexpr int S_SPLIT = S_PHASE + N_PHASES;
+constexpr int S_LANES = S_SPLIT + 2;
 
 // Thread 0's clock (32 bits: a launch lasts far less than 2^32 cycles) in
 // shared memory, so that timing holds no register through the kernel: its
@@ -360,7 +362,9 @@ __device__ __forceinline__ void finish_lane(const Params& P, int i, float sun_po
   }
 }
 
-__global__ void __launch_bounds__(THREADS) fused_queue_kernel(Params P) {
+// Four CUDA blocks an SM, the grid's occupancy: with the bound ptxas keeps
+// every value in registers (without it, it chose 96 and spilled 112 bytes).
+__global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
   extern __shared__ __align__(16) float4 smem[];  // two staging buffers, or select's bounds
   __shared__ int4 s_work;
   __shared__ unsigned long long s_scan[THREADS];
@@ -486,7 +490,7 @@ extern "C" int fused_queue_grid(int* out) {
 // the features: packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte
 // aligned; scratch of fused_queue_scratch_bytes(n, nb, nee) bytes, 16-byte
 // aligned, in any state.  `stats` may be null, else it receives its
-// max_bounce + 14 slots (see S_LANES; added).  Returns the cudaError_t of
+// max_bounce + 16 slots (see S_LANES; added).  Returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,
@@ -518,6 +522,7 @@ extern "C" int fused_queue_launch(
   P.q.ray_d = P.ray_d;
   P.q.packed = reinterpret_cast<const float4*>(packed);
   P.q.bounds = bounds;
+  P.q.split = stats == nullptr ? nullptr : stats + S_SPLIT;
   P.n = n;
   P.max_bounce = max_bounce;
   P.sun_enabled = sun_enabled;

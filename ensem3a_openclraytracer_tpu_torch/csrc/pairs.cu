@@ -100,6 +100,10 @@ extern "C" int pairs_grid(int k, int* out) {
   return static_cast<int>(err);
 }
 
+// The slices of a round of `items` (block, chunk) work items on a grid of
+// `grid` CUDA blocks (bq::slices, which ops/pairs.slices mirrors).
+extern "C" int pairs_slices(int items, int grid) { return bq::slices(items, grid); }
+
 // One cooperative launch on `stream` (a cudaStream_t passed as void*).
 // packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte aligned; scratch
 // of pairs_scratch_bytes(n, nb, k) bytes, 16-byte aligned, in any state.

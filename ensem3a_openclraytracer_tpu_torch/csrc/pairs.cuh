@@ -15,15 +15,20 @@
 //   scan    one CUDA block turns the per-block counts into queue offsets and
 //           work items of up to CHUNK queued rays (an exclusive scan).
 //   fill    each pair writes its ray into its block's queue.
-//   test    CUDA blocks take work items (block, up to CHUNK rays) from a
-//           device-side counter.  The next item's block is staged with
-//           cp.async into the second of two shared-memory buffers while this
-//           one is tested; each thread tests RPT rays (ch::test_packed), so
-//           each shared-memory read of a triangle's features feeds RPT pair
-//           tests.  A ray's best
-//           hit is folded with a 64-bit atomicMin on (float bits of t) << 32 |
-//           tri, which orders (t, tri) lexicographically for t > 0: the fold
-//           is exact whatever order the items run in.
+//   test    CUDA blocks take work items (block, up to CHUNK rays, triangle
+//           slice) from a device-side counter.  A round whose (block, chunk)
+//           items are too few to fill the grid gives each to S CUDA blocks
+//           (slices(), chosen by the scan), each staging and testing only
+//           its tile / S triangles, so one warp no longer walks a whole
+//           256-triangle tile while the grid waits at the next sync; a round
+//           that fills the grid keeps S = 1.  The next item's triangles are
+//           staged with cp.async into the second of two shared-memory
+//           buffers while this one is tested; each thread tests RPT rays
+//           (ch::test_packed), so each shared-memory read of a triangle's
+//           features feeds RPT pair tests.  A ray's best hit is folded with
+//           a 64-bit atomicMin on (float bits of t) << 32 | tri, which
+//           orders (t, tri) lexicographically for t > 0: the fold is exact
+//           whatever order the items and slices run in.
 // trace_rounds loops until no ray is live.  The arithmetic per (ray,
 // triangle) pair is ch::test_block's, term for term, and the slab test is
 // ch::block_entry, so the result equals ops/closest_hit.trace_plain's.
@@ -47,12 +52,26 @@ constexpr int SMEM_BYTES = 2 * BUF4 * 16;  // two buffers: 51,200 bytes
 constexpr int SEL_BLOCKS = 2 * BUF4 / 2;   // bounds rows (two float4s each) per select chunk
 constexpr unsigned long long NONE = ~0ull;  // cursor of a ray that queued nothing yet
 constexpr unsigned NO_BLOCK = 0xffffffffu;
+// The most CUDA blocks that share one (block, chunk) item: 8 triangles a
+// slice of a 256-triangle tile (ops/pairs.S_MAX; the sweep is in PERF.md).
+constexpr int S_MAX = 32;
 
 struct Ctrl {
   int live[2];  // live rays of the round that reads list r & 1, and of the next
   int work;     // the work-item counter of the test phase
-  int items;    // work items of this round
+  int items;    // work items of this round, S per (block, chunk)
+  int lg;       // log2 of this round's slices S
 };
+
+// The slices S of a round of `items` (block, chunk) work items on a grid of
+// `grid` CUDA blocks: the largest power of two up to S_MAX with items x S <=
+// grid; 1 when the items alone fill the grid, or when there are none
+// (ops/pairs.slices).
+__host__ __device__ __forceinline__ int slices(int items, int grid) {
+  int s = 1;
+  while (items > 0 && 2 * s <= S_MAX && items <= grid / (2 * s)) s *= 2;
+  return s;
+}
 
 // The rays and the queues of one trace.  n is the capacity of the ray slots
 // (each live list holds up to n slot indices).
@@ -62,6 +81,7 @@ struct Queues {
   const float4* packed;  // [tp, 7] float4: ch::FEAT_ROWS rows per triangle, padded to 28
   const float* bounds;   // [nb, 8]
   int n, nb, tile;
+  unsigned long long* split;   // [2] rounds with S > 1 and work items run (added), or null
   unsigned long long* best;    // [n] (t bits << 32) | tri
   unsigned long long* cursor;  // [n] the last key queued, NONE before the first
   int2* pairs;                 // [n, K] (block, slot in its queue) of each live ray's picks
@@ -220,7 +240,7 @@ __device__ void select_round(const Queues& p, int n_live, const int* live_in, in
 }
 
 // Scan (one CUDA block): queue offsets and work items from the per-block
-// counts, which it zeroes for the next round.
+// counts, which it zeroes for the next round, and the round's slices.
 __device__ void scan_round(const Queues& p, unsigned long long* s_scan) {
   const int tid = threadIdx.x;
   const int per = (p.nb + THREADS - 1) / THREADS;
@@ -250,9 +270,15 @@ __device__ void scan_round(const Queues& p, unsigned long long* s_scan) {
   }
   if (tid == THREADS - 1) {
     const int items = static_cast<int>(s_scan[tid] & 0xffffffffu);
+    const int s = slices(items, gridDim.x);
     p.item_off[p.nb] = items;
-    p.ctrl->items = items;
+    p.ctrl->items = items * s;
+    p.ctrl->lg = __ffs(s) - 1;
     p.ctrl->work = 0;
+    if (p.split != nullptr) {
+      if (s > 1) atomicAdd(&p.split[0], 1ull);
+      atomicAdd(&p.split[1], static_cast<unsigned long long>(items * s));
+    }
   }
 }
 
@@ -270,54 +296,63 @@ __device__ void fill_round(const Queues& p, int n_live, const int* live_in) {
   }
 }
 
-// The next work item: (item, block, first queue slot, rays); item >= items
-// when none is left.
-__device__ int4 next_item(const Queues& p, int items) {
+// The next work item: (slice, block, first queue slot, rays) of item
+// (block, chunk) x S + slice; slice -1 when none is left.
+__device__ int4 next_item(const Queues& p, int items, int lg) {
   const int item = atomicAdd(&p.ctrl->work, 1);
-  if (item >= items) return make_int4(items, 0, 0, 0);
-  int lo = 0, hi = p.nb;  // the last block whose first item is <= item
+  if (item >= items) return make_int4(-1, 0, 0, 0);
+  const int chunk = item >> lg;
+  int lo = 0, hi = p.nb;  // the last block whose first item is <= chunk
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
-    if (__ldcg(p.item_off + mid) <= item) lo = mid;
+    if (__ldcg(p.item_off + mid) <= chunk) lo = mid;
     else hi = mid;
   }
-  const int s = (item - __ldcg(p.item_off + lo)) * CHUNK;
-  return make_int4(item, lo, __ldcg(p.qoff + lo) + s, min(CHUNK, __ldcg(p.qcnt + lo) - s));
+  const int s = (chunk - __ldcg(p.item_off + lo)) * CHUNK;
+  return make_int4(item & ((1 << lg) - 1), lo, __ldcg(p.qoff + lo) + s,
+                   min(CHUNK, __ldcg(p.qcnt + lo) - s));
 }
 
-__device__ __forceinline__ void stage_block(const Queues& p, int blk, float4* f4) {
-  const float4* src = p.packed + static_cast<long long>(blk) * p.tile * PACK4;
-  for (int k = threadIdx.x; k < 6 * p.tile; k += THREADS) {
+// Triangles [lo, lo + cnt) of block blk into f4 in ch's packed layout, from
+// its first slot.
+__device__ __forceinline__ void stage_block(const Queues& p, int blk, int lo, int cnt, float4* f4) {
+  const float4* src = p.packed + (static_cast<long long>(blk) * p.tile + lo) * PACK4;
+  for (int k = threadIdx.x; k < 6 * cnt; k += THREADS) {
     const int c = k / 6;
     cp_async16(f4 + k, src + c * PACK4 + (k - 6 * c));
   }
   float* fz = reinterpret_cast<float*>(f4 + 6 * ch::TRI_TILE);
-  for (int c = threadIdx.x; c < p.tile; c += THREADS) cp_async4(fz + c, src + c * PACK4 + 6);
+  for (int c = threadIdx.x; c < cnt; c += THREADS) cp_async4(fz + c, src + c * PACK4 + 6);
 }
 
-// Test: work items from the device-side counter, the next block staged while
-// this one is tested.
+// Test: work items from the device-side counter, the next item's triangles
+// staged while this one's are tested.  Slice k of S tests the block's
+// triangles [k w, (k + 1) w), w = tile / S rounded up; slice 0 counts the
+// staging, so stagings stay one per (block, chunk).
 template <bool FRESH>
 __device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned long long& pairs,
                            unsigned long long& stagings) {
   const int tid = threadIdx.x;
-  const int items = __ldcg(&p.ctrl->items);
-  if (tid == 0) *s_work = next_item(p, items);
+  const int items = __ldcg(&p.ctrl->items), lg = __ldcg(&p.ctrl->lg);
+  const int width = (p.tile + (1 << lg) - 1) >> lg;
+  // the triangles of slice k: [k w, k w + count)
+  auto count = [&](int k) { return max(0, min(width, p.tile - k * width)); };
+  if (tid == 0) *s_work = next_item(p, items, lg);
   __syncthreads();
   int4 cur = *s_work;
-  if (cur.x < items) stage_block(p, cur.y, smem);
+  if (cur.x >= 0) stage_block(p, cur.y, cur.x * width, count(cur.x), smem);
   cp_async_commit();
   int buf = 0;
-  while (cur.x < items) {
+  while (cur.x >= 0) {
     __syncthreads();  // every thread has read *s_work and is done with the other buffer
-    if (tid == 0) *s_work = next_item(p, items);
+    if (tid == 0) *s_work = next_item(p, items, lg);
     __syncthreads();
     const int4 nxt = *s_work;
-    if (nxt.x < items) stage_block(p, nxt.y, smem + (buf ^ 1) * BUF4);
+    if (nxt.x >= 0) stage_block(p, nxt.y, nxt.x * width, count(nxt.x), smem + (buf ^ 1) * BUF4);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();  // block cur.y is in buffer buf
-    if (tid == 0) ++stagings;
+    __syncthreads();  // item cur's triangles are in buffer buf
+    if (tid == 0 && cur.x == 0) ++stagings;
 
     int ray[RPT];
     bool act[RPT];
@@ -334,11 +369,13 @@ __device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned
       best_i[k] = 0;
     }
     if (act[0]) {  // slot tid + THREADS is live only if slot tid is
-      ch::test_packed(smem + buf * BUF4, cur.y * p.tile, p.tile, r, act, best_t, best_i);
+      const int n_tri = count(cur.x);
+      ch::test_packed(smem + buf * BUF4, cur.y * p.tile + cur.x * width, n_tri, r, act, best_t,
+                      best_i);
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
         if (!act[k]) continue;
-        pairs += p.tile;
+        pairs += n_tri;
         if (best_t[k] < ch::MAX_DIST) atomicMin(p.best + ray[k], hit_key(best_t[k], best_i[k]));
       }
     }

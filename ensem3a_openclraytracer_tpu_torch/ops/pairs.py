@@ -17,6 +17,11 @@ the rays queued on it (``closest_hit.tri_t``), and each ray keeps the least
 card all rounds run in one cooperative launch of ``csrc/pairs.cu``
 (:func:`trace_pairs`); :func:`trace_pairs_plain` runs the same rounds in
 tensor ops and equals ``trace_plain`` bit for bit.
+
+A round of the kernel whose work items (a block and up to ``CHUNK`` of
+its queued rays) are too few to fill the grid splits each item's triangles
+into :func:`slices` ranges, each tested by its own CUDA block and folded by
+the same exact minimum, so the answer and the counts do not change.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 K = 8
 KERNEL_KS = (4, 8)  # the values of k that csrc/pairs.cu is compiled for
 CHUNK = 256  # queued rays per work item of the kernel (a block staging)
+S_MAX = 32  # most triangle slices of one work item (csrc/pairs.cuh bq::S_MAX)
 PAIR_CHUNK = 2048  # (ray, block) pairs per step of the plain version (bounds its memory)
 # (float bits of MAX_DIST) << 32 | triangle 0: "no hit yet"
 NO_HIT_KEY = int(torch.tensor(MAX_DIST, dtype=torch.float32).view(torch.int32)) << 32
@@ -56,11 +62,24 @@ def _finish(best: torch.Tensor) -> Hit:
     return ch._finish(key_t(best), best & 0xFFFFFFFF)
 
 
+def slices(items: int, grid: int) -> int:
+    """The triangle slices of a round of ``items`` work items on a grid of
+    ``grid`` CUDA blocks: the largest power of two up to :data:`S_MAX`
+    with ``items * S <= grid``; 1 when the items alone fill the grid, or
+    when there are none (``csrc/pairs.cuh`` ``bq::slices``)."""
+    s = 1
+    while items > 0 and 2 * s <= S_MAX and items <= grid // (2 * s):
+        s *= 2
+    return s
+
+
 def _test_pairs(feats: ch.TriFeatures, r6, q4, d, rid: torch.Tensor, blk: torch.Tensor,
-                tile: int) -> torch.Tensor:
-    """Per (ray, block) pair, the key of the ray's least ``(t, tri)`` in
-    the block, ``NO_HIT_KEY`` where it hits nothing short of ``MAX_DIST``."""
-    idx = blk[:, None] * tile + torch.arange(tile, device=blk.device)  # [P, tile]
+                tile: int, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Per (ray, block) pair, the key of the ray's least ``(t, tri)`` among
+    the block's triangles ``[lo, hi)`` (all of them by default),
+    ``NO_HIT_KEY`` where it hits nothing there short of ``MAX_DIST``."""
+    hi = tile if hi is None else hi
+    idx = blk[:, None] * tile + torch.arange(lo, hi, device=blk.device)  # [P, hi - lo]
     t = ch.tri_t(r6[rid][:, None], q4[rid][:, None], d[rid][:, None], feats.edges[:, :, idx],
                  feats.plane[:, idx], feats.normal_d[:, idx])[:, 0]  # [P, tile]
     tmin, arg = torch.min(t, dim=1)
@@ -141,6 +160,8 @@ def _lib():
     lib.pairs_scratch_bytes.restype = ctypes.c_longlong
     lib.pairs_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.pairs_grid.restype = ctypes.c_int
+    lib.pairs_slices.argtypes = [ctypes.c_int] * 2
+    lib.pairs_slices.restype = ctypes.c_int
     return lib
 
 

@@ -430,16 +430,12 @@ def test_pairs_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):
     assert h0.t.shape == (0,) and pp.LAUNCHES["pairs"] == before["pairs"] + 1
 
 
-def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
-    """More triangle blocks than ``trace_blocks``' visit list holds
-    (``MAX_KERNEL_BLOCKS``): the select phase stages the bounds in chunks.
-    Each block is one unit quad of a flat floor centred on the origin (two
-    triangles; the rest of the block repeats the quad's centre, triangles
-    of zero area that are never hit), so the side tests are conditioned as
-    on the outdoor scenes."""
-    rng = np.random.default_rng(12)
-    bx, by = 129, 128
-    assert bx * by > ch.MAX_KERNEL_BLOCKS
+def _floor(bx, by, dev):
+    """The features of a flat floor of ``bx`` x ``by`` triangle blocks
+    centred on the origin, each block one unit quad (two triangles; the rest
+    of the block repeats the quad's centre, triangles of zero area that are
+    never hit), so the side tests are conditioned as on the outdoor
+    scenes."""
     x0, y0 = (g.reshape(-1).astype(np.float32) - n / 2 for g, n in
               zip(np.meshgrid(np.arange(bx), np.arange(by), indexing="ij"), (bx, by)))
     z = np.zeros_like(x0)
@@ -448,8 +444,19 @@ def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
     mid = np.repeat(corner(0.5, 0.5)[:, None], ch.TRI_TILE - 2, axis=1)  # [blocks, 254, 3]
     v = [np.concatenate([quad[0][k][:, None], quad[1][k][:, None], mid], axis=1).reshape(-1, 3)
          for k in range(3)]
-    feats = ch.build_tri_features(*v, cuda)
+    feats = ch.build_tri_features(*v, dev)
     assert feats.block_bounds.shape[0] == bx * by
+    return feats
+
+
+def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
+    """More triangle blocks than ``trace_blocks``' visit list holds
+    (``MAX_KERNEL_BLOCKS``): the select phase stages the bounds in chunks,
+    on the floor of ``_floor``."""
+    rng = np.random.default_rng(12)
+    bx, by = 129, 128
+    assert bx * by > ch.MAX_KERNEL_BLOCKS
+    feats = _floor(bx, by, cuda)
     o = np.stack([rng.uniform(-bx / 2, bx / 2, 2000), rng.uniform(-by / 2, by / 2, 2000),
                   np.full(2000, 5.0)], axis=-1)
     dd = np.concatenate([rng.normal(scale=0.5, size=(2000, 2)), -np.ones((2000, 1))], axis=-1)
@@ -461,6 +468,42 @@ def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
     assert float(h.hit.float().mean()) > 0.3
     plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
     pp.trace_pairs_plain(feats, o, d, stats=plain_stats)
+    assert torch.equal(stats, plain_stats)
+
+
+def test_kernel_slice_rule_is_the_plain_rule(cuda):
+    """``bq::slices``, called on the host, equals ``ops/pairs.slices`` on
+    every item count up to past the grid, on grids around the card's."""
+    g = fu.queue_grid()
+    grid = g["blocks_per_sm"] * g["sms"]
+    for n in (1, 2, 3, 7, grid // 4, grid // 2, grid - 1, grid, grid + 1, 2 * grid):
+        for items in range(0, 2 * n + 3):
+            assert pp._lib().pairs_slices(items, n) == pp.slices(items, n), (items, n)
+
+
+@pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
+def test_pairs_kernel_slices_small_traces_exactly(cuda, role):
+    """A few hundred rays leave every round of ``pairs.cu`` too few work
+    items to fill the grid, so each splits into triangle slices: each ray's
+    hit is bit-equal to the one it gets inside a batch whose first round
+    fills the grid unsliced, and to a second launch's, agrees with
+    ``trace_plain``, and the counts stay the plain version's."""
+    make, blocks = ROLES[role]
+    g, _, _, c = make(cuda)
+    assert g.feats.block_bounds.shape[0] == blocks
+    o, d = _rays(g, c, cuda, seed=blocks + 1)
+    small = slice(o.shape[0] - 300, o.shape[0])  # 300 bounce rays
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    h = pp.trace_pairs(g.feats, o[small].contiguous(), d[small].contiguous(), stats=stats)
+    whole = pp.trace_pairs(g.feats, o, d)
+    again = pp.trace_pairs(g.feats, o[small].contiguous(), d[small].contiguous())
+    assert torch.equal(h.t, whole.t[small]) and torch.equal(h.tri, whole.tri[small])
+    assert torch.equal(h.hit, whole.hit[small])
+    assert torch.equal(h.t, again.t) and torch.equal(h.tri, again.tri)
+    _agree(h.t, h.tri, h.hit, ch.trace_plain(g.feats, o[small], d[small]))
+    assert 0.1 < float(h.hit.float().mean()) < 1.0
+    plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    pp.trace_pairs_plain(g.feats, o[small], d[small], stats=plain_stats)
     assert torch.equal(stats, plain_stats)
 
 
@@ -518,6 +561,86 @@ def test_queue_kernel_matches_plain(cuda, role):
         assert torch.equal(rk[3], rp[3])
         for a, b in zip(rk[4:], rp[4:]):
             assert float((a == b).float().mean()) >= 0.995
+
+
+@pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
+def test_queue_kernel_slices_small_samples_exactly(cuda, role):
+    """A 2b sample of 256 lanes has too few work items in every round to
+    fill the grid: rounds split into triangle slices (``split_rounds`` > 0,
+    ``items`` > ``stagings``), each lane's outputs are bit-equal to its rows
+    of a 65,536-lane sample on the same uniforms (whose first rounds run
+    unsliced) and to a second launch's, the counts are the plain version's
+    within 1 % and the image agrees with it."""
+    make, blocks, sun, nee = QUEUE[role]
+    g, m, e, args = _fused_inputs(make, cuda, res=256)
+    assert g.feats.block_bounds.shape[0] == blocks
+    n, mb, lanes = args[2].shape[0], 3, 256
+    u = torch.as_tensor(np.random.default_rng(blocks).random((mb + 1, n, 2)).astype(np.float32),
+                        device=cuda)
+    kw = dict(max_bounce=mb, sun_enabled=sun)
+    part = args[:2] + tuple(x[:lanes].contiguous() for x in args[2:9]) + args[9:]
+    up = u[:, :lanes].contiguous()
+    fields = fu.queue_stats_fields(mb)
+    stats = torch.zeros(len(fields), dtype=torch.int64, device=cuda)
+    small = fu.sample_fused_queue(*part, stats=stats, uniforms=up, **kw)
+    again_stats = torch.zeros_like(stats)
+    again = fu.sample_fused_queue(*part, stats=again_stats, uniforms=up, **kw)
+    big_stats = torch.zeros_like(stats)
+    big = fu.sample_fused_queue(*args, stats=big_stats, uniforms=u, **kw)
+    named, big_named = (dict(zip(fields, x.tolist())) for x in (stats, big_stats))
+    assert named["split_rounds"] > 0 and named["items"] > named["stagings"] > 0
+    assert named["items"] <= pp.S_MAX * named["stagings"]
+    assert big_named["split_rounds"] < big_named["rounds"]  # the first rounds fill the grid
+    for a, b, c in zip(small, again, big):
+        assert torch.equal(a, b) and torch.equal(a, c[:lanes])
+    counts = [i for i, f in enumerate(fields) if not f.endswith("cycles")]
+    assert torch.equal(again_stats[counts], stats[counts])
+    plain_stats = torch.zeros_like(stats)
+    p = _image(fu.sample_fused_plain(*part, stats=plain_stats, uniforms=up, **kw), e)
+    diff = (_image(small, e) - p).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) < 0.02 and float(diff.median()) < 1e-5
+    counted = [0, 1, 2, 3, fu.SEGMENTS] + list(range(len(fu.QUEUE_STATS), len(stats)))
+    ks, ps = stats[counted].double(), plain_stats[counted].double()
+    assert bool((ps[:5] > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats,
+                                                                                    plain_stats)
+    assert plain_stats[fu.QUEUE_STATS.index("split_rounds")] == 0
+    assert plain_stats[fu.QUEUE_STATS.index("items")] == 0
+
+
+def test_queue_kernel_keeps_full_rounds_whole(cuda):
+    """A 2b sample whose every trace is one round with more work items than
+    the grid holds twice (4,096 lanes on a 40 x 40-block floor, each bounce
+    and sun ray from a quad's inner part within 45 degrees of the zenith,
+    entering its own block alone) splits no round: ``split_rounds`` 0 and
+    ``items`` equal to ``stagings``; its counts equal the plain version's."""
+    feats = _floor(40, 40, cuda)
+    n, tp = 4096, feats.edges.shape[-1]
+    rng_ = np.random.default_rng(40)
+    xy = np.floor(rng_.uniform(-20, 20, (n, 2))) + rng_.uniform(0.2, 0.8, (n, 2))
+    p = torch.as_tensor(np.concatenate([xy, np.zeros((n, 1))], 1).astype(np.float32), device=cuda)
+    up = torch.tensor([0.0, 0.0, 1.0], device=cuda).expand(n, 3).contiguous()
+    attrs = torch.zeros((tp, 8), device=cuda)
+    attrs[:, 2], attrs[:, 3], attrs[:, 4:7] = 1.0, 1.0, 0.5  # upward normal, diffuse, grey
+    args = (feats, attrs, p, up, torch.ones(n, dtype=torch.int32, device=cuda),
+            torch.full((n, 3), 0.5, device=cuda), torch.full((n,), 0.5, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda), -up,
+            torch.nn.functional.normalize(torch.tensor([0.2, 0.1, 1.0], device=cuda), dim=0),
+            torch.ones(1, device=cuda))
+    u = torch.as_tensor(rng_.random((1, n, 2)).astype(np.float32), device=cuda)
+    u[..., 0] *= 0.5  # within 45 degrees of the normal
+    kw = dict(max_bounce=0, sun_enabled=True, uniforms=u)
+    fields = fu.queue_stats_fields(0)
+    stats = torch.zeros(len(fields), dtype=torch.int64, device=cuda)
+    out = fu.sample_fused_queue(*args, stats=stats, **kw)
+    named = dict(zip(fields, stats.tolist()))
+    grid = fu.queue_grid()
+    assert named["rounds"] == 2 and named["stagings"] > grid["blocks_per_sm"] * grid["sms"]
+    assert named["split_rounds"] == 0 and named["items"] == named["stagings"]
+    plain_stats = torch.zeros_like(stats)
+    ref = fu.sample_fused_plain(*args, stats=plain_stats, **kw)
+    assert torch.equal(stats[:4], plain_stats[:4])
+    for a, b in zip(out, ref):
+        assert float((a - b).abs().max()) < 1e-5
 
 
 def test_queue_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):

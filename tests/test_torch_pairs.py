@@ -104,6 +104,53 @@ def test_rounds_queue_each_pair_once_and_every_needed_pair(k):
     _assert_exact(h, ch.trace_plain(feats, o, d))
 
 
+@pytest.mark.parametrize("items, grid, want", [
+    (0, 528, 1), (1, 528, 32), (16, 528, 32), (17, 528, 16), (33, 528, 16), (34, 528, 8),
+    (66, 528, 8), (67, 528, 4),
+    (132, 528, 4), (133, 528, 2), (264, 528, 2), (265, 528, 1), (528, 528, 1), (529, 528, 1),
+    (1, 1, 1), (1, 2, 2), (3, 7, 2), (2 ** 30, 528, 1)])
+def test_slices_fill_the_grid_in_powers_of_two(items, grid, want):
+    """The kernel's slice rule: the largest power of two up to ``S_MAX``
+    whose slices of every item still fit in the grid; a round with no
+    items, or with enough to fill the grid, keeps its items whole."""
+    assert pp.slices(items, grid) == want
+    assert want <= pp.S_MAX and (items == 0 or want == 1 or items * want <= grid)
+
+
+@functools.cache
+def _scene61_pairs():
+    """The 61-block scene, a few hundred bounce rays, and every (ray, block)
+    pair their rounds queue, with each pair's key over the whole tile."""
+    g = tt.make_outdoor_scene(n_cubes=1300, device="cpu")[0]
+    assert g.feats.block_bounds.shape[0] == 61
+    o, d = common.bounce_rays(g, 300, seed=17)
+    queues = []
+    pp.trace_pairs_plain(g.feats, o, d, queues=queues)
+    rid = torch.cat([q[0] for q in queues])
+    blk = torch.cat([q[1] for q in queues])
+    rays = ch.ray_features(o, d)
+    whole = pp._test_pairs(g.feats, *rays, rid, blk, ch.TRI_TILE)
+    return g, rays, rid, blk, whole
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8, 16, 32])
+def test_slices_of_a_tile_fold_to_its_whole_key(s):
+    """The least key over ``s`` triangle slices of each (ray, block) pair,
+    as the kernel folds its slices with ``atomicMin``, equals the pair's
+    key over the whole tile bit for bit."""
+    g, rays, rid, blk, whole = _scene61_pairs()
+    tile = ch.TRI_TILE
+    width = tile // s
+    parts = torch.stack([pp._test_pairs(g.feats, *rays, rid, blk, tile, lo, lo + width)
+                         for lo in range(0, tile, width)])
+    assert torch.equal(parts.amin(dim=0), whole)
+    hits = whole != pp.NO_HIT_KEY
+    assert 0.05 < float(hits.float().mean()) < 1.0
+    if s > 1:  # the winner lies in one slice; the others miss it or find a farther hit
+        assert bool(((parts == whole).sum(dim=0)[hits] >= 1).all())
+        assert bool((parts > whole).any())
+
+
 def _jax_bounce_rays(geom, n, seed):
     """``tests/test_pairs.py``'s rays: surface origins 5e-4 along a random
     direction (numpy, from a seed)."""
