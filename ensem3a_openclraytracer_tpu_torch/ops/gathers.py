@@ -22,12 +22,18 @@ atomics land does not matter, and unlike ``index_put_`` the atomics do
 not serialize a row's duplicates.  The error is one quantum (2^-62 of
 lanes x largest magnitude) per lane, below a float32 sum's.  A non-finite
 gradient makes the whole table NaN.
+
+Each sum counts itself (``utils/profiling.count``, ``"scatter"``): one
+call, its lanes (index entries) and the table entries it writes, which is
+every entry of the dense table however few lanes it has.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from ensem3a_openclraytracer_tpu_torch.utils.profiling import count
 
 
 def scatter_rows(grad: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
@@ -37,6 +43,7 @@ def scatter_rows(grad: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tens
     tail = grad.shape[idx.dim():]
     i = idx.reshape(-1).to(torch.int64)
     g = grad.reshape(i.numel(), -1).to(torch.float64)
+    count("scatter", calls=1, lanes=i.numel(), entries=rows * g.shape[1])
     amax = g.abs().amax() if g.numel() else g.new_zeros(())
     scale = torch.floor(62.0 - torch.log2(torch.clamp(amax * i.numel(), min=2.0 ** -200)))
     q = torch.round(g * torch.exp2(scale)).to(torch.int64)

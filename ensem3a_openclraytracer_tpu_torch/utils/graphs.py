@@ -41,6 +41,12 @@ captured once and replayed with one host call.
   them: the counters are put back after it, and what it recorded is
   ``last_capture["launches"]``.  A profiler trace of a replay shows its
   kernels (``ops/launches.count_kernels``).
+* **Counter records** (``utils/profiling.count``, while a profiler
+  records): each call records under ``"graphs"`` the bytes it copies into
+  the graph's buffers and clones out of its outputs.  The counts that the
+  captured code makes (``"scatter"``) are tallied at the capture
+  (``last_capture["counts"]``) and recorded again at each replay, which
+  runs none of that code.
 * **CPU tensors** run the function eagerly: graphs exist only on the
   card.  On the card a capture that fails raises; nothing falls back to
   the eager call.
@@ -68,7 +74,7 @@ from typing import Any, Callable, Iterable, List, NamedTuple, Optional, Tuple
 import torch
 
 from ensem3a_openclraytracer_tpu_torch.ops import launches
-from ensem3a_openclraytracer_tpu_torch.utils.profiling import span
+from ensem3a_openclraytracer_tpu_torch.utils.profiling import count, recording, span, tallied
 
 MAX_GRAPHS = 8  # graphs kept per Graphed: each holds a memory pool on the card
 
@@ -180,8 +186,9 @@ class Graphed:
     docstring).  ``in_place`` names the arguments, or ``"arg.field"`` the
     ``NamedTuple`` fields, read where they lie.  ``captures`` counts the
     graphs captured; ``last_capture`` describes the latest: warm-up,
-    capture and instantiation seconds, the pool's bytes and the launches
-    the graph recorded, by counter."""
+    capture and instantiation seconds, the pool's bytes, the launches
+    the graph recorded, by counter, and the counts its code made
+    (``counts``: name -> field -> sum)."""
 
     def __init__(self, fn: Callable, *, in_place: Iterable[str] = (), backend=None):
         self.fn = fn
@@ -212,9 +219,21 @@ class Graphed:
                 for buf, t in zip(entry.inputs, copied):
                     buf.copy_(t)
             with span("graphs.replay"):
-                self.backend.replay(entry.graph, dev)
+                self._replay(entry, dev)
             with span("graphs.clone_out"):
-                return unflatten(entry.out_spec, [t.clone() for t in entry.outputs])
+                outs = [t.clone() for t in entry.outputs]
+            if recording():
+                _count_bytes(copied, outs)
+            return unflatten(entry.out_spec, outs)
+
+    def _replay(self, entry: _Entry, dev) -> None:
+        if not recording():
+            self.backend.replay(entry.graph, dev)
+            return
+        with tallied():  # a stand-in backend's replay runs Python: the capture's tally counts it
+            self.backend.replay(entry.graph, dev)
+        for name, values in entry.info["counts"].items():
+            count(name, **values)
 
     def _lookup(self, args, kwargs):
         """``(key, bound arguments, their parts, device, entry)`` of a call
@@ -265,7 +284,7 @@ class Graphed:
         warm_s = time.perf_counter() - t0
         before = launches.read()
         try:
-            with span("graphs.capture"):
+            with span("graphs.capture"), tallied() as counts:
                 graph, static_out, info = self.backend.capture(run, dev)
             after = launches.read()
         finally:
@@ -274,7 +293,7 @@ class Graphed:
         if spec != out_spec:
             raise RuntimeError("the captured run returned another structure than the warm-up")
         recorded = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
-        info = dict(info, warm_up_s=warm_s, launches=recorded)
+        info = dict(info, warm_up_s=warm_s, launches=recorded, counts=counts)
         drop = lambda _ref, graphs=self._graphs: graphs.pop(key, None)
         self._graphs[key] = _Entry(graph, inputs, spec, outputs, info,
                                    [weakref.ref(t, drop) for t in held])
@@ -282,7 +301,14 @@ class Graphed:
             self._graphs.popitem(last=False)
         self.captures += 1
         self.last_capture = info
+        if recording():
+            _count_bytes(inputs, flatten(result)[0])
         return result
+
+
+def _count_bytes(copied_in: List[torch.Tensor], cloned_out: List[torch.Tensor]) -> None:
+    count("graphs", calls=1, copy_in_bytes=sum(t.nbytes for t in copied_in),
+          clone_out_bytes=sum(t.nbytes for t in cloned_out))
 
 
 def _signature(t: torch.Tensor, in_place: bool) -> tuple:

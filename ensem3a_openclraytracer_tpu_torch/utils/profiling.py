@@ -21,6 +21,12 @@ nothing else:
   drops them.  ``models/pathtracer.render_radiance_jit`` keeps 2b's
   (``csrc/fused_queue.cu``) counters under ``"fused_queue"`` after each
   multi-block render made while a profiler records.
+* :func:`count` records counts the host already knows (sizes, bytes) as
+  a CPU record, with no device work: ``ops/gathers.scatter_rows`` under
+  ``"scatter"``, ``utils/graphs.Graphed`` under ``"graphs"``.  Code that a
+  CUDA graph captures runs its Python only at the capture, so
+  ``Graphed`` collects the capture's counts with :func:`tallied` and
+  records them again at each replay.
 """
 
 from __future__ import annotations
@@ -76,6 +82,34 @@ def counter_totals(name: str) -> Optional[Dict[str, int]]:
 def clear_counters() -> None:
     """Drop every counter record."""
     _COUNTERS.clear()
+
+
+_TALLY: Optional[Dict[str, Dict[str, int]]] = None  # set inside tallied()
+
+
+def count(name: str, **values: int) -> None:
+    """Host-known counts under ``name``, one field per keyword: added to
+    the innermost :func:`tallied` block's tally where one is open, else
+    kept as a record while a profiler records, else dropped."""
+    if _TALLY is not None:
+        kept = _TALLY.setdefault(name, {})
+        for k, v in values.items():
+            kept[k] = kept.get(k, 0) + int(v)
+    elif recording():
+        record_counters(name, torch.tensor([int(v) for v in values.values()], dtype=torch.int64),
+                        tuple(values))
+
+
+@contextlib.contextmanager
+def tallied():
+    """Collect the block's :func:`count` calls into the yielded dict
+    (name -> field -> sum) in place of recording them."""
+    global _TALLY
+    outer, _TALLY = _TALLY, {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = outer
 
 
 def rays_per_render(res: int, spp: int, max_bounce: int, sun_enabled: bool) -> int:
