@@ -908,7 +908,8 @@ def phase_fused_queue(role, dev, smi: str):
     check(frac_t < 0.02, f"{role['name']}: pixel forks {frac_t:.5f} >= 0.02 at {res_t}^2")
     check(med_t < 1e-5, f"{role['name']}: median diff {med_t:.3e} >= 1e-5 at {res_t}^2")
     # shading float order forks a few knife-edge rays, so the counts may differ a little
-    counted = [f for f in fields if f not in ("syncs", "split_rounds", "items")
+    counted = [f for f in fields if f not in ("syncs", "split_rounds", "items",
+                                              "coop_select_rounds")
                and not f.endswith("cycles")]
     ks, ps = [named[f] for f in counted], [plain_named[f] for f in counted]
     gap = [abs(a - b) / max(b, 1) for a, b in zip(ks, ps)]
@@ -924,10 +925,12 @@ def phase_fused_queue(role, dev, smi: str):
     check(0 < named["sync_cycles"] < named["kernel_cycles"] and min(phases) >= 0
           and sum(phases) > 0, f"{role['name']}: cycles {named}")
     check(named["stagings"] <= named["items"] <= pp.S_MAX * named["stagings"]
-          and named["split_rounds"] <= rounds, f"{role['name']}: slices {named}")
+          and named["split_rounds"] <= rounds and named["coop_select_rounds"] <= rounds,
+          f"{role['name']}: slices {named}")
     log(f"[phase 5] {role['name']}: grid-sync share {named['sync_cycles'] / named['kernel_cycles']:.4f} "
         f"of the CUDA blocks' cycles; rounds split into triangle slices {named['split_rounds']} of "
-        f"{rounds}, work items {named['items']} for {stagings} stagings; block 0's cycles by "
+        f"{rounds}, work items {named['items']} for {stagings} stagings; rounds selecting with "
+        f"a group of lanes a ray {named['coop_select_rounds']}; block 0's cycles by "
         f"phase (shade, bounce trace, resolve, sun trace, finish) "
         f"{[round(p / sum(phases), 4) for p in phases]}; pairs per segment "
         f"{pairs / max(named['segments'], 1):.2f}; lanes by bounce {lanes}")
@@ -974,6 +977,7 @@ def phase_fused_queue(role, dev, smi: str):
         empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs,
         segments=named["segments"], grid_sync_share=named["sync_cycles"] / named["kernel_cycles"],
         split_rounds=named["split_rounds"], work_items=named["items"],
+        coop_select_rounds=named["coop_select_rounds"],
     )
 
 

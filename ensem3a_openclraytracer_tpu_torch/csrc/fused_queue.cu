@@ -101,12 +101,13 @@ struct Params {
 // stagings, rounds and slab tests (bq::add_tally), grid syncs, segments
 // traced, the sum over CUDA blocks of thread 0's cycles inside grid syncs
 // and from entry to exit, CUDA block 0's cycles by phase, the rounds that
-// ran with more than one triangle slice and the work items run (bq::Queues
-// split, added by the scan), then the segments of each bounce.
+// ran with more than one triangle slice and the work items run (added by the
+// scan), the rounds whose select ran with more than one lane a ray (the three
+// slots of bq::Queues split), then the segments of each bounce.
 constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
 enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
 constexpr int S_SPLIT = S_PHASE + N_PHASES;
-constexpr int S_LANES = S_SPLIT + 2;
+constexpr int S_LANES = S_SPLIT + 3;
 
 // Thread 0's clock (32 bits: a launch lasts far less than 2^32 cycles) in
 // shared memory, so that timing holds no register through the kernel: its
@@ -490,7 +491,7 @@ extern "C" int fused_queue_grid(int* out) {
 // the features: packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte
 // aligned; scratch of fused_queue_scratch_bytes(n, nb, nee) bytes, 16-byte
 // aligned, in any state.  `stats` may be null, else it receives its
-// max_bounce + 16 slots (see S_LANES; added).  Returns the cudaError_t of
+// max_bounce + 17 slots (see S_LANES; added).  Returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,

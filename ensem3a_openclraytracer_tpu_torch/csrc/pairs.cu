@@ -104,6 +104,13 @@ extern "C" int pairs_grid(int k, int* out) {
 // `grid` CUDA blocks (bq::slices, which ops/pairs.slices mirrors).
 extern "C" int pairs_slices(int items, int grid) { return bq::slices(items, grid); }
 
+// The select lanes a ray in a round of n_live rays on nb blocks over
+// grid_threads threads (bq::select_lanes, which ops/pairs.select_lanes
+// mirrors).
+extern "C" int pairs_select_lanes(int n_live, int nb, int grid_threads) {
+  return bq::select_lanes(n_live, nb, grid_threads);
+}
+
 // One cooperative launch on `stream` (a cudaStream_t passed as void*).
 // packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte aligned; scratch
 // of pairs_scratch_bytes(n, nb, k) bytes, 16-byte aligned, in any state.

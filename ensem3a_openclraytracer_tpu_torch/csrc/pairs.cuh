@@ -3,15 +3,23 @@
 // launch).  They run on a ray list held in device memory, inside a cooperative
 // launch whose grid-wide syncs separate the pieces of a round:
 //
-//   select  one thread per live ray slab-tests it against every triangle
-//           block's margined box (ch::block_entry; the bounds staged in shared
-//           memory, in chunks above what fits) and keeps in registers the K
+//   select  each live ray is slab-tested against every triangle block's
+//           margined box (ch::block_entry; the bounds staged in shared
+//           memory, in chunks above what fits), keeping in registers the K
 //           least keys (entry bits << 32) | block that lie above its cursor
 //           (the last key it queued) with entry <= its best t: the next K
 //           blocks of its front-to-back walk, with no [N, B] matrix and no
 //           sort.  Each chosen (ray, block) pair takes a slot in its block's
-//           queue from a per-block counter (warp-aggregated atomicAdd).  A ray
-//           with more than K such blocks stays live for the next round.
+//           queue from a per-block counter.  A ray with more than K such
+//           blocks stays live for the next round.  A round whose rays fill
+//           the grid, or a scene of more than AGG_BLOCKS blocks, gives each
+//           ray one thread (warp-aggregated atomicAdd per pick); a smaller
+//           round gives each a group of G lanes (select_lanes), spread over
+//           every CUDA block: each lane tests every G-th box and keeps its
+//           own K least, the group merges them by K warp minima, and each
+//           pick's lane queues it, every pick at once, the CUDA block's picks
+//           of one triangle block sharing one atomicAdd.  The picks, cursor
+//           and counts are the same for any G.
 //   scan    one CUDA block turns the per-block counts into queue offsets and
 //           work items of up to CHUNK queued rays (an exclusive scan).
 //   fill    each pair writes its ray into its block's queue.
@@ -50,11 +58,19 @@ constexpr int PACK4 = ch::PACK4;        // float4s per triangle in the packed fe
 constexpr int BUF4 = ch::PACKED_BUF4;   // one staged block in ch's packed layout
 constexpr int SMEM_BYTES = 2 * BUF4 * 16;  // two buffers: 51,200 bytes
 constexpr int SEL_BLOCKS = 2 * BUF4 / 2;   // bounds rows (two float4s each) per select chunk
+// The most blocks whose bounds (32 bytes) and a grouped select's pick counts
+// and first slots (8 bytes) share the select's shared memory: the most for
+// which select groups lanes (ops/pairs.AGG_BLOCKS).
+constexpr int AGG_BLOCKS = SMEM_BYTES / 40;
+static_assert(AGG_BLOCKS <= SEL_BLOCKS, "a grouped select keeps every bound resident");
 constexpr unsigned long long NONE = ~0ull;  // cursor of a ray that queued nothing yet
 constexpr unsigned NO_BLOCK = 0xffffffffu;
 // The most CUDA blocks that share one (block, chunk) item: 8 triangles a
 // slice of a 256-triangle tile (ops/pairs.S_MAX; the sweep is in PERF.md).
 constexpr int S_MAX = 32;
+// The most select lanes a ray: a warp, within which the group's reductions
+// stay (ops/pairs.G_MAX).
+constexpr int G_MAX = 32;
 
 struct Ctrl {
   int live[2];  // live rays of the round that reads list r & 1, and of the next
@@ -73,6 +89,19 @@ __host__ __device__ __forceinline__ int slices(int items, int grid) {
   return s;
 }
 
+// The lanes G that select gives each live ray in a round of n_live rays on nb
+// triangle blocks over grid_threads threads: the largest power of two with G
+// <= G_MAX, G <= nb and n_live x G <= grid_threads, so one pass of the grid's
+// groups takes every ray; 1 when none is larger, when no ray is live, or when
+// nb > AGG_BLOCKS (ops/pairs.select_lanes).
+__host__ __device__ __forceinline__ int select_lanes(int n_live, int nb, int grid_threads) {
+  int g = 1;
+  while (n_live > 0 && nb <= AGG_BLOCKS && 2 * g <= G_MAX && 2 * g <= nb &&
+         n_live <= grid_threads / (2 * g))
+    g *= 2;
+  return g;
+}
+
 // The rays and the queues of one trace.  n is the capacity of the ray slots
 // (each live list holds up to n slot indices).
 struct Queues {
@@ -81,7 +110,8 @@ struct Queues {
   const float4* packed;  // [tp, 7] float4: ch::FEAT_ROWS rows per triangle, padded to 28
   const float* bounds;   // [nb, 8]
   int n, nb, tile;
-  unsigned long long* split;   // [2] rounds with S > 1 and work items run (added), or null
+  unsigned long long* split;   // [3] rounds with S > 1, work items run and rounds whose select
+                               // ran with G > 1 (added), or null
   unsigned long long* best;    // [n] (t bits << 32) | tri
   unsigned long long* cursor;  // [n] the last key queued, NONE before the first
   int2* pairs;                 // [n, K] (block, slot in its queue) of each live ray's picks
@@ -167,13 +197,41 @@ __device__ __forceinline__ void stage_bounds(const Queues& p, float4* sb, int c0
   __syncthreads();
 }
 
-// Select: each live ray's next K blocks, queued by block (see the header).
+// Blocks j = j0, j0 + step, ... below c1 of the chunk staged in b from block
+// c0: each that the ray enters no farther than best_t, with a key above its
+// cursor, counts in qual and joins the sorted K least keys in sel.
+template <int K>
+__device__ __forceinline__ void slab_keys(const ch::Ray& r, const float* b, int c0, int c1,
+                                          int j0, int step, float best_t,
+                                          unsigned long long cur, unsigned long long (&sel)[K],
+                                          int& qual) {
+  for (int j = j0; j < c1; j += step) {
+    const float e = ch::block_entry(r, b, j - c0);
+    if (!(e <= best_t)) continue;  // beyond the best hit, or missed (+inf)
+    const unsigned long long key =
+        (static_cast<unsigned long long>(__float_as_uint(e)) << 32) | static_cast<unsigned>(j);
+    if (cur != NONE && key <= cur) continue;  // queued in an earlier round
+    ++qual;
+    if (key < sel[K - 1]) {  // insert into the sorted K least
+      sel[K - 1] = key;
+#pragma unroll
+      for (int s = K - 1; s > 0; --s) {
+        const unsigned long long lo = min(sel[s - 1], sel[s]), hi = max(sel[s - 1], sel[s]);
+        sel[s - 1] = lo;
+        sel[s] = hi;
+      }
+    }
+  }
+}
+
+// Select with one thread per live ray, the rays packed from CUDA block 0 on.
 template <int K, bool FRESH>
-__device__ void select_round(const Queues& p, int n_live, const int* live_in, int* live_out,
-                             int* n_live_out, float4* sb, unsigned long long& slabs) {
+__device__ void select_threads(const Queues& p, int n_live, const int* live_in, int* live_out,
+                               int* n_live_out, float4* sb, unsigned long long& slabs) {
   const int lane = threadIdx.x & 31;
   const bool resident = p.nb <= SEL_BLOCKS;
   if (resident) stage_bounds(p, sb, 0, p.nb);
+  const float* b = reinterpret_cast<const float*>(sb);
   for (int base = blockIdx.x * THREADS; base < n_live; base += gridDim.x * THREADS) {
     const int q = base + threadIdx.x;
     const bool has = q < n_live;
@@ -188,25 +246,7 @@ __device__ void select_round(const Queues& p, int n_live, const int* live_in, in
     for (int c0 = 0; c0 < p.nb; c0 += SEL_BLOCKS) {
       const int c1 = min(p.nb, c0 + SEL_BLOCKS);
       if (!resident) stage_bounds(p, sb, c0, c1);
-      if (!has) continue;
-      const float* b = reinterpret_cast<const float*>(sb);
-      for (int j = c0; j < c1; ++j) {
-        const float e = ch::block_entry(r, b, j - c0);
-        if (!(e <= best_t)) continue;  // beyond the best hit, or missed (+inf)
-        const unsigned long long key =
-            (static_cast<unsigned long long>(__float_as_uint(e)) << 32) | static_cast<unsigned>(j);
-        if (cur != NONE && key <= cur) continue;  // queued in an earlier round
-        ++qual;
-        if (key < sel[K - 1]) {  // insert into the sorted K least
-          sel[K - 1] = key;
-#pragma unroll
-          for (int s = K - 1; s > 0; --s) {
-            const unsigned long long lo = min(sel[s - 1], sel[s]), hi = max(sel[s - 1], sel[s]);
-            sel[s - 1] = lo;
-            sel[s] = hi;
-          }
-        }
-      }
+      if (has) slab_keys<K>(r, b, c0, c1, c0, 1, best_t, cur, sel, qual);
     }
     if (has) slabs += p.nb;
 
@@ -237,6 +277,91 @@ __device__ void select_round(const Queues& p, int n_live, const int* live_in, in
     out = __shfl_sync(0xffffffffu, out, 0);
     if (more) live_out[out + __popc(m & ((1u << lane) - 1u))] = i;
   }
+}
+
+// Select with a group of g lanes per live ray (g a power of two, 2 to G_MAX,
+// n_live x g <= the grid's threads and nb <= AGG_BLOCKS: select_lanes).  The
+// live list is cut into one run of consecutive rays per CUDA block, so the
+// groups spread over every CUDA block and a block's rays are neighbours in the
+// list.  The CUDA block first counts its picks per triangle block in shared
+// memory, beside the resident bounds, then takes each block's slots with one
+// atomicAdd.
+template <int K, bool FRESH>
+__device__ void select_groups(const Queues& p, int g, int n_live, const int* live_in,
+                              int* live_out, int* n_live_out, float4* sb,
+                              unsigned long long& slabs) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, l = threadIdx.x & (g - 1);
+  const unsigned group = g == 32 ? FULL : ((1u << g) - 1u) << (lane & ~(g - 1));
+  const int run = (n_live + gridDim.x - 1) / gridDim.x;  // <= THREADS / g
+  const int t = threadIdx.x / g;
+  const int q = blockIdx.x * run + t;
+  const bool has = t < run && q < n_live;
+  int* s_cnt = reinterpret_cast<int*>(sb + 2 * p.nb);  // [nb] picks, then [nb] first slots
+  for (int j = threadIdx.x; j < p.nb; j += THREADS) s_cnt[j] = 0;
+  stage_bounds(p, sb, 0, p.nb);  // its barriers order the zeroing too
+  const float* b = reinterpret_cast<const float*>(sb);
+  const int i = has ? __ldcg(live_in + q) : 0;
+  const ch::Ray r = load_ray<FRESH>(p, i);
+  const float best_t = has ? key_t(__ldcg(p.best + i)) : -1.0f;
+  const unsigned long long cur = has ? __ldcg(p.cursor + i) : NONE;
+  unsigned long long sel[K];  // this lane's K least, sorted
+#pragma unroll
+  for (int s = 0; s < K; ++s) sel[s] = NONE;
+  int qual = 0;
+  if (has) slab_keys<K>(r, b, 0, p.nb, l, g, best_t, cur, sel, qual);
+  if (has && l == 0) slabs += p.nb;
+  qual = static_cast<int>(__reduce_add_sync(group, static_cast<unsigned>(qual)));
+  const int nsel = min(qual, K);
+
+  // the group's K least: per pick, the least of the lanes' heads (a 64-bit
+  // minimum as two 32-bit ones), popped by the lane that holds it; every lane
+  // learns every pick
+  const int steps = static_cast<int>(__reduce_max_sync(FULL, static_cast<unsigned>(nsel)));
+  unsigned blk[K] = {};
+  unsigned long long last = NONE;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (s >= steps) break;  // no group of the warp has more picks
+    const unsigned hi = static_cast<unsigned>(sel[0] >> 32);
+    const unsigned mh = __reduce_min_sync(group, hi);
+    const unsigned ml = __reduce_min_sync(group, hi == mh ? static_cast<unsigned>(sel[0]) : ~0u);
+    const unsigned long long m = (static_cast<unsigned long long>(mh) << 32) | ml;
+    if (sel[0] == m) {  // keys are distinct (each holds its block)
+#pragma unroll
+      for (int k = 0; k + 1 < K; ++k) sel[k] = sel[k + 1];
+      sel[K - 1] = NONE;
+    }
+    blk[s] = ml;
+    if (s == nsel - 1) last = m;
+  }
+
+  // lane s mod g queues pick s, every pick's atomicAdd in flight at once
+  int slot[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    if (s < nsel && (s & (g - 1)) == l) slot[s] = atomicAdd(s_cnt + blk[s], 1);
+  __syncthreads();  // the CUDA block's first slot in each block's queue
+  for (int j = threadIdx.x; j < p.nb; j += THREADS) {
+    const int c = s_cnt[j];
+    if (c > 0) s_cnt[p.nb + j] = atomicAdd(p.cnt + j, c);
+  }
+  __syncthreads();
+  int2* row = p.pairs + static_cast<long long>(q) * K;
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    if (s < nsel && (s & (g - 1)) == l)
+      row[s] = make_int2(static_cast<int>(blk[s]), slot[s] + s_cnt[p.nb + blk[s]]);
+  if (has && nsel < K && (nsel & (g - 1)) == l) row[nsel] = make_int2(-1, 0);  // terminator
+  if (has && nsel > 0 && l == 0) p.cursor[i] = last;
+
+  // a ray with more qualifying blocks than it picked stays live
+  const bool more = has && l == 0 && qual > K;
+  const unsigned mk = __ballot_sync(FULL, more);
+  int out = 0;
+  if (lane == 0 && mk) out = atomicAdd(n_live_out, __popc(mk));
+  out = __shfl_sync(FULL, out, 0);
+  if (more) live_out[out + __popc(mk & ((1u << lane) - 1u))] = i;
 }
 
 // Scan (one CUDA block): queue offsets and work items from the per-block
@@ -423,8 +548,16 @@ __device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem
     if (n_live == 0) break;  // the same value in every thread: no sync is left waiting
     ++tally.rounds;
     const int* live_in = p.live + cur * p.n;
-    select_round<K, FRESH>(p, n_live, live_in, p.live + (cur ^ 1) * p.n, &p.ctrl->live[cur ^ 1],
-                           smem, tally.slabs);
+    int* live_out = p.live + (cur ^ 1) * p.n;  // select: each live ray's next K blocks
+    const int g = select_lanes(n_live, p.nb, gridDim.x * THREADS);
+    if (g == 1) {
+      select_threads<K, FRESH>(p, n_live, live_in, live_out, &p.ctrl->live[cur ^ 1], smem,
+                               tally.slabs);
+    } else {
+      if (gtid == 0 && p.split != nullptr) atomicAdd(&p.split[2], 1ull);
+      select_groups<K, FRESH>(p, g, n_live, live_in, live_out, &p.ctrl->live[cur ^ 1], smem,
+                              tally.slabs);
+    }
     sync<TIMED>(grid, tally);
     if (blockIdx.x == 0) scan_round(p, s_scan);
     sync<TIMED>(grid, tally);

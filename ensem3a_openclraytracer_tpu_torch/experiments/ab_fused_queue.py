@@ -24,8 +24,12 @@ bit-equal to this checkout's, then ``iters`` samples timed with CUDA
 events per turn, the sources in order and then in reverse, ``turns``
 times; the median ms a sample.  #3: one trace of ``chip_smoke.role_rays``
 (327,680 rays) on outdoor_1300 and outdoor_12500 and of the cell's 65,536
-primary rays, held bit-equal and timed the same way.  The last line is one
-JSON object with every number.  Needs a card.
+primary rays, its hits and its four counts (pairs, stagings, rounds, slab
+tests) held equal to this checkout's, then timed the same way; at the
+:data:`GROUPS` shapes, which select with groups of lanes, also against the
+plain version (``ops/pairs.trace_pairs_plain``: the triangles that differ
+and its counts).  The last line is one JSON object with every number.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ SHAPES = {"cell": (1300, 256, False), "outdoor_1000": (1000, 512, False),
           "outdoor_12500": (12500, 256, False)}
 TRACES = {"rays_1300": (1300, 512, 65536), "rays_12500": (12500, 512, 65536),
           "rays_cell": (1300, 256, 0)}  # name -> (cubes, rays per side, bounce rays)
+# name -> cubes: the rays of tests/test_torch_cuda.py's
+# test_pairs_kernel_groups_small_selects_exactly at half the grid's threads
+# (group_rays)
+GROUPS = {"groups_61": 1300, "groups_586": 12500}
 
 
 def build(label: str, csrc: Path) -> dict:
@@ -136,6 +144,27 @@ def trace(lib, feats, o, d, stats=None):
     return out
 
 
+def group_rays(geom, cam, dev, threads: int):
+    """The last ``threads // 2`` of the 128^2 camera rays and ``threads``
+    rays leaving random primary rays' ends in random directions (numpy
+    seed: the block count + 2), as the card test draws them."""
+    import numpy as np
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+    from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
+
+    o, d = camera_rays(cam.position, cam.rotation_deg, cam.fov_deg, 128, 128)
+    h = ch.trace_plain(geom.feats, o.contiguous(), d)
+    rng = np.random.default_rng(geom.feats.block_bounds.shape[0] + 2)
+    pick = torch.as_tensor(rng.integers(0, o.shape[0], threads), device=dev)
+    bd = torch.as_tensor(rng.normal(size=(threads, 3)).astype(np.float32), device=dev)
+    bd = torch.nn.functional.normalize(bd, dim=-1)
+    bo = o[pick] + d[pick] * h.t[pick, None]
+    o, d = torch.cat([o, bo]), torch.cat([d, bd])
+    return o[-(threads // 2):].contiguous(), d[-(threads // 2):].contiguous()
+
+
 def in_turns(fns: dict, iters: int, turns: int) -> dict:
     """Per label, the ms a call of each turn (CUDA events over ``iters``
     calls), the labels in order then in reverse, ``turns`` times."""
@@ -162,6 +191,7 @@ def main(argv=None) -> int:
     import torch
 
     from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
     from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
     from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
@@ -169,7 +199,7 @@ def main(argv=None) -> int:
     ap.add_argument("sources", nargs="*", help="LABEL=DIR, a copy of csrc/")
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--turns", type=int, default=4)
-    ap.add_argument("--shapes", nargs="*", default=list(SHAPES) + list(TRACES))
+    ap.add_argument("--shapes", nargs="*", default=list(SHAPES) + list(TRACES) + list(GROUPS))
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -224,22 +254,43 @@ def main(argv=None) -> int:
         for k, v in times.items():
             print(f"[{name}] {k}: ms a sample by turn {[round(x, 5) for x in v]}, median "
                   f"{statistics.median(v):.5f} [{smi}]", flush=True)
-    for name in (s for s in a.shapes if s in TRACES):
-        cubes, res, n_bounce = TRACES[name]
-        g, _, _, c = tt.make_outdoor_scene(n_cubes=cubes, device=dev)
-        o, d = cs.role_rays(g, c, dev, seed=2, res=res, n_bounce=max(n_bounce, 1))
-        if n_bounce == 0:  # the camera's rays alone
-            o, d = o[:res * res].contiguous(), d[:res * res].contiguous()
+    pg = pp.kernel_grid()
+    threads = pg["blocks_per_sm"] * pg["sms"] * pg["threads"]
+    for name in (s for s in a.shapes if s in TRACES or s in GROUPS):
+        if name in GROUPS:
+            g, _, _, c = tt.make_outdoor_scene(n_cubes=GROUPS[name], device=dev)
+            o, d = group_rays(g, c, dev, threads)
+            plain_stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            plain = pp.trace_pairs_plain(g.feats, o, d, stats=plain_stats)
+            result["stats"][f"{name}/plain"] = plain_stats.tolist()
+            print(f"[{name}] plain version: stats {plain_stats.tolist()}", flush=True)
+        else:
+            cubes, res, n_bounce = TRACES[name]
+            g, _, _, c = tt.make_outdoor_scene(n_cubes=cubes, device=dev)
+            o, d = cs.role_rays(g, c, dev, seed=2, res=res, n_bounce=max(n_bounce, 1))
+            if n_bounce == 0:  # the camera's rays alone
+                o, d = o[:res * res].contiguous(), d[:res * res].contiguous()
+            plain = None
+        lanes = pp.select_lanes(o.shape[0], g.feats.block_bounds.shape[0], threads)
+        print(f"[{name}] {o.shape[0]} rays: this checkout's first select gives each "
+              f"{lanes} lanes", flush=True)
         first = None
         for lb in libs:
             stats = torch.zeros(4, dtype=torch.int64, device=dev)
             out = trace(lb["pairs"], g.feats, o, d, stats)
             torch.cuda.synchronize()
-            first = out if first is None else first
-            same = all(torch.equal(x, y) for x, y in zip(out, first))
-            print(f"[{name}] {lb['label']}: {o.shape[0]} rays, hits bit-equal to this checkout's "
-                  f"{same}; stats {stats.tolist()}", flush=True)
-            if not same:
+            if first is None:
+                first = (out, stats)
+            same = all(torch.equal(x, y) for x, y in zip(out, first[0]))
+            counts = torch.equal(stats, first[1])
+            result["stats"][f"{name}/{lb['label']}"] = stats.tolist()
+            vs_plain = ("" if plain is None else
+                        f"; triangles differing from the plain version's "
+                        f"{int((out[1] != plain.tri).sum())}")
+            print(f"[{name}] {lb['label']}: {o.shape[0]} rays, hits bit-equal to this "
+                  f"checkout's {same}, counts equal {counts}; stats "
+                  f"{stats.tolist()}{vs_plain}", flush=True)
+            if not (same and counts):
                 raise SystemExit(f"{lb['label']} differs from this checkout on {name}")
         times = in_turns({lb["label"]: (lambda lb=lb: trace(lb["pairs"], g.feats, o, d))
                           for lb in libs}, a.iters, a.turns)

@@ -111,13 +111,15 @@ QUEUE_MIN_BLOCKS = 2
 # ends it (shade with the launch's set-up, bounce-trace rounds, resolve,
 # sun-trace rounds, finish); the rounds that split their work items into
 # more than one triangle slice and the work items run, one per slice
-# (``ops/pairs.slices``); last the segments of each bounce, whose number
-# follows ``max_bounce``.  Cycles are one SM's clock: only their ratios are
-# read.  The plain version counts the same, with no syncs, no cycles and
-# neither of the two slice counts.
+# (``ops/pairs.slices``); the rounds whose select gave each ray a group of
+# more than one lane (``ops/pairs.select_lanes``); last the segments of each
+# bounce, whose number follows ``max_bounce``.  Cycles are one SM's clock:
+# only their ratios are read.  The plain version counts the same, with no
+# syncs, no cycles, neither of the two slice counts and no grouped rounds.
 QUEUE_STATS = ("pairs", "stagings", "rounds", "slabs", "syncs", "segments", "sync_cycles",
                "kernel_cycles", "shade_cycles", "bounce_trace_cycles", "resolve_cycles",
-               "sun_trace_cycles", "finish_cycles", "split_rounds", "items")
+               "sun_trace_cycles", "finish_cycles", "split_rounds", "items",
+               "coop_select_rounds")
 SEGMENTS = QUEUE_STATS.index("segments")
 
 
@@ -244,8 +246,9 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     ``csrc/fused_queue.cu`` counts there (:data:`QUEUE_STATS`): pairs
     tested, block stagings, rounds, slab tests, the segments traced and
     each bounce's; the plain version makes no grid syncs and counts no
-    cycles and no slices.  On one block it traces with ``trace_plain``
-    (``stats`` untouched).  Both equal ``trace_plain`` bit for bit.
+    cycles, no slices and no grouped selects.  On one block it traces with
+    ``trace_plain`` (``stats`` untouched).  Both equal ``trace_plain`` bit
+    for bit.
     ``traces`` (a list, optional) receives each trace loop's ``(o, d,
     hit)``."""
     n_rays = primary_p.shape[0]
@@ -654,7 +657,7 @@ def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     ``stats`` (int64 ``[queue_stats_len(max_bounce)]``, optional) receives
     :data:`QUEUE_STATS` and the segments of each bounce.  Rays on the CPU
     take :func:`sample_fused_plain`, whose counts on a multi-block scene
-    are the kernel's (no syncs, no cycles, no slices)."""
+    are the kernel's (no syncs, no cycles, no slices, no grouped selects)."""
     kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
               lights=lights, record=record)
     args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,

@@ -21,7 +21,11 @@ tensor ops and equals ``trace_plain`` bit for bit.
 A round of the kernel whose work items (a block and up to ``CHUNK`` of
 its queued rays) are too few to fill the grid splits each item's triangles
 into :func:`slices` ranges, each tested by its own CUDA block and folded by
-the same exact minimum, so the answer and the counts do not change.
+the same exact minimum, so the answer and the counts do not change.  A
+round whose rays are too few to fill the grid selects each ray's blocks
+with a group of :func:`select_lanes` lanes, which split its slab tests and
+queue its picks together; the picks, and so the answer and the counts, are
+those of one thread a ray.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ K = 8
 KERNEL_KS = (4, 8)  # the values of k that csrc/pairs.cu is compiled for
 CHUNK = 256  # queued rays per work item of the kernel (a block staging)
 S_MAX = 32  # most triangle slices of one work item (csrc/pairs.cuh bq::S_MAX)
+G_MAX = 32  # most select lanes a ray: a warp (csrc/pairs.cuh bq::G_MAX)
+AGG_BLOCKS = 1280  # most blocks of a scene whose select groups lanes (bq::AGG_BLOCKS)
 PAIR_CHUNK = 2048  # (ray, block) pairs per step of the plain version (bounds its memory)
 # (float bits of MAX_DIST) << 32 | triangle 0: "no hit yet"
 NO_HIT_KEY = int(torch.tensor(MAX_DIST, dtype=torch.float32).view(torch.int32)) << 32
@@ -71,6 +77,19 @@ def slices(items: int, grid: int) -> int:
     while items > 0 and 2 * s <= S_MAX and items <= grid // (2 * s):
         s *= 2
     return s
+
+
+def select_lanes(n_live: int, nb: int, grid_threads: int) -> int:
+    """The lanes G of each live ray's group in a select of ``n_live`` rays
+    on ``nb`` triangle blocks over ``grid_threads`` threads: the largest
+    power of two with ``G <= G_MAX``, ``G <= nb`` and ``n_live * G <=
+    grid_threads``; 1 when none is larger, when no ray is live, or when
+    ``nb > AGG_BLOCKS`` (``csrc/pairs.cuh`` ``bq::select_lanes``)."""
+    g = 1
+    while (n_live > 0 and nb <= AGG_BLOCKS and 2 * g <= G_MAX and 2 * g <= nb
+           and n_live <= grid_threads // (2 * g)):
+        g *= 2
+    return g
 
 
 def _test_pairs(feats: ch.TriFeatures, r6, q4, d, rid: torch.Tensor, blk: torch.Tensor,
@@ -162,6 +181,8 @@ def _lib():
     lib.pairs_grid.restype = ctypes.c_int
     lib.pairs_slices.argtypes = [ctypes.c_int] * 2
     lib.pairs_slices.restype = ctypes.c_int
+    lib.pairs_select_lanes.argtypes = [ctypes.c_int] * 3
+    lib.pairs_select_lanes.restype = ctypes.c_int
     return lib
 
 

@@ -481,6 +481,60 @@ def test_kernel_slice_rule_is_the_plain_rule(cuda):
             assert pp._lib().pairs_slices(items, n) == pp.slices(items, n), (items, n)
 
 
+def test_kernel_select_rule_is_the_plain_rule(cuda):
+    """``bq::select_lanes``, called on the host, equals
+    ``ops/pairs.select_lanes`` at the live counts around each group size's
+    edge, on block counts from 1 to past a warp and grids around the
+    card's."""
+    g = fu.queue_grid()
+    threads = g["blocks_per_sm"] * g["sms"] * g["threads"]
+    for grid in (1, 7, 128, threads // 2, threads - 1, threads, threads + 1):
+        edges = {0, 1, 2, 3} | {grid // 2 ** k + e for k in range(7) for e in (-1, 0, 1)}
+        for nb in (1, 2, 3, 4, 5, 31, 32, 33, 61, 586, 1280, 1281, 1600, 16512):
+            for n in sorted(x for x in edges if x >= 0):
+                assert (pp._lib().pairs_select_lanes(n, nb, grid)
+                        == pp.select_lanes(n, nb, grid)), (n, nb, grid)
+
+
+@pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
+def test_pairs_kernel_groups_small_selects_exactly(cuda, role):
+    """Traces of ``pairs.cu`` few enough that every select round gives each
+    ray a group of lanes (``ops/pairs.select_lanes`` > 1 on the launch's
+    grid): each ray's hit is bit-equal to the one it gets inside a batch
+    whose first round keeps one thread a ray, and to a second launch's, and
+    agrees with ``trace_plain``.  Where the hits equal the plain version's
+    bit for bit, so do the counts; one ray of the 586-block set at half the
+    grid's threads lands on another triangle in the plain version's tensor
+    arithmetic on the card, and its best ``t`` admits one more block there
+    (256 more pairs).  The one-thread kernel gives the same hits and counts
+    on these rays: ``experiments/ab_fused_queue.py``'s ``groups_586``
+    holds another source's hits and counts to this one's and prints both
+    kernels' forks from the plain version."""
+    make, blocks = ROLES[role]
+    g, _, _, c = make(cuda)
+    assert g.feats.block_bounds.shape[0] == blocks
+    grid = pp.kernel_grid()
+    threads = grid["blocks_per_sm"] * grid["sms"] * grid["threads"]
+    o, d = _rays(g, c, cuda, seed=blocks + 2, n_bounce=threads)
+    assert pp.select_lanes(o.shape[0], blocks, threads) == 1
+    whole = pp.trace_pairs(g.feats, o, d)
+    for n in (300, 5000, threads // 2):
+        assert pp.select_lanes(n, blocks, threads) > 1
+        part = slice(o.shape[0] - n, o.shape[0])  # bounce rays
+        op, dp = o[part].contiguous(), d[part].contiguous()
+        stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+        h = pp.trace_pairs(g.feats, op, dp, stats=stats)
+        again = pp.trace_pairs(g.feats, op, dp)
+        for x, y, z in zip(h, whole, again):
+            assert torch.equal(x, y[part]) and torch.equal(x, z)
+        _agree(h.t, h.tri, h.hit, ch.trace_plain(g.feats, op, dp))
+        plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+        ref = pp.trace_pairs_plain(g.feats, op, dp, stats=plain_stats)
+        forks = int((h.tri != ref.tri).sum())
+        assert forks <= 1 and torch.equal(stats[1:], plain_stats[1:]), (n, stats, plain_stats)
+        assert abs(int(stats[0] - plain_stats[0])) <= forks * pp.K * ch.TRI_TILE, (n, forks)
+
+
 @pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
 def test_pairs_kernel_slices_small_traces_exactly(cuda, role):
     """A few hundred rays leave every round of ``pairs.cu`` too few work
@@ -567,10 +621,12 @@ def test_queue_kernel_matches_plain(cuda, role):
 def test_queue_kernel_slices_small_samples_exactly(cuda, role):
     """A 2b sample of 256 lanes has too few work items in every round to
     fill the grid: rounds split into triangle slices (``split_rounds`` > 0,
-    ``items`` > ``stagings``), each lane's outputs are bit-equal to its rows
-    of a 65,536-lane sample on the same uniforms (whose first rounds run
-    unsliced) and to a second launch's, the counts are the plain version's
-    within 1 % and the image agrees with it."""
+    ``items`` > ``stagings``), and every select gives each ray a group of
+    lanes (``coop_select_rounds`` = ``rounds``); each lane's outputs are
+    bit-equal to its rows of a 65,536-lane sample on the same uniforms
+    (whose first rounds run unsliced, one thread a ray) and to a second
+    launch's, the counts are the plain version's within 1 % and the image
+    agrees with it."""
     make, blocks, sun, nee = QUEUE[role]
     g, m, e, args = _fused_inputs(make, cuda, res=256)
     assert g.feats.block_bounds.shape[0] == blocks
@@ -591,6 +647,8 @@ def test_queue_kernel_slices_small_samples_exactly(cuda, role):
     assert named["split_rounds"] > 0 and named["items"] > named["stagings"] > 0
     assert named["items"] <= pp.S_MAX * named["stagings"]
     assert big_named["split_rounds"] < big_named["rounds"]  # the first rounds fill the grid
+    assert named["coop_select_rounds"] == named["rounds"] > 0
+    assert 0 < big_named["coop_select_rounds"] < big_named["rounds"]
     for a, b, c in zip(small, again, big):
         assert torch.equal(a, b) and torch.equal(a, c[:lanes])
     counts = [i for i, f in enumerate(fields) if not f.endswith("cycles")]
@@ -603,42 +661,76 @@ def test_queue_kernel_slices_small_samples_exactly(cuda, role):
     ks, ps = stats[counted].double(), plain_stats[counted].double()
     assert bool((ps[:5] > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats,
                                                                                     plain_stats)
-    assert plain_stats[fu.QUEUE_STATS.index("split_rounds")] == 0
-    assert plain_stats[fu.QUEUE_STATS.index("items")] == 0
+    for f in ("split_rounds", "items", "coop_select_rounds"):
+        assert plain_stats[fu.QUEUE_STATS.index(f)] == 0
+
+
+def _floor_sample(dev, n, side=40):
+    """A 2b sample of ``n`` lanes on a ``side`` x ``side``-block floor
+    (``_floor``), one bounce (``max_bounce`` 0) with sun: each bounce and
+    sun ray from a quad's inner part within 45 degrees of the zenith,
+    entering its own block alone, so each trace is one round of every lane.
+    Its outputs and counts, and the plain version's."""
+    feats = _floor(side, side, dev)
+    tp = feats.edges.shape[-1]
+    rng_ = np.random.default_rng(40)
+    xy = np.floor(rng_.uniform(-side / 2, side / 2, (n, 2))) + rng_.uniform(0.2, 0.8, (n, 2))
+    p = torch.as_tensor(np.concatenate([xy, np.zeros((n, 1))], 1).astype(np.float32), device=dev)
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3).contiguous()
+    attrs = torch.zeros((tp, 8), device=dev)
+    attrs[:, 2], attrs[:, 3], attrs[:, 4:7] = 1.0, 1.0, 0.5  # upward normal, diffuse, grey
+    args = (feats, attrs, p, up, torch.ones(n, dtype=torch.int32, device=dev),
+            torch.full((n, 3), 0.5, device=dev), torch.full((n,), 0.5, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev), -up,
+            torch.nn.functional.normalize(torch.tensor([0.2, 0.1, 1.0], device=dev), dim=0),
+            torch.ones(1, device=dev))
+    u = torch.as_tensor(rng_.random((1, n, 2)).astype(np.float32), device=dev)
+    u[..., 0] *= 0.5  # within 45 degrees of the normal
+    kw = dict(max_bounce=0, sun_enabled=True, uniforms=u)
+    fields = fu.queue_stats_fields(0)
+    stats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
+    out = fu.sample_fused_queue(*args, stats=stats, **kw)
+    plain_stats = torch.zeros_like(stats)
+    ref = fu.sample_fused_plain(*args, stats=plain_stats, **kw)
+    return (dict(zip(fields, stats.tolist())), out, dict(zip(fields, plain_stats.tolist())),
+            ref)
 
 
 def test_queue_kernel_keeps_full_rounds_whole(cuda):
     """A 2b sample whose every trace is one round with more work items than
-    the grid holds twice (4,096 lanes on a 40 x 40-block floor, each bounce
-    and sun ray from a quad's inner part within 45 degrees of the zenith,
-    entering its own block alone) splits no round: ``split_rounds`` 0 and
-    ``items`` equal to ``stagings``; its counts equal the plain version's."""
-    feats = _floor(40, 40, cuda)
-    n, tp = 4096, feats.edges.shape[-1]
-    rng_ = np.random.default_rng(40)
-    xy = np.floor(rng_.uniform(-20, 20, (n, 2))) + rng_.uniform(0.2, 0.8, (n, 2))
-    p = torch.as_tensor(np.concatenate([xy, np.zeros((n, 1))], 1).astype(np.float32), device=cuda)
-    up = torch.tensor([0.0, 0.0, 1.0], device=cuda).expand(n, 3).contiguous()
-    attrs = torch.zeros((tp, 8), device=cuda)
-    attrs[:, 2], attrs[:, 3], attrs[:, 4:7] = 1.0, 1.0, 0.5  # upward normal, diffuse, grey
-    args = (feats, attrs, p, up, torch.ones(n, dtype=torch.int32, device=cuda),
-            torch.full((n, 3), 0.5, device=cuda), torch.full((n,), 0.5, device=cuda),
-            torch.ones(n, dtype=torch.bool, device=cuda), -up,
-            torch.nn.functional.normalize(torch.tensor([0.2, 0.1, 1.0], device=cuda), dim=0),
-            torch.ones(1, device=cuda))
-    u = torch.as_tensor(rng_.random((1, n, 2)).astype(np.float32), device=cuda)
-    u[..., 0] *= 0.5  # within 45 degrees of the normal
-    kw = dict(max_bounce=0, sun_enabled=True, uniforms=u)
-    fields = fu.queue_stats_fields(0)
-    stats = torch.zeros(len(fields), dtype=torch.int64, device=cuda)
-    out = fu.sample_fused_queue(*args, stats=stats, **kw)
-    named = dict(zip(fields, stats.tolist()))
+    the grid holds twice (4,096 lanes of ``_floor_sample``) splits no round:
+    ``split_rounds`` 0 and ``items`` equal to ``stagings``; its counts
+    equal the plain version's."""
+    named, out, plain, ref = _floor_sample(cuda, 4096)
     grid = fu.queue_grid()
     assert named["rounds"] == 2 and named["stagings"] > grid["blocks_per_sm"] * grid["sms"]
     assert named["split_rounds"] == 0 and named["items"] == named["stagings"]
-    plain_stats = torch.zeros_like(stats)
-    ref = fu.sample_fused_plain(*args, stats=plain_stats, **kw)
-    assert torch.equal(stats[:4], plain_stats[:4])
+    assert all(named[f] == plain[f] for f in fu.QUEUE_STATS[:4])
+    for a, b in zip(out, ref):
+        assert float((a - b).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("side, full, grouped", [(32, False, 2), (32, True, 0), (40, False, 0)],
+                         ids=["few_rays", "full_grid", "above_agg_blocks"])
+def test_queue_kernel_groups_selects_below_a_full_grid(cuda, side, full, grouped):
+    """The two rounds of a ``_floor_sample`` on 32 x 32 blocks select with a
+    group of lanes a ray when their rays are too few to fill the grid's
+    threads twice (4,096 lanes: ``coop_select_rounds`` 2) and with one
+    thread a ray when they fill it (as many lanes as the grid has threads:
+    ``coop_select_rounds`` 0); on 40 x 40 blocks, more than
+    ``ops/pairs.AGG_BLOCKS``, 4,096 lanes keep one thread a ray.  Either way
+    the counts of pairs, stagings, rounds, slab tests, segments and lanes
+    are the plain version's and the outputs agree with it."""
+    grid = fu.queue_grid()
+    threads = grid["blocks_per_sm"] * grid["sms"] * grid["threads"]
+    n = threads if full else 4096
+    assert (side * side > pp.AGG_BLOCKS) == (side == 40)
+    named, out, plain, ref = _floor_sample(cuda, n, side)
+    assert named["rounds"] == 2 and named["segments"] == 2 * n
+    assert named["coop_select_rounds"] == grouped
+    assert plain["coop_select_rounds"] == 0
+    for f in fu.QUEUE_STATS[:4] + ("segments", "lanes.0"):
+        assert named[f] == plain[f], (f, named, plain)
     for a, b in zip(out, ref):
         assert float((a - b).abs().max()) < 1e-5
 
