@@ -11,12 +11,11 @@ path (record, replay, train step, optimisation) and its command line
 
 1. environment and build: the card's name and power limit, versions, and
    the kernels' build time and ``-Xptxas -v`` report;
-2. closest-hit kernel against plain, once per role (1, 61 and 586 triangle
-   blocks; one block on the resident kernel, more on the block-culled one):
-   ``trace_blocks`` against ``trace_plain`` on the same 512^2 primary rays
+2. the resident closest-hit kernel against plain on one block (Cornell):
+   ``trace_resident`` against ``trace_plain`` on the same 512^2 primary rays
    plus 65,536 bounce rays, with times, the (ray, triangle) pairs tested and
    needed, the least time the card could take (from the needed pairs), and
-   the resident kernel's registers;
+   its registers;
 3. the main path at full size: ``Scene.load`` -> ``render_scene`` on six
    renders, all on the fused engine, each a replay of the graph that the
    scene's first ``render_scene`` captured (``render_radiance_jit``; that
@@ -76,9 +75,9 @@ path (record, replay, train step, optimisation) and its command line
    (phase 2's bounds), two launches bit-equal, pairs tested within 1.25x
    the pairs needed, its ptxas report and launch plan (grid, shared memory
    per CUDA block, CUDA blocks per SM), then head to head with
-   ``trace_blocks`` on the same rays: the kernel alone, the schedule, the
-   whole trace and ``trace_blocks`` after ``coherent_order``, with the
-   pairs tested per ray of each, all timed with ``tree_ms``;
+   ``trace_pairs`` (the live engine) on the same rays: the kernel alone,
+   the schedule and the whole trace, with the pairs tested per ray of
+   each, all timed with ``tree_ms``;
 9. the same for the pair-compaction prototype
    (``experiments/proto_compact.trace_compact``, kernel ``pair_compact``,
    one launch per round, the fold into each ray's best key inside it):
@@ -91,14 +90,14 @@ path (record, replay, train step, optimisation) and its command line
    its first round (slab+sort, queue build, kernel with its fold);
 10. the block-queue closest hit (``ops/pairs.trace_pairs``, kernel
    ``pairs``, one cooperative launch per trace) in roles #3 and #4, on
-   phase 2's rays and at each render's own trace shape (262,144 bounce
-   rays on outdoor_1300, 65,536 on outdoor_12500): against
-   ``trace_plain`` at phase 2's bounds, forks against ``trace_blocks``,
-   counts equal to its plain version's, two runs equal, one trace under
-   ``set_sync_debug_mode("error")`` (no host sync), times beside
-   ``trace_blocks`` and the sorted ``trace_blocks`` path, k = 4 beside
-   k = 8, pairs tested against needed, rounds, bound from the needed
-   pairs.  Phases 8-9 also time it on the prototypes' rays;
+   phase 2's kind of rays (``role_rays``: 512^2 primary rays plus 65,536
+   bounce rays, 327,680 in all) and at each render's own trace shape
+   (262,144 bounce rays on outdoor_1300, 65,536 on outdoor_12500): against
+   ``trace_plain`` at phase 2's bounds, counts equal to its plain
+   version's, two runs equal, one trace under
+   ``set_sync_debug_mode("error")`` (no host sync), times, pairs tested
+   against needed, rounds, bound from the needed pairs.  Phases 8-9 also
+   time it on the prototypes' rays;
 11. the gradient path (``models/replay.py``, ``models/optimize.py``):
    (1) the fused recorder at the training shapes, Cornell 512^2, 100 spp,
    4 bounces (``fused_sample``'s record mode, one launch per sample) and
@@ -382,7 +381,7 @@ def phase_kernel_vs_plain(role, dev, logs: dict):
     o, d = o[order].contiguous(), d[order].contiguous()
     n = o.shape[0]
 
-    t, tri = ch.trace_blocks(g.feats, o, d)
+    t, tri = ch.trace_resident(g.feats, o, d)
     torch.cuda.synchronize()
     ref = ch.trace_plain(g.feats, o, d)
     torch.cuda.synchronize()
@@ -401,9 +400,9 @@ def phase_kernel_vs_plain(role, dev, logs: dict):
     check(bad_t == 0, f"{role['name']}: {bad_t} rays with |dt| > 1e-4 max(1, t)")
 
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    ch.trace_blocks(g.feats, o, d, stats=stats)
+    ch.trace_resident(g.feats, o, d, stats=stats)
     pairs, stagings = (int(x) for x in stats.cpu())
-    ms = tree_ms(lambda: ch.trace_blocks(g.feats, o, d), iters=role["iters"])
+    ms = tree_ms(lambda: ch.trace_resident(g.feats, o, d), iters=role["iters"])
     plain_ms = cuda_ms(lambda: ch.trace_plain(g.feats, o, d), iters=2)
     tp = g.feats.edges.shape[-1]
     needed = needed_pairs(g.feats, o, d, ref.t)
@@ -413,7 +412,7 @@ def phase_kernel_vs_plain(role, dev, logs: dict):
     bound_ms, bound_by = bound(needed * FLOPS_PER_PAIR, nbytes)
     tested_bound_ms = bound(pairs * FLOPS_PER_PAIR + n * nb * FLOPS_PER_SLAB
                             + stagings * RAYS_PER_CTA * FLOPS_PER_SLAB, nbytes)[0]
-    kernel = "resident_hit_kernel" if nb == 1 else "closest_hit_kernel"
+    kernel = "resident_hit_kernel"
     regs = ptxas(logs["closest_hit"], kernel)
     log(f"[phase 2] {role['name']}: {kernel} {ms:.4f} ms (ptxas {regs}), plain {plain_ms:.3f} ms, "
         f"pairs tested {pairs} ({pairs / n:.1f} per ray, {pairs / (n * tp):.4f} of all), "
@@ -499,8 +498,7 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.models.pathtracer import fused_by_default
-    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
-    from ensem3a_openclraytracer_tpu_torch.ops.fused import QUEUE_MIN_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident
 
     res, spp, mb = scn["render"]
     scene, load_s = load_scene(scn, dev, workdir)
@@ -519,8 +517,8 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
     # of a one-block scene through closest_hit; the samples of a multi-block
     # scene through fused_queue (once per sample), of a one-block scene through
     # fused_sample (once per render)
-    hit_kernel = "pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit"
-    queue = nb >= QUEUE_MIN_BLOCKS
+    queue = not resident(scene.geometry.feats)
+    hit_kernel = "pairs" if queue else "closest_hit"
     expected = {hit_kernel: 1, "sample_fused_queue" if queue else "sample_fused": spp if queue else 1}
     expected = {"closest_hit": 0, "pairs": 0, "sample_fused": 0, "sample_fused_queue": 0,
                 "uniforms": 0, "grouped_pairs": 0, "pair_compact": 0, "bvh_trace": 0,
@@ -543,12 +541,12 @@ def phase_main_path(scn, dev, workdir: Path, smi: str):
 
 
 # the port's kernels in a profile, by the kernel-name substrings of each
-# group: the one-block and block-culled closest hits, the block-queue closest
-# hit, the one-block fused kernels (a whole render; one sample: both count as
+# group: the one-block closest hit, the block-queue closest hit, the
+# one-block fused kernels (a whole render; one sample: both count as
 # launches of sample_fused, and their times stand apart here), the
 # multi-block fused kernel, the RNG, the tree walk
 KERNEL_GROUPS = {
-    "closest_hit": ("resident_hit_kernel", "closest_hit_kernel"),
+    "closest_hit": ("resident_hit_kernel",),
     "pairs": ("::pairs_kernel",),
     "fused_render": ("fused_render_kernel",),
     "fused_sample": ("fused_sample_kernel",),
@@ -856,13 +854,14 @@ def phase_fused_queue(role, dev, smi: str):
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
     from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
     from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident
     from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
     res, spp, mb = SMOKE_TRIES
     g, m, e, c = role["make"](dev)
     nb = g.feats.block_bounds.shape[0]
     check(nb == role["blocks"], f"{role['name']}: {nb} blocks, want {role['blocks']}")
-    check(nb >= fu.QUEUE_MIN_BLOCKS, f"{role['name']}: {nb} blocks do not take the queue kernel")
+    check(not resident(g.feats), f"{role['name']}: {nb} blocks do not take the queue kernel")
     nee = role.get("nee", False)
     lights = build_light_pack(g, m) if nee else None
     args = fused_inputs(g, m, e, c, res)
@@ -1106,31 +1105,12 @@ def needed_pairs(feats, o, d, t, chunk: int = 8192) -> int:
     return blocks * tile
 
 
-def sorted_blocks_trace(feats, o, d):
-    """``trace_blocks`` on the rays sorted by ``coherent_order``, scattered
-    back: the multi-block path of ``ops/closest_hit.trace`` before it took
-    ``trace_pairs``."""
-    import torch
-
-    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
-
-    order = ch.coherent_order(o, d)
-    t_s, tri_s = ch.trace_blocks(feats, o[order].contiguous(), d[order].contiguous())
-    t = torch.empty_like(t_s)
-    t[order] = t_s
-    tri = torch.empty_like(tri_s)
-    tri[order] = tri_s
-    return t, tri
-
-
 def proto_inputs(scn, dev, smi: str) -> dict:
     """The scene, the prototypes' rays, ``trace_plain`` on them, the pairs
     the closest hit needs on them (``needed_pairs``, which the bounds of
-    phases 8-9 count), and the closest hits they are held against:
-    ``trace_blocks`` alone on rays sorted by ``coherent_order``, that path
-    whole (:func:`sorted_blocks_trace`: sort, kernel, unsort), with its
-    pairs tested, and ``ops/pairs.trace_pairs`` (what ``ops/closest_hit.trace``
-    runs on these scenes), held to phase 2's bounds against ``trace_plain``."""
+    phases 8-9 count), and the closest hit the prototypes are held
+    against: ``ops/pairs.trace_pairs`` (what ``ops/closest_hit.trace`` runs
+    on these scenes), held to phase 2's bounds against ``trace_plain``."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.experiments import common
@@ -1143,26 +1123,16 @@ def proto_inputs(scn, dev, smi: str) -> dict:
     o, d = common.bounce_rays(g, PROTO_RAYS)
     ref, plain_ms = timed_once(lambda: ch.trace_plain(g.feats, o, d))
     needed = needed_pairs(g.feats, o, d, ref.t)
-    order = ch.coherent_order(o, d)
-    o_s, d_s = o[order].contiguous(), d[order].contiguous()
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    ch.trace_blocks(g.feats, o_s, d_s, stats=stats)
-    pairs = int(stats[0])
-    blocks_ms = tree_ms(lambda: ch.trace_blocks(g.feats, o_s, d_s), iters=scn["iters"])
-    trace_ms = tree_ms(lambda: sorted_blocks_trace(g.feats, o, d), iters=scn["iters"])
     pstats = torch.zeros(4, dtype=torch.int64, device=dev)
     h = pp.trace_pairs(g.feats, o, d, stats=pstats)
     forks = hold(f"[phase 8] {scn['name']} trace_pairs vs trace_plain", h.t, h.tri, h.hit, ref)
     pairs_ms = tree_ms(lambda: pp.trace_pairs(g.feats, o, d), iters=scn["iters"])
     p_pairs, p_stagings, p_rounds, _ = (int(x) for x in pstats.cpu())
     log(f"[phase 8] {scn['name']} ({g.feats.num_tris} tris, {nb} blocks, {PROTO_RAYS} rays as the "
-        f"prototypes build them): trace_blocks kernel {blocks_ms:.4f} ms, sorted trace_blocks path "
-        f"(coherent_order + kernel + unsort) {trace_ms:.4f} ms, pairs tested {pairs} "
-        f"({pairs / PROTO_RAYS:.1f} per ray); trace_pairs {pairs_ms:.4f} ms, pairs tested "
+        f"prototypes build them): trace_pairs {pairs_ms:.4f} ms, pairs tested "
         f"{p_pairs / PROTO_RAYS:.1f} per ray, {p_rounds} rounds, {p_stagings} block stagings; pairs "
         f"needed {needed} ({needed / PROTO_RAYS:.1f} per ray), trace_plain {plain_ms:.1f} ms [{smi}]")
-    return dict(g=g, o=o, d=d, ref=ref, blocks_ms=blocks_ms, trace_ms=trace_ms,
-                blocks_pairs=pairs, needed_pairs=needed, trace_plain_ms=plain_ms,
+    return dict(g=g, o=o, d=d, ref=ref, needed_pairs=needed, trace_plain_ms=plain_ms,
                 pairs_ms=pairs_ms, pairs_pairs=p_pairs, pairs_rounds=p_rounds,
                 pairs_tri_fork_fraction=forks[0])
 
@@ -1217,10 +1187,9 @@ def phase_grouped(scn, inp, dev, smi: str, logs: dict) -> dict:
     log(f"[phase 8] {name} grouped: kernel {ms:.4f} ms (ptxas {regs}; grid {plan['grid']} CUDA "
         f"blocks of {plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory each, "
         f"{plan['blocks_per_sm']} per SM), schedule {schedule_ms:.4f} ms, whole trace "
-        f"{whole_ms:.4f} ms; trace_blocks {inp['blocks_ms']:.4f} ms, sorted trace_blocks path "
-        f"{inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: grouped "
-        f"{pairs / n:.1f} ({pairs / max(needed, 1):.4f} of needed), trace_blocks "
-        f"{inp['blocks_pairs'] / n:.1f}, trace_pairs {inp['pairs_pairs'] / n:.1f}, needed "
+        f"{whole_ms:.4f} ms; trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: grouped "
+        f"{pairs / n:.1f} ({pairs / max(needed, 1):.4f} of needed), trace_pairs "
+        f"{inp['pairs_pairs'] / n:.1f}, needed "
         f"{needed / n:.1f}; scheduled (tile, block) pairs {int(sched_pairs)} of "
         f"{tiles * g.feats.block_bounds.shape[0]}, block stagings {stagings} (counts equal to "
         f"plain's); rays differing from plain in any bit {bits}; plain {plain_ms:.1f} ms; bound "
@@ -1234,9 +1203,8 @@ def phase_grouped(scn, inp, dev, smi: str, logs: dict) -> dict:
         library_ms=None, rays=n, pairs_tested=pairs, pairs_per_ray=pairs / n,
         pairs_needed=needed, block_stagings=stagings, rays_differing_bits=bits,
         scheduled_pairs=int(sched_pairs), schedule_ms=schedule_ms, plan=plan, ptxas=regs,
-        trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"], sorted_blocks_trace_ms=inp["trace_ms"],
-        trace_pairs_ms=inp["pairs_ms"], trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
-        trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, tri_fork_fraction=forks[0],
+        trace_ms=whole_ms, trace_pairs_ms=inp["pairs_ms"],
+        trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n, tri_fork_fraction=forks[0],
         hit_fork_fraction=forks[1],
     )
 
@@ -1324,10 +1292,9 @@ def phase_compact(scn, inp, dev, smi: str, logs: dict) -> dict:
         f"({kernels_ms / rounds:.4f} per launch; per round {[round(x, 4) for x in round_ms]}), "
         f"whole trace {whole_ms:.4f} ms; ptxas {regs}; plan {plan['grid']} CUDA blocks of "
         f"{plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory each, "
-        f"{plan['blocks_per_sm']} per SM; trace_blocks {inp['blocks_ms']:.4f} ms, sorted "
-        f"trace_blocks path {inp['trace_ms']:.4f} ms, trace_pairs {inp['pairs_ms']:.4f} ms; pairs "
-        f"per ray: compact {pairs / n:.1f} ({pairs / max(needed, 1):.4f} of needed), trace_blocks "
-        f"{inp['blocks_pairs'] / n:.1f}, trace_pairs {inp['pairs_pairs'] / n:.1f}, needed "
+        f"{plan['blocks_per_sm']} per SM; trace_pairs {inp['pairs_ms']:.4f} ms; pairs per ray: "
+        f"compact {pairs / n:.1f} ({pairs / max(needed, 1):.4f} of needed), trace_pairs "
+        f"{inp['pairs_pairs'] / n:.1f}, needed "
         f"{needed / n:.1f}; block stagings {stagings} (counts equal to plain's); rays differing "
         f"from plain in any bit per round {bits}; plain {plain_ms:.1f} ms over the rounds; bound "
         f"per launch {bound_ms:.4f} ms by {bound_by} ({flops / rounds:.3e} FP32 ops, {nbytes} "
@@ -1347,10 +1314,8 @@ def phase_compact(scn, inp, dev, smi: str, logs: dict) -> dict:
         rounds=rounds, live_tiles=live, real_slots=real, tiles=tiles, round_ms=round_ms,
         kernel_ms_per_trace=kernels_ms, bound_ms_per_trace=trace_bound_ms,
         tflops_needed=flops / kernels_ms / 1e9, rays_differing_bits=bits, plan=plan, ptxas=regs,
-        trace_ms=whole_ms, trace_blocks_ms=inp["blocks_ms"],
-        sorted_blocks_trace_ms=inp["trace_ms"], trace_pairs_ms=inp["pairs_ms"],
-        trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n,
-        trace_blocks_pairs_per_ray=inp["blocks_pairs"] / n, profile=pieces,
+        trace_ms=whole_ms, trace_pairs_ms=inp["pairs_ms"],
+        trace_pairs_pairs_per_ray=inp["pairs_pairs"] / n, profile=pieces,
         tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
     )
 
@@ -1358,14 +1323,12 @@ def phase_compact(scn, inp, dev, smi: str, logs: dict) -> dict:
 def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
     """Phase 10 on one role: ``ops/pairs.trace_pairs`` (the block-queue
     kernel that ``ops/closest_hit.trace`` runs on multi-block scenes) on
-    phase 2's rays and on as many bounce rays as the role's render traces
-    at once (res^2, leaving random primary hits): held against
-    ``trace_plain`` at phase 2's bounds, its forks against
-    ``trace_blocks``, its counts against its plain version's (phase 2's
-    rays), one trace under ``torch.cuda.set_sync_debug_mode("error")``, its
-    time beside ``trace_blocks`` and the sorted ``trace_blocks`` path, with
-    k = 4 beside the default, pairs tested against ``needed_pairs``,
-    rounds, and a bound from the needed pairs."""
+    ``role_rays`` as phase 2 builds them and on as many bounce rays as the
+    role's render traces at once (res^2, leaving random primary hits): held
+    against ``trace_plain`` at phase 2's bounds, its counts against its
+    plain version's (on the first rays), one trace under
+    ``torch.cuda.set_sync_debug_mode("error")``, its time, pairs tested
+    against ``needed_pairs``, rounds, and a bound from the needed pairs."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
@@ -1378,7 +1341,7 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
     o2, d2 = role_rays(g, c, dev, seed=nb)
     ob, db = role_rays(g, c, dev, seed=nb + 1, res=res, n_bounce=res * res)
     shapes = {"phase2": (o2, d2), "render": (ob[res * res:].contiguous(), db[res * res:].contiguous())}
-    grid = pp.kernel_grid(pp.K)
+    grid = pp.kernel_grid()
     out = dict(name=f"pairs:{name.split(':')[1]}", route="cuda",
                source="ensem3a_openclraytracer_tpu_torch/csrc/pairs.cu", replaces=role["replaces"],
                launches=0, library_ms=None, k=pp.K, grid=grid)
@@ -1390,36 +1353,24 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
         torch.cuda.synchronize()
         forks = hold(f"[phase 10] {name} trace_pairs vs trace_plain, {label} shape ({n} rays)",
                      h.t, h.tri, h.hit, ref)
-        t_b, tri_b = ch.trace_blocks(feats, o, d)
-        vs_blocks = (float((h.tri != tri_b.long()).float().mean()),
-                     float((h.hit != (t_b < ch.MISS_T)).float().mean()))
         again = pp.trace_pairs(feats, o, d)
         check(torch.equal(again.t, h.t) and torch.equal(again.tri, h.tri),
               f"{name}: two trace_pairs runs differ at the {label} shape")
         pairs, stagings, rounds, slabs = (int(x) for x in stats.cpu())
         needed = needed_pairs(feats, o, d, ref.t)
         ms = cuda_ms(lambda: pp.trace_pairs(feats, o, d), iters=role["iters"])
-        k4_ms = cuda_ms(lambda: pp.trace_pairs(feats, o, d, k=4), iters=role["iters"])
-        order = ch.coherent_order(o, d)
-        o_s, d_s = o[order].contiguous(), d[order].contiguous()
-        blocks_ms = cuda_ms(lambda: ch.trace_blocks(feats, o_s, d_s), iters=role["iters"])
-        sorted_ms = cuda_ms(lambda: sorted_blocks_trace(feats, o, d), iters=role["iters"])
         nbytes = n * (24 + 4 + 8 + 1) + 4 * ch.PACKED_ROWS * tp + 32 * nb
         bound_ms, bound_by = bound(needed * FLOPS_PER_PAIR, nbytes)
-        log(f"[phase 10] {name} {label} shape ({n} rays, {nb} blocks): trace_pairs {ms:.4f} ms "
-            f"(k=4: {k4_ms:.4f} ms), trace_blocks on sorted rays {blocks_ms:.4f} ms, sorted "
-            f"trace_blocks path {sorted_ms:.4f} ms; forks vs trace_blocks: tri {vs_blocks[0]:.6f}, "
-            f"hit {vs_blocks[1]:.6f}; pairs tested {pairs} ({pairs / n:.1f} per ray), needed "
+        log(f"[phase 10] {name} {label} shape ({n} rays, {nb} blocks): trace_pairs {ms:.4f} ms; "
+            f"pairs tested {pairs} ({pairs / n:.1f} per ray), needed "
             f"{needed} ({needed / n:.1f} per ray, tested / needed {pairs / max(needed, 1):.4f}); "
             f"{rounds} rounds, {stagings} block stagings, {slabs} slab tests ({slabs * FLOPS_PER_SLAB:.3e}"
             f" FP32 ops against {pairs * FLOPS_PER_PAIR:.3e} in pair tests); bound {bound_ms:.4f} ms by "
             f"{bound_by}; {needed * FLOPS_PER_PAIR / ms / 1e9:.2f} TFLOP/s on the needed pairs [{smi}]")
-        shape = dict(rays=n, ms=ms, k4_ms=k4_ms, trace_blocks_ms=blocks_ms,
-                     sorted_blocks_trace_ms=sorted_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     pairs_tested=pairs, pairs_needed=needed, rounds=rounds, block_stagings=stagings,
+        shape = dict(rays=n, ms=ms, bound_ms=bound_ms, bound_by=bound_by, pairs_tested=pairs,
+                     pairs_needed=needed, rounds=rounds, block_stagings=stagings,
                      slab_tests=slabs, tri_fork_fraction=forks[0], hit_fork_fraction=forks[1],
-                     max_abs_err=forks[2], tri_forks_vs_trace_blocks=vs_blocks[0],
-                     hit_forks_vs_trace_blocks=vs_blocks[1])
+                     max_abs_err=forks[2])
         if label == "phase2":
             plain_stats = torch.zeros(4, dtype=torch.int64, device=dev)
             hp, plain_ms = timed_once(lambda: pp.trace_pairs_plain(feats, o, d, stats=plain_stats))
@@ -1439,8 +1390,6 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
         else:
             out["render_shape"] = shape
     out["prototype_rays"] = dict(rays=PROTO_RAYS, ms=proto["pairs_ms"],
-                                 sorted_blocks_trace_ms=proto["trace_ms"],
-                                 trace_blocks_ms=proto["blocks_ms"],
                                  pairs_per_ray=proto["pairs_pairs"] / PROTO_RAYS,
                                  needed_per_ray=proto["needed_pairs"] / PROTO_RAYS,
                                  rounds=proto["pairs_rounds"])
@@ -1480,7 +1429,7 @@ def phase_records(role, dev, smi: str) -> dict:
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
     from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
     from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
-    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident
 
     name, (res, spp, mb), sun = role["name"], role["shape"], role["sun"]
     g, m, e, c = role["make"](dev)
@@ -1490,8 +1439,9 @@ def phase_records(role, dev, smi: str) -> dict:
     key = rg.key_from_generator(gen(), dev)
     rec_kw = dict(spp=spp, max_bounce=mb, sun_enabled=sun)
     record_paths(g, m, e, o, d, key, **{**rec_kw, "spp": 1})  # warm-up
-    kern = "sample_fused_queue" if nb >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
-    want = no_launches(**{"pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit": 1, kern: spp})
+    one = resident(g.feats)
+    kern = "sample_fused" if one else "sample_fused_queue"
+    want = no_launches(**{"closest_hit" if one else "pairs": 1, kern: spp})
     reset_launches()
     rec, rec_ms = timed_once(lambda: record_paths(g, m, e, o, d, key, **rec_kw))
     launches = read_launches()
@@ -1737,8 +1687,7 @@ def phase_train_step(role, dev, smi: str) -> dict:
         make_train_step,
         render_for_grad,
     )
-    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
-    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import PAIRS_MIN_BLOCKS
+    from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident
     from ensem3a_openclraytracer_tpu_torch.scene.materials import default_sky
 
     name, (res, spp, mb), sun = role["name"], role["shape"], role["sun"]
@@ -1773,8 +1722,9 @@ def phase_train_step(role, dev, smi: str) -> dict:
     torch.cuda.synchronize()
     bwd = read_launches()
     peak = torch.cuda.max_memory_allocated() - base
-    kern = "sample_fused_queue" if nb >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
-    want = no_launches(**{"pairs" if nb >= PAIRS_MIN_BLOCKS else "closest_hit": 1, kern: spp})
+    one = resident(g.feats)
+    kern = "sample_fused" if one else "sample_fused_queue"
+    want = no_launches(**{"closest_hit" if one else "pairs": 1, kern: spp})
     check(fwd == want, f"{name}: forward launches {fwd}, want {want}")
     check(bwd == fwd, f"{name}: the backward launched port kernels: {fwd} -> {bwd}")
     check(bool(torch.isfinite(loss)), f"{name}: non-finite loss")
@@ -2541,7 +2491,7 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
              make=outdoor(12500), replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:330",
              render_res=256),
     ]
-    kernels = [phase_kernel_vs_plain(r, dev, logs) for r in roles]
+    kernels = [phase_kernel_vs_plain(roles[0], dev, logs)]  # roles 3-4: phase 10
 
     scenes = [  # the main path: renders at the scene's ini settings, default engine
         dict(name="cornell", scene="cornell", make=cornell, render=(512, MAIN_SPP, 4), sun=False),
@@ -2563,10 +2513,8 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
             loaded[scn["name"]], info = phase_main_path(scn, dev, Path(tmp), smi)
             renders.append(info)
     by_render = {r["name"]: r["launches"] for r in renders}
-    for k, scene_name in zip(kernels, ("cornell", "outdoor_1300", "outdoor_12500")):
-        # 0 on the multi-block renders: their traces go through the pairs kernel
-        k["launches"] = by_render[scene_name]["closest_hit"]
-        k["role_on_main_path"] = k["launches"] > 0
+    kernels[0]["launches"] = by_render["cornell"]["closest_hit"]
+    kernels[0]["role_on_main_path"] = kernels[0]["launches"] > 0
     for kern in ("closest_hit", "pairs", "sample_fused", "sample_fused_queue"):
         total = sum(r[kern] for r in by_render.values())
         check(total > 0, f"the main path launched no {kern} kernel")

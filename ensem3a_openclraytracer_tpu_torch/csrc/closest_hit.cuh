@@ -6,36 +6,19 @@
 //   lexicographic order, so ties keep the lowest triangle index whatever the
 //   visit order.  t >= 0.999 * MAX_DIST is a miss (t = MAX_DIST, tri = 0).
 //
-// Three layouts of one block's features in shared memory:
+// Two layouts of one block's features in shared memory, both of the rows of
+// TriFeatures.packed:
 //   * packed (stage_packed / test_packed): per triangle the 25 feature rows
 //     of TriFeatures.packed as 6 float4s, then row 24 (the normal's z) of every
 //     triangle as a float; one 16-byte broadcast read feeds 4 of a pair test's
 //     ~45 FP32 operations, and each read of a triangle serves R rays.  The
-//     one-block roles (csrc/closest_hit.cu on one block, csrc/fused_sample.cu)
-//     stage their block once per CUDA block and keep it; csrc/pairs.cuh
-//     stages queued blocks in the same layout.
+//     one-block roles (csrc/closest_hit.cu, csrc/fused_sample.cu) stage their
+//     block once per CUDA block and keep it; csrc/pairs.cuh stages queued
+//     blocks in the same layout.
 //   * packed rows copied whole (bulk_copy / test_two): PACK4 float4s per
 //     triangle, as TriFeatures.packed holds them, copied by TMA; the two
 //     prototypes' kernels (csrc/grouped_pairs.cu, csrc/pair_compact.cu)
-//     test two rays per read of a triangle;
-//   * row-major [FEAT_ROWS][TRI_TILE] (stage_block / test_block): 25 scalar
-//     reads per triangle, used by trace_culled.
-//
-// trace_culled (any number of triangle blocks; every thread of the CUDA block
-// must call it, inactive lanes included, since it holds barriers):
-//   1. Cull: every active lane slab-tests its ray against every triangle
-//      block's AABB, grown by the scene-scale epsilon in block_bounds column
-//      6 so rounding never culls a real hit.  A warp min-reduction and a
-//      shared 64-bit atomicMin keep, per triangle block, the least entry
-//      distance of any lane: key = (entry bits << 32) | block.  Inverted
-//      (padding-only) boxes are rejected explicitly; 1/d is clamped so
-//      inf * 0 never occurs.
-//   2. Bitonic sort of the keys in shared memory: the front-to-back visit list.
-//   3. Visit: stage the block's 25 x 256 feature floats (25.6 KB) in shared
-//      memory; every active lane whose own slab test passes with entry <= best
-//      t tests its ray against the block's triangles (broadcast reads, no bank
-//      conflicts).  The CUDA block stops once every lane's best t is below the
-//      next block's entry distance.
+//     test two rays per read of a triangle.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +30,6 @@ constexpr int FEAT_ROWS = 25;  // 18 edge rows, 4 plane rows, 3 normal rows
 constexpr float MAX_DIST = 1000.0f;
 constexpr float MIN_HIT_DIST = 1e-4f;
 constexpr float MISS_T = MAX_DIST * 0.999f;
-constexpr unsigned long long NO_KEY = ~0ull;
 constexpr int PACK4 = 7;  // float4s per triangle in TriFeatures.packed [tp, 28]
 // One staged block in the packed layout: 6 float4s per triangle, then row 24
 // of each triangle as a float (25,600 bytes); rows 25-27 are padding and stay
@@ -56,14 +38,6 @@ constexpr int PACKED_BUF4 = TRI_TILE * 6 + TRI_TILE / 4;
 
 struct Ray {
   float o[3], d[3], inv[3], r6[6];
-};
-
-struct Feats {
-  const float* __restrict__ edges;     // [3, 6, tp]
-  const float* __restrict__ plane;     // [4, tp]
-  const float* __restrict__ normal_d;  // [3, tp]
-  const float* __restrict__ bounds;    // [nb, 8]
-  int tp, tile, nb, cap;               // cap: nb rounded up to a power of two
 };
 
 // Counters a trace adds to (per lane; the kernels reduce them).
@@ -108,47 +82,6 @@ __device__ __forceinline__ float block_entry(const Ray& r, const float* __restri
   return __int_as_float(0x7f800000);
 }
 
-// Copy block j's features into feat [FEAT_ROWS][TRI_TILE] (all threads of
-// the CUDA block take part; the caller puts the barriers around it).
-__device__ __forceinline__ void stage_block(const Feats& f, int j, float* feat) {
-  const int base = j * f.tile;
-  for (int k = threadIdx.x; k < FEAT_ROWS * f.tile; k += blockDim.x) {
-    const int row = k / f.tile, c = k - row * f.tile;
-    const float* src = row < 18 ? f.edges + row * f.tp
-                     : row < 22 ? f.plane + (row - 18) * f.tp
-                                : f.normal_d + (row - 22) * f.tp;
-    feat[row * TRI_TILE + c] = src[base + c];
-  }
-}
-
-// Test one ray against the `tile` staged triangles of block `base / tile`.
-__device__ __forceinline__ void test_block(const Ray& r, const float* feat, int base, int tile,
-                                           float& best_t, int& best_i) {
-  for (int c = 0; c < tile; ++c) {
-    const float* f = feat + c;
-    float w[3];
-#pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      float acc = f[(6 * e) * TRI_TILE] * r.r6[0];
-#pragma unroll
-      for (int k = 1; k < 6; ++k) acc = acc + f[(6 * e + k) * TRI_TILE] * r.r6[k];
-      w[e] = acc;
-    }
-    const bool inside = (w[0] >= 0.0f && w[1] >= 0.0f && w[2] >= 0.0f) ||
-                        (w[0] <= 0.0f && w[1] <= 0.0f && w[2] <= 0.0f);
-    const float den = f[22 * TRI_TILE] * r.d[0] + f[23 * TRI_TILE] * r.d[1] + f[24 * TRI_TILE] * r.d[2];
-    if (!inside || den == 0.0f) continue;
-    const float num = f[18 * TRI_TILE] * r.o[0] + f[19 * TRI_TILE] * r.o[1] +
-                      f[20 * TRI_TILE] * r.o[2] + f[21 * TRI_TILE];
-    const float t = num / den;
-    const int g = base + c;
-    if (t > MIN_HIT_DIST && (t < best_t || (t == best_t && g < best_i))) {
-      best_t = t;
-      best_i = g;
-    }
-  }
-}
-
 // Copy the `tile` triangles of packed features from `src` (the block's first
 // row) into f4 in the packed layout, with plain read-only loads (all threads
 // of the CUDA block take part; the caller puts the barrier after it).
@@ -162,8 +95,9 @@ __device__ __forceinline__ void stage_packed(const float4* __restrict__ src, int
     fz[c] = __ldg(reinterpret_cast<const float*>(src + c * PACK4 + 6));
 }
 
-// test_block for R rays on a block staged in the packed layout: the same
-// terms in the same order.  Rays with act[k] false keep their best.
+// Test R rays against the `tile` triangles of block `base / tile` staged in
+// the packed layout, each dot product summed term by term in index order.
+// Rays with act[k] false keep their best.
 template <int R>
 __device__ __forceinline__ void test_packed(const float4* f4, int base, int tile,
                                             const Ray (&r)[R], const bool (&act)[R],
@@ -288,73 +222,6 @@ __device__ __forceinline__ void test_two(const float4* f4, int base, int lo, int
         found[k] = true;
       }
     }
-  }
-}
-
-// The CUDA block's trace (see the header).  feat: FEAT_ROWS * TRI_TILE
-// floats, keys: f.cap slots, n_live: one int, all in shared memory.  On
-// return best_t / best_i hold the raw closest hit (MAX_DIST / 0 when none);
-// inactive lanes return MAX_DIST / 0.  Safe to call again at once: it
-// opens with a barrier.
-__device__ __forceinline__ void trace_culled(const Feats& f, const Ray& r, bool active, float* feat,
-                                             unsigned long long* keys, int* n_live, float& best_t,
-                                             int& best_i, Counts& counts) {
-  __syncthreads();  // the previous trace's readers of keys and feat are done
-  for (int k = threadIdx.x; k < f.cap; k += blockDim.x) keys[k] = NO_KEY;
-  if (threadIdx.x == 0) *n_live = 0;
-  __syncthreads();
-
-  // 1. cull: per triangle block, the least entry distance of any lane
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < f.nb; ++j) {
-    float e = active ? block_entry(r, f.bounds, j) : __int_as_float(0x7f800000);
-    unsigned bits = e < __int_as_float(0x7f800000) ? __float_as_uint(e) : 0xffffffffu;
-    bits = __reduce_min_sync(0xffffffffu, bits);
-    if (lane == 0 && bits != 0xffffffffu)
-      atomicMin(&keys[j], (static_cast<unsigned long long>(bits) << 32) | static_cast<unsigned>(j));
-  }
-  if (active) counts.slabs += f.nb;
-  __syncthreads();
-
-  // 2. bitonic sort of the visit list (ascending entry, then block index)
-  for (int k = 2; k <= f.cap; k <<= 1) {
-    for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int idx = threadIdx.x; idx < f.cap; idx += blockDim.x) {
-        int ixj = idx ^ jj;
-        if (ixj > idx) {
-          unsigned long long a = keys[idx], b = keys[ixj];
-          bool up = (idx & k) == 0;
-          if ((a > b) == up) {
-            keys[idx] = b;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int k = threadIdx.x; k < f.cap; k += blockDim.x)
-    if (keys[k] != NO_KEY && (k + 1 == f.cap || keys[k + 1] == NO_KEY)) *n_live = k + 1;
-  __syncthreads();
-
-  // 3. visit front to back
-  best_t = MAX_DIST;
-  best_i = 0;
-  const int live = *n_live;
-  for (int v = 0; v < live; ++v) {
-    const unsigned long long key = keys[v];
-    const int j = static_cast<int>(key & 0xffffffffu);
-    const float entry = __uint_as_float(static_cast<unsigned>(key >> 32));
-    // also the barrier that keeps the previous block's features in use
-    if (__syncthreads_and(!active || best_t < entry)) break;
-    stage_block(f, j, feat);
-    ++counts.stagings;
-    __syncthreads();
-    if (!active) continue;
-    ++counts.slabs;
-    if (!(block_entry(r, f.bounds, j) <= best_t)) continue;
-    counts.pairs += f.tile;
-    test_block(r, feat, j * f.tile, f.tile, best_t, best_i);
   }
 }
 

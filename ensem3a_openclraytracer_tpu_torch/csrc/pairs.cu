@@ -15,9 +15,9 @@
 // The loop ends once no ray is live; a last pass writes (t, tri, hit) with the
 // miss rule of ops/closest_hit.trace_plain.  The wrapper reads nothing back.
 //
-// The arithmetic per (ray, triangle) pair is ch::test_block's, term for term,
+// The arithmetic per (ray, triangle) pair is ch::test_packed's, term for term,
 // and the slab test is ch::block_entry, so the result can be held against
-// trace_blocks as well as against trace_plain.
+// trace_plain.
 // What bounds it on an H100: FP32 operations, about 45 per (ray, triangle)
 // pair the closest hit needs, at 67 TFLOP/s; the rays, outputs, features and
 // queues are small beside them.  The design's answers: every staging serves up
@@ -32,6 +32,10 @@
 namespace {
 
 using bq::THREADS;
+
+// Blocks each live ray takes per round (ops/pairs.K).  The kernel stays a
+// template of it, built once, so its device name is pairs_kernel<8>.
+constexpr int PICKS = 8;
 
 struct Params {
   bq::Queues q;
@@ -56,44 +60,34 @@ __global__ void __launch_bounds__(THREADS) pairs_kernel(Params p) {
   if (p.stats != nullptr) bq::add_tally(p.stats, tally);
 }
 
-size_t scratch_bytes(long long n, long long nb, long long k) {
-  size_t at = 0;
-  bq::queue_layout(n, nb, k, at);
-  return at;
-}
-
-template <int K>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int per_sm = 0, sms = 0;
-  cudaError_t err = bq::grid_size(pairs_kernel<K>, &per_sm, &sms);
+  cudaError_t err = bq::grid_size(pairs_kernel<PICKS>, &per_sm, &sms);
   if (err != cudaSuccess) return err;
   Params args = p;
   void* argv[] = {&args};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(pairs_kernel<K>), dim3(per_sm * sms),
-                                    dim3(THREADS), argv, bq::SMEM_BYTES, stream);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(pairs_kernel<PICKS>),
+                                    dim3(per_sm * sms), dim3(THREADS), argv, bq::SMEM_BYTES,
+                                    stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of scratch that pairs_launch needs for n rays, nb blocks and K picks.
-extern "C" long long pairs_scratch_bytes(int n, int nb, int k) {
-  return static_cast<long long>(scratch_bytes(n, nb, k));
+// Bytes of scratch that pairs_launch needs for n rays and nb blocks.
+extern "C" long long pairs_scratch_bytes(int n, int nb) {
+  size_t at = 0;
+  bq::queue_layout(n, nb, PICKS, at);
+  return static_cast<long long>(at);
 }
 
 // The launch's grid: out[0] CUDA blocks per SM (the occupancy API's count),
 // out[1] SMs, out[2] registers per thread, out[3] threads per CUDA block,
 // out[4] dynamic shared memory per CUDA block.  Returns a cudaError_t.
-extern "C" int pairs_grid(int k, int* out) {
+extern "C" int pairs_grid(int* out) {
   cudaFuncAttributes attr{};
-  cudaError_t err = cudaErrorInvalidValue;
-  if (k == 4) {
-    err = bq::grid_size(pairs_kernel<4>, &out[0], &out[1]);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, pairs_kernel<4>);
-  } else if (k == 8) {
-    err = bq::grid_size(pairs_kernel<8>, &out[0], &out[1]);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, pairs_kernel<8>);
-  }
+  cudaError_t err = bq::grid_size(pairs_kernel<PICKS>, &out[0], &out[1]);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, pairs_kernel<PICKS>);
   out[2] = attr.numRegs;
   out[3] = THREADS;
   out[4] = bq::SMEM_BYTES;
@@ -113,19 +107,19 @@ extern "C" int pairs_select_lanes(int n_live, int nb, int grid_threads) {
 
 // One cooperative launch on `stream` (a cudaStream_t passed as void*).
 // packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte aligned; scratch
-// of pairs_scratch_bytes(n, nb, k) bytes, 16-byte aligned, in any state.
+// of pairs_scratch_bytes(n, nb) bytes, 16-byte aligned, in any state.
 // Writes out_t [n] f32, out_tri [n] int64, out_hit [n] bool; `stats` may be
 // null, else it receives [pairs tested, block stagings, rounds, slab tests]
-// (added).  k is 4 or 8.  Returns the cudaError_t of the launch.
+// (added).  Returns the cudaError_t of the launch.
 extern "C" int pairs_launch(const float* ray_o, const float* ray_d, int n, const float* packed,
-                            const float* bounds, int tp, int tile, int nb, int k, void* scratch,
+                            const float* bounds, int tp, int tile, int nb, void* scratch,
                             float* out_t, long long* out_tri, unsigned char* out_hit,
                             unsigned long long* stats, void* stream) {
   if (n <= 0) return 0;
-  if (tile <= 0 || tile > ch::TRI_TILE || nb <= 0 || tile * nb != tp || (k != 4 && k != 8))
+  if (tile <= 0 || tile > ch::TRI_TILE || nb <= 0 || tile * nb != tp)
     return static_cast<int>(cudaErrorInvalidValue);
   size_t at = 0;
-  const bq::QueueLayout l = bq::queue_layout(n, nb, k, at);
+  const bq::QueueLayout l = bq::queue_layout(n, nb, PICKS, at);
   Params p;
   p.q = bq::queues_at(static_cast<char*>(scratch), l, n, nb, tile);
   p.q.ray_o = ray_o;
@@ -137,5 +131,5 @@ extern "C" int pairs_launch(const float* ray_o, const float* ray_d, int n, const
   p.out_hit = out_hit;
   p.stats = stats;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(k == 4 ? launch<4>(p, st) : launch<8>(p, st));
+  return static_cast<int>(launch(p, st));
 }

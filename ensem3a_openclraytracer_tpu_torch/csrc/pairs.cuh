@@ -38,7 +38,7 @@
 //           orders (t, tri) lexicographically for t > 0: the fold is exact
 //           whatever order the items and slices run in.
 // trace_rounds loops until no ray is live.  The arithmetic per (ray,
-// triangle) pair is ch::test_block's, term for term, and the slab test is
+// triangle) pair is ch::test_packed's, term for term, and the slab test is
 // ch::block_entry, so the result equals ops/closest_hit.trace_plain's.
 #pragma once
 #include <cooperative_groups.h>
@@ -440,7 +440,7 @@ __device__ int4 next_item(const Queues& p, int items, int lg) {
 
 // Triangles [lo, lo + cnt) of block blk into f4 in ch's packed layout, from
 // its first slot.
-__device__ __forceinline__ void stage_block(const Queues& p, int blk, int lo, int cnt, float4* f4) {
+__device__ __forceinline__ void stage_slice(const Queues& p, int blk, int lo, int cnt, float4* f4) {
   const float4* src = p.packed + (static_cast<long long>(blk) * p.tile + lo) * PACK4;
   for (int k = threadIdx.x; k < 6 * cnt; k += THREADS) {
     const int c = k / 6;
@@ -465,7 +465,7 @@ __device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned
   if (tid == 0) *s_work = next_item(p, items, lg);
   __syncthreads();
   int4 cur = *s_work;
-  if (cur.x >= 0) stage_block(p, cur.y, cur.x * width, count(cur.x), smem);
+  if (cur.x >= 0) stage_slice(p, cur.y, cur.x * width, count(cur.x), smem);
   cp_async_commit();
   int buf = 0;
   while (cur.x >= 0) {
@@ -473,7 +473,7 @@ __device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned
     if (tid == 0) *s_work = next_item(p, items, lg);
     __syncthreads();
     const int4 nxt = *s_work;
-    if (nxt.x >= 0) stage_block(p, nxt.y, nxt.x * width, count(nxt.x), smem + (buf ^ 1) * BUF4);
+    if (nxt.x >= 0) stage_slice(p, nxt.y, nxt.x * width, count(nxt.x), smem + (buf ^ 1) * BUF4);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // item cur's triangles are in buffer buf

@@ -15,7 +15,8 @@ This checkout's ``csrc/`` comes first, as ``this``.  Every source is built
 with ``_build``'s nvcc flags; its ptxas registers, stack and spills and its
 launch grids are printed.  Both kernels keep their C interface across the
 sources (a stats buffer of :data:`STATS_SLOTS` slots takes any version's
-2b counters, printed raw).
+2b counters, printed raw); ``pairs.cu``'s entry points take no ``k``, so a
+source whose entry points do is not a match.
 
 2b: one sample at each of :data:`SHAPES` (``cell`` is ``outdoor15k.render``'s:
 outdoor_1300 at 256^2, 4 bounces, sun, the kernel's own Philox stream;
@@ -92,13 +93,13 @@ def build(label: str, csrc: Path) -> dict:
     p = libs["pairs"]
     p.pairs_launch.argtypes = pp._KERNEL_ARGTYPES
     p.pairs_launch.restype = ctypes.c_int
-    p.pairs_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    p.pairs_scratch_bytes.argtypes = [ctypes.c_int] * 2
     p.pairs_scratch_bytes.restype = ctypes.c_longlong
-    p.pairs_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    p.pairs_grid.argtypes = [ctypes.c_void_p]
     grid = (ctypes.c_int * 6)()
     q.fused_queue_grid(ctypes.addressof(grid))
     pgrid = (ctypes.c_int * 5)()
-    p.pairs_grid(pp.K, ctypes.addressof(pgrid))
+    p.pairs_grid(ctypes.addressof(pgrid))
     return dict(label=label, queue=q, pairs=p, ptxas=ptxas, grid=list(grid), pairs_grid=list(pgrid))
 
 
@@ -126,17 +127,15 @@ def trace(lib, feats, o, d, stats=None):
     launches it: ``(t, tri, hit)``."""
     import torch
 
-    from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
-
     n, nb = o.shape[0], feats.block_bounds.shape[0]
     tp = feats.edges.shape[-1]
     dev = o.device
     out = (torch.empty(n, device=dev), torch.empty(n, dtype=torch.int64, device=dev),
            torch.empty(n, dtype=torch.bool, device=dev))
-    scratch = torch.empty((lib.pairs_scratch_bytes(n, nb, pp.K),), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((lib.pairs_scratch_bytes(n, nb),), dtype=torch.uint8, device=dev)
     err = lib.pairs_launch(o.data_ptr(), d.data_ptr(), n, feats.packed.data_ptr(),
-                           feats.block_bounds.data_ptr(), tp, tp // nb, nb, pp.K,
-                           scratch.data_ptr(), *(x.data_ptr() for x in out),
+                           feats.block_bounds.data_ptr(), tp, tp // nb, nb, scratch.data_ptr(),
+                           *(x.data_ptr() for x in out),
                            None if stats is None else stats.data_ptr(),
                            torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -1,4 +1,4 @@
-"""Prototype: grouped-pair closest hit, head to head with ``trace_blocks``.
+"""Prototype: grouped-pair closest hit, head to head with ``trace_pairs``.
 
 Counterpart of the JAX package's ``experiments/proto_grouped.py``.  Rays
 are sorted by ``coherent_order`` and cut into tiles of ``rt`` rays.  A

@@ -72,7 +72,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.bsdf import (
     sample_bounce,
 )
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
-from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import trace
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident, trace
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl, sun_direction
 from ensem3a_openclraytracer_tpu_torch.ops import fused as fused_ops
 from ensem3a_openclraytracer_tpu_torch.ops.gathers import gather_rows
@@ -226,7 +226,7 @@ def radiance_for_rays(
         f_args, order = fused_ops.fused_args(geom, materials, env, ray_o, ray_d, primary_hit,
                                              primary_surf)
         kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, nee=nee, lights=lights)
-        if geom.feats.block_bounds.shape[0] == 1:  # the whole render in one launch
+        if resident(geom.feats):  # the whole render in one launch
             run = (fused_ops.render_fused_plain if engine == "plain"
                    else fused_ops.render_fused_resident)
             acc = run(*f_args, key, 0, spp, ibl=env.ibl.contiguous(), ibl_power=env.ibl_power,
@@ -421,7 +421,7 @@ def _record_queue_stats(geom, materials, env, dev, kwargs) -> None:
     fused = kwargs.get("fused")
     if fused is None:
         fused = _fused_by_default(geom, materials, env, dev, **kwargs)
-    if not fused or geom.feats.block_bounds.shape[0] == 1:
+    if not fused or resident(geom.feats):
         return
     max_bounce = kwargs["max_bounce"]
     stats = fused_ops.render_stats(dev, max_bounce, make=False)

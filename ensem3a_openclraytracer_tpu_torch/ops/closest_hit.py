@@ -1,15 +1,15 @@
 """Closest-hit queries: triangle features, the exact f32 scan, and the
-hand-written CUDA kernel that answers them on the card.
+choice of kernel that answers them on the card.
 
 Counterpart of the JAX package's ``ops/intersect_mxu.py`` (features and
 the exact ``trace_mxu`` scan).  On the TPU three Pallas kernels carry
 closest-hit queries, one per scene size: ``intersect_mxu._mxu_kernel``
 (one 256-triangle block), ``pairs._tile_loop_kernel`` (2-64 blocks) and
-``pairs._tile_stream_kernel`` (more).  Here ``csrc/closest_hit.cu``
-(:func:`trace_blocks`) takes any scene size: one block with its packed
-features resident in shared memory (the role of ``_mxu_kernel``), more
-blocks with a block-culled trace; :func:`trace` sends multi-block scenes
-to the block-queue kernel of ``ops/pairs.py``.
+``pairs._tile_stream_kernel`` (more).  Here one rule, :func:`resident`,
+picks the kernel family of every trace and fused sample: a one-block
+scene keeps its packed features resident in shared memory
+(``csrc/closest_hit.cu``, :func:`trace_resident`, the role of
+``_mxu_kernel``), more blocks take the block queues of ``ops/pairs.py``.
 
 A ray hits triangle ``A, B, C`` when its Plucker side tests
 ``w = e . [d, d x o]`` against the three edge features share a sign
@@ -34,15 +34,10 @@ from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 
 TRI_TILE = 256  # triangles per culling block (the TPU kernels' TRI_TILE)
 MISS_T = MAX_DIST * 0.999
-# Dynamic shared memory of the block-culled kernel: 25 feature rows of
-# TRI_TILE floats plus one 8-byte sort key per block, rounded up to a power
-# of two; a Hopper block may use 232,448 bytes.
-MAX_KERNEL_BLOCKS = 16384
 
 # Launches of the CUDA kernel, by kernel name.  Only a launch on the card
 # counts; the CPU path runs the plain version and counts nothing.
-LAUNCHES = launches.counter(
-    {"closest_hit": ("resident_hit_kernel", "closest_hit_kernel")})
+LAUNCHES = launches.counter({"closest_hit": ("resident_hit_kernel",)})
 
 
 class TriFeatures(NamedTuple):
@@ -53,11 +48,12 @@ class TriFeatures(NamedTuple):
     plane``.  ``normal_d [3, Tp]``: ``n``.  Padding triangles are all zero
     (``d.n == 0``, never hit).  ``block_bounds [B, 8]``: the AABB of each
     ``TRI_TILE`` block (columns 0-5; padding-only blocks are inverted
-    boxes) and in column 6 a scene-scale epsilon, which the kernel uses as
-    a conservative margin on its block culling.  ``packed [Tp, 28]``: the
+    boxes) and in column 6 a scene-scale epsilon, which the kernels use as
+    a conservative margin on their block culling.  ``packed [Tp, 28]``: the
     25 feature rows of each triangle side by side, padded to 28 (the
-    triangle-major copy that ``ops/pairs.trace_pairs`` stages with 16-byte
-    loads; :func:`pack_features`), built once per scene."""
+    triangle-major copy that every kernel stages with 16-byte loads;
+    :func:`pack_features`), built once per scene.  ``edges``, ``plane``
+    and ``normal_d`` are what the plain versions read."""
 
     edges: torch.Tensor
     plane: torch.Tensor
@@ -271,7 +267,7 @@ def coherent_order(p: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 _KERNEL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # ray_o, ray_d, n
-    + [ctypes.c_void_p] * 5  # edges, plane, normal_d, packed, block_bounds
+    + [ctypes.c_void_p] * 2  # packed, block_bounds
     + [ctypes.c_int] * 3  # tp, tile, nb
     + [ctypes.c_void_p] * 4  # out_t, out_tri, stats, stream
 )
@@ -324,29 +320,37 @@ def check_features(feats: TriFeatures, dev: torch.device) -> Tuple[int, int, int
     return tp, tile, nb
 
 
-def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                 stats: torch.Tensor | None = None):
-    """Closest hit ``(t [N] f32, tri [N] int32)`` through the CUDA kernel
-    ``csrc/closest_hit.cu`` for rays on the card: on one block the resident
-    kernel (needs ``feats.packed``), on more the block-culled one.  Rays on
-    the CPU take the plain version.  ``stats`` (int64 ``[2]`` on the card,
-    optional) receives the (ray, triangle) pairs tested and the
-    triangle-block stagings, added to what it holds."""
+def resident(feats: TriFeatures) -> bool:
+    """The one rule that picks a kernel family for a scene: one triangle
+    block keeps its packed features resident in shared memory
+    (:func:`trace_resident`, ``ops/fused.render_fused_resident`` and
+    ``sample_fused_blocks``); any other count takes the block queues
+    (``ops/pairs.trace_pairs``, ``ops/fused.sample_fused_queue``)."""
+    return feats.block_bounds.shape[0] == 1
+
+
+def trace_resident(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                   stats: torch.Tensor | None = None):
+    """Closest hit ``(t [N] f32, tri [N] int32)`` on a one-block scene
+    through the resident kernel ``csrc/closest_hit.cu`` for rays on the
+    card (needs ``feats.packed``); rays on the CPU take
+    :func:`trace_plain`.  Raises on more than one block, on any device.
+    ``stats`` (int64 ``[2]`` on the card, optional) receives the (ray,
+    triangle) pairs tested and the triangle-block stagings, added to what
+    it holds."""
+    if not resident(feats):
+        raise ValueError(f"trace_resident takes one triangle block, not "
+                         f"{feats.block_bounds.shape[0]}: trace sends other scenes to "
+                         f"ops/pairs.trace_pairs")
     if ray_o.device.type == "cpu":
         h = trace_plain(feats, ray_o, ray_d)
         return h.t, h.tri.to(torch.int32)
     if ray_o.device.type != "cuda":
-        raise ValueError(f"trace_blocks runs on cuda or cpu, not {ray_o.device}")
+        raise ValueError(f"trace_resident runs on cuda or cpu, not {ray_o.device}")
     dev = ray_o.device
     n = ray_o.shape[0]
-    nb = feats.block_bounds.shape[0]
-    if nb > MAX_KERNEL_BLOCKS:
-        raise ValueError(
-            f"{nb} triangle blocks exceed the kernel's shared-memory visit list "
-            f"({MAX_KERNEL_BLOCKS} blocks)"
-        )
     tp, tile, nb = check_features(feats, dev)
-    packed = check_packed(feats, tp, dev) if nb == 1 else None
+    packed = check_packed(feats, tp, dev)
     _check(ray_o, "ray_o", (n, 3), torch.float32, dev)
     _check(ray_d, "ray_d", (n, 3), torch.float32, dev)
     if stats is not None:
@@ -356,10 +360,8 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     if n == 0:
         return out_t, out_tri
     err = _launcher()(
-        ray_o.data_ptr(), ray_d.data_ptr(), n,
-        feats.edges.data_ptr(), feats.plane.data_ptr(), feats.normal_d.data_ptr(),
-        None if packed is None else packed.data_ptr(), feats.block_bounds.data_ptr(), tp, tile, nb,
-        out_t.data_ptr(), out_tri.data_ptr(),
+        ray_o.data_ptr(), ray_d.data_ptr(), n, packed.data_ptr(),
+        feats.block_bounds.data_ptr(), tp, tile, nb, out_t.data_ptr(), out_tri.data_ptr(),
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -369,25 +371,19 @@ def trace_blocks(feats: TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     return out_t, out_tri
 
 
-# Scenes of at least this many triangle blocks trace through
-# ``ops/pairs.trace_pairs`` on the card; fewer (one block: its packed
-# features stay resident in shared memory) through ``trace_blocks``.
-PAIRS_MIN_BLOCKS = 2
-
-
 def trace(geom, ray_o: torch.Tensor, ray_d: torch.Tensor, engine: str = "kernel") -> Hit:
     """Closest-hit dispatch: through ``geom.feats`` when the pack has
     them, on every device; through the tree (``ops/traversal.trace_bvh``)
     only when the pack has nothing else.  (The JAX package takes the tree
     on the CPU when a pack has both, a TPU rule: its matmul engines ran on
     the TPU.)  With features, rays on the card go through a kernel:
-    ``ops/pairs.trace_pairs`` (one launch, no ray sort) on scenes of
-    ``PAIRS_MIN_BLOCKS`` blocks or more, else :func:`trace_blocks`.  Rays
-    on the CPU, and any rays with ``engine="plain"``, take that kernel's
-    plain version: on those scenes ``ops/pairs.trace_pairs_plain`` (its
-    block cull makes it much faster than the full scan), else
-    :func:`trace_plain`; both equal :func:`trace_plain` bit for bit; on a
-    tree, ``ops/traversal.trace_bvh_plain``.  Visibility is not
+    :func:`trace_resident` on a :func:`resident` scene, else
+    ``ops/pairs.trace_pairs`` (one launch, no ray sort).  Rays on the
+    CPU, and any rays with ``engine="plain"``, take that kernel's plain
+    version: :func:`trace_plain`, or ``ops/pairs.trace_pairs_plain`` (its
+    block cull makes it much faster than the full scan); both equal
+    :func:`trace_plain` bit for bit; on a tree,
+    ``ops/traversal.trace_bvh_plain``.  Visibility is not
     differentiable: the inputs are detached."""
     ray_o = ray_o.detach().to(torch.float32).contiguous()
     ray_d = ray_d.detach().to(torch.float32).contiguous()
@@ -401,18 +397,18 @@ def trace(geom, ray_o: torch.Tensor, ray_d: torch.Tensor, engine: str = "kernel"
             raise ValueError(f"unknown trace engine {engine!r}")
         run = traversal.trace_bvh_plain if engine == "plain" else traversal.trace_bvh
         return run(geom.bvh, geom.v0, geom.v1, geom.v2, ray_o, ray_d)
-    multi = feats.block_bounds.shape[0] >= PAIRS_MIN_BLOCKS
+    queues = not resident(feats)
     if engine == "plain" or ray_o.device.type == "cpu":
-        if multi:
+        if queues:
             from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs_plain
 
             return trace_pairs_plain(feats, ray_o, ray_d)
         return trace_plain(feats, ray_o, ray_d)
     if engine != "kernel":
         raise ValueError(f"unknown trace engine {engine!r}")
-    if multi:
+    if queues:
         from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs
 
         return trace_pairs(feats, ray_o, ray_d)
-    t, tri = trace_blocks(feats, ray_o, ray_d)
+    t, tri = trace_resident(feats, ray_o, ray_d)
     return Hit(t=t, tri=tri.to(torch.int64), hit=t < MISS_T)

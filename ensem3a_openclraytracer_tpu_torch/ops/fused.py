@@ -14,14 +14,14 @@ closest hit (``t > MIN_HIT_DIST``, the answer of ``trace_plain``):
   shared memory.  :func:`render_fused_resident` runs a whole render in one
   launch (every sample, the IBL of each escape and the sum over samples);
   :func:`sample_fused_blocks` runs one sample (and record mode);
-* ``csrc/fused_queue.cu`` (:func:`sample_fused_queue`, scenes of
-  ``QUEUE_MIN_BLOCKS`` blocks or more): one cooperative launch per
-  sample, the rays' state in device memory between the traces, each trace
-  the block-queue rounds of ``ops/pairs`` over the whole batch.
+* ``csrc/fused_queue.cu`` (:func:`sample_fused_queue`, scenes of more
+  blocks): one cooperative launch per sample, the rays' state in device
+  memory between the traces, each trace the block-queue rounds of
+  ``ops/pairs`` over the whole batch.
 
-:func:`sample_fused` picks between the per-sample kernels by block count;
-:func:`sample_fused_plain` and :func:`render_fused_plain` compute the same
-functions in plain torch.
+:func:`sample_fused` picks between the per-sample kernels by
+``ops/closest_hit.resident``; :func:`sample_fused_plain` and
+:func:`render_fused_plain` compute the same functions in plain torch.
 
 A sample's kernel writes ``(rad, esc_thr, esc_dir)``: a path escapes at
 most once, and its radiance is ``rad + esc_thr * ibl(esc_dir)``, which the
@@ -67,6 +67,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
     _expand_bits_10,
     check_features,
     check_packed,
+    resident,
     trace_plain,
 )
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl, sun_direction
@@ -90,16 +91,6 @@ N_ATTR = 8
 # ``csrc/fused_queue.cu``.  Only a launch on the card counts.
 LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_sample_kernel"),
                              "sample_fused_queue": ("fused_queue_kernel",)})
-
-# Scenes of at least this many triangle blocks take ``csrc/fused_queue.cu``
-# on the card (:func:`sample_fused_queue`); one-block scenes keep
-# ``csrc/fused_sample.cu`` with the block's features resident in shared
-# memory.  Measured by chip_smoke.py phase 5 on an H100 80GB HBM3 at 700 W:
-# at outdoor_1000's shape (47 blocks, 512^2 lanes, 4 bounces, sun) the queue
-# kernel took 2.87 ms per sample and the block-culled trace that
-# fused_sample.cu then had for several blocks 11.06 ms (2.60 / 10.97 ms with
-# NEE).
-QUEUE_MIN_BLOCKS = 2
 
 # The slots of ``csrc/fused_queue.cu``'s int64 ``stats``, in order: the
 # first five as ``csrc/fused_sample.cu``'s (pairs tested, block stagings,
@@ -182,14 +173,14 @@ def fused_args(geom, materials, env, ray_o, ray_d, hit, surf, permute: Optional[
     batch's primary hits and surfaces (``models/pathtracer``'s ``Hit`` and
     ``_Surface``); ``args`` is ``(feats, tri_attrs, p, n, mtype, color,
     rough, live, in_dir, sun_dir, sun_power)``, each contiguous, for
-    ``sample_fused(*args, key, sample, ...)``.  ``permute`` (by default on
-    scenes of more than one triangle block) sorts the rays by the Morton
+    ``sample_fused(*args, key, sample, ...)``.  ``permute`` (by default
+    where the scene is not ``resident``) sorts the rays by the Morton
     order of their primary hit, so a CUDA block's rays start near one
     another and its culling bites; ``order`` is that permutation (None when
     the rays keep their order), and lane indices of the in-kernel stream
     are positions in it."""
     if permute is None:
-        permute = geom.feats.block_bounds.shape[0] > 1
+        permute = not resident(geom.feats)
     order = morton_order_points(select(hit.hit, surf.p, ray_o)) if permute else None
     pick = (lambda x: x.contiguous()) if order is None else (lambda x: x[order].contiguous())
     attrs = build_tri_attrs(geom.n, geom.mat, materials.mtype, materials.color,
@@ -275,7 +266,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         u_rec = torch.zeros((mb1, n_rays, 2), dtype=torch.float32, device=dev)
         tri_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
         sun_rec = torch.full((mb1, n_rays), -1, dtype=torch.int32, device=dev)
-    multi = feats.block_bounds.shape[0] > 1
+    multi = not resident(feats)
     if stats is not None and multi and tuple(stats.shape) != (queue_stats_len(max_bounce),):
         raise ValueError(f"stats: want shape ({queue_stats_len(max_bounce)},) on "
                          f"{feats.block_bounds.shape[0]} blocks, got {tuple(stats.shape)}")
@@ -426,13 +417,12 @@ def sample_fused(feats: TriFeatures, *args, **kw):
     more blocks also the rest of :data:`QUEUE_STATS` and the segments of
     each bounce.
 
-    Scenes of ``QUEUE_MIN_BLOCKS`` blocks or more go to
-    :func:`sample_fused_queue`, one-block scenes to
-    :func:`sample_fused_blocks`; each takes :func:`sample_fused_plain` for
-    rays on the CPU.  :func:`render_fused_resident` runs every sample of a
-    one-block render in one launch."""
-    run = (sample_fused_queue if feats.block_bounds.shape[0] >= QUEUE_MIN_BLOCKS
-           else sample_fused_blocks)
+    One-block scenes (``ops/closest_hit.resident``) go to
+    :func:`sample_fused_blocks`, others to :func:`sample_fused_queue`;
+    each takes :func:`sample_fused_plain` for rays on the CPU.
+    :func:`render_fused_resident` runs every sample of a one-block render
+    in one launch."""
+    run = sample_fused_blocks if resident(feats) else sample_fused_queue
     return run(feats, *args, **kw)
 
 
@@ -610,10 +600,9 @@ def _plan(device: int, n_rays: int, ns: int) -> tuple:
 
 
 def _one_block(feats: TriFeatures, what: str) -> None:
-    nb = feats.block_bounds.shape[0]
-    if nb != 1:
-        raise ValueError(f"{what} takes one triangle block, not {nb}: sample_fused sends "
-                         f"scenes of {QUEUE_MIN_BLOCKS} blocks or more to sample_fused_queue")
+    if not resident(feats):
+        raise ValueError(f"{what} takes one triangle block, not {feats.block_bounds.shape[0]}: "
+                         f"sample_fused sends other scenes to sample_fused_queue")
 
 
 def sample_fused_blocks(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,

@@ -41,11 +41,12 @@ from ensem3a_openclraytracer_tpu_torch.ops import launches
 from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 
-# Blocks each live ray takes per round.  A round slab-tests every block
-# (30 FP32 operations each) and tests up to K x 256 triangles (45 each), so
-# the slab tests stay under a fifth of the pair tests up to ~600 blocks.
+# Blocks each live ray takes per round, the one value the kernels are built
+# for (csrc/pairs.cu, csrc/fused_queue.cu; trace_pairs_plain takes any k).  A
+# round slab-tests every block (30 FP32 operations each) and tests up to K x
+# 256 triangles (45 each), so the slab tests stay under a fifth of the pair
+# tests up to ~600 blocks.
 K = 8
-KERNEL_KS = (4, 8)  # the values of k that csrc/pairs.cu is compiled for
 CHUNK = 256  # queued rays per work item of the kernel (a block staging)
 S_MAX = 32  # most triangle slices of one work item (csrc/pairs.cuh bq::S_MAX)
 G_MAX = 32  # most select lanes a ray: a warp (csrc/pairs.cuh bq::G_MAX)
@@ -161,7 +162,7 @@ def trace_pairs_plain(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.T
 
 _KERNEL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # ray_o, ray_d, n
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4  # packed, bounds; tp, tile, nb, k
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
     + [ctypes.c_void_p] * 6  # scratch, out_t, out_tri, out_hit, stats, stream
 )
 
@@ -175,9 +176,9 @@ def _lib():
     lib = _build.load("pairs")
     lib.pairs_launch.argtypes = _KERNEL_ARGTYPES
     lib.pairs_launch.restype = ctypes.c_int
-    lib.pairs_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.pairs_scratch_bytes.argtypes = [ctypes.c_int] * 2
     lib.pairs_scratch_bytes.restype = ctypes.c_longlong
-    lib.pairs_grid.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.pairs_grid.argtypes = [ctypes.c_void_p]
     lib.pairs_grid.restype = ctypes.c_int
     lib.pairs_slices.argtypes = [ctypes.c_int] * 2
     lib.pairs_slices.restype = ctypes.c_int
@@ -186,19 +187,19 @@ def _lib():
     return lib
 
 
-def kernel_grid(k: int = K) -> dict:
+def kernel_grid() -> dict:
     """The launch's grid on the current card: CUDA blocks per SM (the
     occupancy API's count), SMs, registers per thread, threads per CUDA
     block and dynamic shared memory per CUDA block."""
     out = (ctypes.c_int * 5)()
-    err = _lib().pairs_grid(k, ctypes.addressof(out))
+    err = _lib().pairs_grid(ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"pairs kernel: no cooperative grid (CUDA error {err})")
     return dict(zip(("blocks_per_sm", "sms", "registers", "threads", "smem_bytes"), out))
 
 
 def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
-                stats: torch.Tensor | None = None, k: int = K) -> Hit:
+                stats: torch.Tensor | None = None) -> Hit:
     """Closest hit ``(t, tri, hit)`` through the CUDA kernel
     ``csrc/pairs.cu`` for rays on the card: one cooperative launch for a
     non-empty batch, nothing read back.  Rays on the CPU take
@@ -206,11 +207,9 @@ def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     optional) receives the (ray, triangle) pairs tested, the block
     stagings, the rounds and the slab tests, added to what it holds."""
     if ray_o.device.type == "cpu":
-        return trace_pairs_plain(feats, ray_o, ray_d, k=k, stats=stats)
+        return trace_pairs_plain(feats, ray_o, ray_d, k=K, stats=stats)
     if ray_o.device.type != "cuda":
         raise ValueError(f"trace_pairs runs on cuda or cpu, not {ray_o.device}")
-    if k not in KERNEL_KS:
-        raise ValueError(f"the kernel is built for k in {KERNEL_KS}, not {k}")
     dev = ray_o.device
     n = ray_o.shape[0]
     tp, tile, nb = ch.check_features(feats, dev)
@@ -219,8 +218,8 @@ def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     ch._check(ray_d, "ray_d", (n, 3), torch.float32, dev)
     if stats is not None:
         ch._check(stats, "stats", (4,), torch.int64, dev)
-    if n * k >= 2 ** 31:
-        raise ValueError(f"{n} rays x {k} picks overflow the kernel's int32 queue")
+    if n * K >= 2 ** 31:
+        raise ValueError(f"{n} rays x {K} picks overflow the kernel's int32 queue")
     if n == 0 or nb == 0:
         return Hit(t=torch.full((n,), MAX_DIST, dtype=torch.float32, device=dev),
                    tri=torch.zeros((n,), dtype=torch.int64, device=dev),
@@ -229,10 +228,10 @@ def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     out_tri = torch.empty((n,), dtype=torch.int64, device=dev)
     out_hit = torch.empty((n,), dtype=torch.bool, device=dev)
     lib = _lib()
-    scratch = torch.empty((lib.pairs_scratch_bytes(n, nb, k),), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((lib.pairs_scratch_bytes(n, nb),), dtype=torch.uint8, device=dev)
     err = lib.pairs_launch(
         ray_o.data_ptr(), ray_d.data_ptr(), n, feats.packed.data_ptr(),
-        feats.block_bounds.data_ptr(), tp, tile, nb, k, scratch.data_ptr(),
+        feats.block_bounds.data_ptr(), tp, tile, nb, scratch.data_ptr(),
         out_t.data_ptr(), out_tri.data_ptr(), out_hit.data_ptr(),
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

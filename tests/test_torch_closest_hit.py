@@ -1,6 +1,7 @@
 """Port parity, closest hit: the port's exact scan (the CUDA kernel's plain
-version) against the JAX package's ``trace_mxu`` scan, and the ray order
-against ``coherent_order``.
+version) against the JAX package's ``trace_mxu`` scan, the ray order
+against ``coherent_order``, and ``resident``, the one rule that picks the
+kernel family of every trace and fused sample.
 
 Triangles sharing an edge tie under the inclusive side tests, and the two
 scans round their dot products in different orders, so a knife-edge ray
@@ -19,7 +20,12 @@ from ensem3a_openclraytracer_tpu.ops.fused import coherent_order as j_coherent_o
 from ensem3a_openclraytracer_tpu.ops.intersect import trace_bruteforce as j_bruteforce
 from ensem3a_openclraytracer_tpu.ops.intersect_mxu import trace_mxu
 from ensem3a_openclraytracer_tpu_torch import convert
+from ensem3a_openclraytracer_tpu_torch import testing as tt
+from ensem3a_openclraytracer_tpu_torch.models.pathtracer import _gather_surface
 from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
+from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import trace_bruteforce
 
@@ -67,12 +73,17 @@ def test_trace_plain_matches_trace_mxu(name):
     h = ch.trace_plain(g.feats, torch.as_tensor(o), torch.as_tensor(d))
     jh = trace_mxu(jg.feats, jnp.asarray(o), jnp.asarray(d))
     _assert_agree(h, jh.t, jh.tri, jh.hit)
-    # the dispatch and the kernel wrapper take the plain version on the CPU
+    # the dispatch and the kernel wrapper take the plain version on the CPU;
+    # the resident kernel's wrapper refuses more than one block
     h2 = ch.trace(g, torch.as_tensor(o), torch.as_tensor(d))
     assert torch.equal(h2.t, h.t) and torch.equal(h2.tri, h.tri)
     launches = ch.LAUNCHES["closest_hit"]
-    t3, tri3 = ch.trace_blocks(g.feats, torch.as_tensor(o), torch.as_tensor(d))
-    assert torch.equal(t3, h.t) and tri3.dtype == torch.int32
+    if ch.resident(g.feats):
+        t3, tri3 = ch.trace_resident(g.feats, torch.as_tensor(o), torch.as_tensor(d))
+        assert torch.equal(t3, h.t) and tri3.dtype == torch.int32
+    else:
+        with pytest.raises(ValueError, match="one triangle block"):
+            ch.trace_resident(g.feats, torch.as_tensor(o), torch.as_tensor(d))
     assert ch.LAUNCHES["closest_hit"] == launches
 
 
@@ -134,3 +145,53 @@ def test_features_of_empty_and_padded_blocks():
     d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32)), dim=-1)
     h = ch.trace_plain(f, o, d)
     assert h.hit.any() and int(h.tri.max()) < 257
+
+
+RULE_SCENES = {  # scene -> (maker, triangle blocks)
+    "cornell": (lambda: tt.make_cornell_scene(device="cpu"), 1),
+    "outdoor24": (lambda: tt.make_outdoor_scene(n_cubes=24, device="cpu"), 2),
+    "outdoor1300": (lambda: tt.make_outdoor_scene(n_cubes=1300, device="cpu"), 61),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RULE_SCENES))
+def test_resident_is_the_one_rule(name, monkeypatch):
+    """``resident`` holds every choice of kernel family to one answer: on
+    one block ``trace`` takes the resident kernel's plain version (what
+    ``trace_resident`` returns), ``fused_args`` keeps the rays' order and
+    the one-block wrappers run; on more blocks ``trace`` takes the block
+    queues' plain version, ``fused_args`` permutes and each one-block
+    wrapper refuses.  (``sample_fused``'s choice: ``test_torch_fused``.)"""
+    make, blocks = RULE_SCENES[name]
+    g, m, e, c = make()
+    assert g.feats.block_bounds.shape[0] == blocks
+    one = ch.resident(g.feats)
+    assert one == (blocks == 1)
+    o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, 8, 8)
+    calls = []
+    for mod, fn in ((ch, "trace_plain"), (pp, "trace_pairs_plain")):
+        monkeypatch.setattr(mod, fn, lambda *a, _n=fn, _f=getattr(mod, fn), **k:
+                            calls.append(_n) or _f(*a, **k))
+    h = ch.trace(g, o, d)
+    assert calls == ["trace_plain" if one else "trace_pairs_plain"]
+    monkeypatch.undo()
+
+    args, order = fu.fused_args(g, m, e, o, d, h, _gather_surface(g, m, o, d, h))
+    assert (order is None) == one
+    key = rng.key_from_generator(torch.Generator().manual_seed(2), "cpu")
+    kw = dict(max_bounce=1, sun_enabled=False)
+    guards = (
+        lambda: ch.trace_resident(g.feats, o, d),
+        lambda: fu.sample_fused_blocks(*args, key, 0, **kw),
+        lambda: fu.render_fused_resident(*args, key, 0, 1, ibl=e.ibl, ibl_power=e.ibl_power,
+                                         **kw),
+    )
+    if one:
+        t, tri = guards[0]()
+        assert torch.equal(t, h.t) and torch.equal(tri.long(), h.tri)
+        for guard in guards[1:]:
+            guard()  # the plain version, on the CPU
+    else:
+        for guard in guards:
+            with pytest.raises(ValueError, match="one triangle block"):
+                guard()

@@ -1,7 +1,6 @@
 """Card-only tests of the port's CUDA kernels against their plain versions
-on the card: the closest-hit kernel (``trace_blocks`` against
-``trace_plain``) in each of its three roles (1, 61 and 586 triangle
-blocks; one block on the resident kernel), the one-block fused sample
+on the card: the resident closest-hit kernel (``trace_resident`` against
+``trace_plain``) on one-block scenes, the one-block fused sample
 kernel (``sample_fused`` against ``sample_fused_plain``, record mode, and
 its whole-render launch ``render_fused_resident`` against
 ``render_fused_plain`` and against one launch per sample), the Philox
@@ -10,8 +9,8 @@ closest-hit kernels
 (``trace_grouped`` and ``trace_compact`` against their plain versions,
 their counts too, two launches bit-equal, and the compaction kernel on
 partial sub-tiles),
-the block-queue closest hit (``trace_pairs`` against ``trace_plain``,
-``trace_blocks`` and its plain version's counts) and the multi-block fused
+the block-queue closest hit (``trace_pairs`` against ``trace_plain`` and
+its plain version's counts; on 61 and 586 blocks) and the multi-block fused
 sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
 its counts, with NEE, in record mode, up to 586 blocks), and the gradient
 path: the replay of fused records against the forward render, the replay's
@@ -86,7 +85,7 @@ def _rays(geom, cam, dev, seed, res=128, n_bounce=16384):
     return torch.cat([o, bo]).contiguous(), torch.cat([d, bd]).contiguous()
 
 
-@pytest.mark.parametrize("role", sorted(ROLES))
+@pytest.mark.parametrize("role", sorted(r for r, (_, blocks) in ROLES.items() if blocks == 1))
 def test_kernel_matches_plain(cuda, role):
     make, blocks = ROLES[role]
     g, _, _, c = make(cuda)
@@ -96,12 +95,12 @@ def test_kernel_matches_plain(cuda, role):
     o, d = o[order].contiguous(), d[order].contiguous()
     before = ch.LAUNCHES["closest_hit"]
     stats = torch.zeros(2, dtype=torch.int64, device=cuda)
-    t, tri = ch.trace_blocks(g.feats, o, d, stats=stats)
+    t, tri = ch.trace_resident(g.feats, o, d, stats=stats)
     torch.cuda.synchronize()
     assert ch.LAUNCHES["closest_hit"] == before + 1
-    if blocks == 1:  # the resident kernel: one staging per CUDA block of 256 rays
-        assert int(stats[1]) == -(-o.shape[0] // 256)
-        assert 0 < int(stats[0]) <= o.shape[0] * g.feats.edges.shape[-1]
+    # one staging per CUDA block of 256 rays
+    assert int(stats[1]) == -(-o.shape[0] // 256)
+    assert 0 < int(stats[0]) <= o.shape[0] * g.feats.edges.shape[-1]
     ref = ch.trace_plain(g.feats, o, d)
     hit = t < ch.MISS_T
     same = tri.to(torch.int64) == ref.tri
@@ -113,18 +112,27 @@ def test_kernel_matches_plain(cuda, role):
 
 
 def test_dispatch_and_stats(cuda):
+    """61 blocks take ``trace_pairs`` (and ``trace_resident`` refuses
+    them); on Cornell ``trace_resident``'s counts and its contiguity check."""
     g, _, _, c = ROLES["61_blocks"][0](cuda)
     o, d = _rays(g, c, cuda, seed=5, res=64, n_bounce=4096)
+    before = dict(pairs=pp.LAUNCHES["pairs"], closest_hit=ch.LAUNCHES["closest_hit"])
     h = ch.trace(g, o, d)
+    assert pp.LAUNCHES["pairs"] == before["pairs"] + 1
+    assert ch.LAUNCHES["closest_hit"] == before["closest_hit"]
     ref = ch.trace_plain(g.feats, o, d)
     assert float((h.tri == ref.tri).float().mean()) >= 0.999
+    with pytest.raises(ValueError, match="one triangle block"):
+        ch.trace_resident(g.feats, o, d)
+    g, _, _, c = ROLES["one_block"][0](cuda)
+    o, d = _rays(g, c, cuda, seed=5, res=64, n_bounce=4096)
     stats = torch.zeros(2, dtype=torch.int64, device=cuda)
-    ch.trace_blocks(g.feats, o, d, stats=stats)
+    ch.trace_resident(g.feats, o, d, stats=stats)
     pairs, stagings = (int(x) for x in stats.cpu())
-    assert 0 < pairs < o.shape[0] * g.feats.edges.shape[-1]
+    assert 0 < pairs <= o.shape[0] * g.feats.edges.shape[-1]
     assert stagings > 0
     with pytest.raises(ValueError, match="contiguous"):
-        ch.trace_blocks(g.feats, o.t().contiguous().t(), d)
+        ch.trace_resident(g.feats, o.t().contiguous().t(), d)
 
 
 FUSED = {  # role -> (scene maker, expected blocks, sun, nee)
@@ -160,9 +168,10 @@ def test_fused_kernel_matches_plain(cuda, role):
     u = torch.as_tensor(rng_.random((mb + 1, n, 5 if nee else 2)).astype(np.float32), device=cuda)
     kw = dict(max_bounce=mb, sun_enabled=sun, uniforms=u, nee=nee,
               lights=build_light_pack(g, m) if nee else None)
-    kernel = "sample_fused_queue" if blocks >= fu.QUEUE_MIN_BLOCKS else "sample_fused"
+    queue = not ch.resident(g.feats)
+    kernel = "sample_fused_queue" if queue else "sample_fused"
     before = dict(fu.LAUNCHES)
-    slots = fu.queue_stats_len(mb) if blocks >= fu.QUEUE_MIN_BLOCKS else 5
+    slots = fu.queue_stats_len(mb) if queue else 5
     stats = torch.zeros(slots, dtype=torch.int64, device=cuda)
     k = _image(fu.sample_fused(*args, stats=stats, **kw), e)
     torch.cuda.synchronize()
@@ -174,7 +183,7 @@ def test_fused_kernel_matches_plain(cuda, role):
     assert float((diff > 1e-3).float().mean()) < 0.02
     assert float(diff.median()) < 1e-5
     assert int(stats[0]) > 0 and int(stats[1]) > 0 and int(stats[3]) > 0
-    if blocks >= fu.QUEUE_MIN_BLOCKS:  # 2b's segments and cycles (ops/fused.QUEUE_STATS)
+    if queue:  # 2b's segments and cycles (ops/fused.QUEUE_STATS)
         got = dict(zip(fu.queue_stats_fields(mb), stats.tolist()))
         want = dict(zip(fu.queue_stats_fields(mb), plain_stats.tolist()))
         lanes = [got[f"lanes.{b}"] for b in range(mb + 1)]
@@ -199,7 +208,7 @@ def test_fused_record_matches_plain(cuda, role):
     make, blocks, wrapper = RECORD[role]
     g, m, e, args = _fused_inputs(make, cuda)
     nb = g.feats.block_bounds.shape[0]
-    assert nb == blocks if blocks else nb >= fu.QUEUE_MIN_BLOCKS
+    assert nb == blocks if blocks else not ch.resident(g.feats)
     key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(1), cuda)
     kw = dict(max_bounce=3, sun_enabled=True, record=True)
     kernel = "sample_fused_queue" if wrapper == "sample_fused" else "sample_fused"
@@ -403,8 +412,6 @@ def test_pairs_kernel_matches_plain(cuda, role):
     assert pp.LAUNCHES["pairs"] == before + 1
     _agree(h.t, h.tri, h.hit, ch.trace_plain(g.feats, o, d))
     assert bool(torch.all(h.hit == (h.t < ch.MISS_T))) and bool(torch.all(h.tri[~h.hit] == 0))
-    t_b, tri_b = ch.trace_blocks(g.feats, o, d)
-    assert float((h.tri == tri_b.long()).float().mean()) >= 0.999
     again = pp.trace_pairs(g.feats, o, d)  # atomics reorder the work, not the result
     assert torch.equal(again.t, h.t) and torch.equal(again.tri, h.tri)
     plain_stats = torch.zeros(4, dtype=torch.int64, device=cuda)
@@ -450,12 +457,13 @@ def _floor(bx, by, dev):
 
 
 def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
-    """More triangle blocks than ``trace_blocks``' visit list holds
-    (``MAX_KERNEL_BLOCKS``): the select phase stages the bounds in chunks,
-    on the floor of ``_floor``."""
+    """More triangle blocks than the select phase's shared memory holds
+    (``csrc/pairs.cuh``'s ``SEL_BLOCKS``, one staging buffer's float4s):
+    the select phase stages the bounds in chunks, on the floor of
+    ``_floor``."""
     rng = np.random.default_rng(12)
     bx, by = 129, 128
-    assert bx * by > ch.MAX_KERNEL_BLOCKS
+    assert bx * by > ch.TRI_TILE * 6 + ch.TRI_TILE // 4  # bq::SEL_BLOCKS
     feats = _floor(bx, by, cuda)
     o = np.stack([rng.uniform(-bx / 2, bx / 2, 2000), rng.uniform(-by / 2, by / 2, 2000),
                   np.full(2000, 5.0)], axis=-1)
@@ -580,7 +588,7 @@ def test_queue_kernel_matches_plain(cuda, role):
     make, blocks, sun, nee = QUEUE[role]
     g, m, e, args = _fused_inputs(make, cuda)
     nb = g.feats.block_bounds.shape[0]
-    assert nb >= fu.QUEUE_MIN_BLOCKS and (blocks is None or nb == blocks)
+    assert not ch.resident(g.feats) and (blocks is None or nb == blocks)
     n, mb = args[2].shape[0], 3
     rng_ = np.random.default_rng(nb)
     u = torch.as_tensor(rng_.random((mb + 1, n, 5 if nee else 2)).astype(np.float32), device=cuda)
@@ -782,7 +790,7 @@ def test_replay_of_fused_records_matches_forward_render(cuda, role):
     o, d = camera_rays(c.position, c.rotation_deg, c.fov_deg, 64, 64)
     spp, mb = 4, 3
     key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(3), cuda)
-    kern = "sample_fused" if g.feats.block_bounds.shape[0] == 1 else "sample_fused_queue"
+    kern = "sample_fused" if ch.resident(g.feats) else "sample_fused_queue"
     before = fu.LAUNCHES[kern]
     rec = record_paths(g, m, e, o, d, key, spp=spp, max_bounce=mb, sun_enabled=sun)
     assert fu.LAUNCHES[kern] == before + spp

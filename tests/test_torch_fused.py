@@ -27,7 +27,7 @@ from ensem3a_openclraytracer_tpu_torch.models import pathtracer as tp
 from ensem3a_openclraytracer_tpu_torch.ops import fused as tf
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
-from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import trace
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident, trace
 from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs_plain as pairs_plain
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
 from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
@@ -188,8 +188,8 @@ def test_plain_traces_are_exact_and_counted(nee):
 
 
 def test_sample_fused_dispatch_by_block_count():
-    """``sample_fused`` sends scenes of ``QUEUE_MIN_BLOCKS`` blocks or more
-    to the queue kernel's wrapper and one-block scenes to the resident
+    """``sample_fused`` sends one-block scenes (``resident``) to the
+    resident kernel's wrapper and scenes of more blocks to the queue
     kernel's; on the CPU each wrapper takes the plain version."""
     calls = []
     real = {name: getattr(tf, name) for name in ("sample_fused_queue", "sample_fused_blocks")}
@@ -198,8 +198,7 @@ def test_sample_fused_dispatch_by_block_count():
     try:
         for n_cubes, want in ((4, "sample_fused_blocks"), (24, "sample_fused_queue")):
             g, m, e, c = tt.make_outdoor_scene(n_cubes=n_cubes, device="cpu")
-            nb = g.feats.block_bounds.shape[0]
-            assert (nb >= tf.QUEUE_MIN_BLOCKS) == (want == "sample_fused_queue")
+            assert resident(g.feats) == (want == "sample_fused_blocks")
             args, _, _ = _port_args(g, m, e, c)
             key = rng.key_from_generator(torch.Generator().manual_seed(3), "cpu")
             before = dict(tf.LAUNCHES)

@@ -320,14 +320,14 @@ def test_the_launch_registry():
     assert launches.read() == saved
     names = ["void (anonymous namespace)::pairs_kernel<8>((anonymous namespace)::Params)",
              "grouped_pairs_kernel(float const*, int)",
-             "resident_hit_kernel(float const*, float const*, int)", "closest_hit_kernel(int)",
+             "resident_hit_kernel(float const*, float const*, int)",
              "(anonymous namespace)::fused_render_kernel(Params)", "fused_sample_kernel(Params)",
              "void fq::fused_queue_kernel(fq::Params)", "uniforms_kernel(unsigned const*)",
              "bvh_trace_kernel(float const*)", "pair_compact_kernel(float const*)",
              "void at::native::elementwise_kernel<128, 2>(int)", "Memset (Device)",
              "void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>(int)"]
     assert launches.count_kernels(names + ["pq::pairs_kernel(pq::Params)"]) == dict(
-        closest_hit=2, pairs=2, sample_fused=2, sample_fused_queue=1, uniforms=1, bvh_trace=1,
+        closest_hit=1, pairs=2, sample_fused=2, sample_fused_queue=1, uniforms=1, bvh_trace=1,
         grouped_pairs=1, pair_compact=1)
     assert launches.counter_of("pairs_kernel_helper(int)") is None
     assert launches.counter_of("void at::native::elementwise_kernel<128, 2, "
