@@ -54,7 +54,13 @@ path (record, replay, train step, optimisation) and its command line
    stream,
    its counts within 1 % of its plain version's, rounds, the grid syncs it
    counted, one sample under ``set_sync_debug_mode("error")``, its grid,
-   and a sample with nothing to trace.  Pixel forks below 2 % and median
+   and a sample with nothing to trace; on outdoor_1300 the whole render
+   (``render_fused_queue``: one launch a sample, the IBL and the sum inside
+   it) at the benchmark's 256^2, 100 spp and the main path's 512^2, 16 spp
+   against the per-sample loop it replaced (one launch a sample, the IBL
+   lookup and the sum in PyTorch after each): 0 pixel forks at 1e-3,
+   whether the two are bit-equal, both timed, and the device kernels a
+   profiled run of each ran.  Pixel forks below 2 % and median
    difference below 1e-5 against plain everywhere; record mode (one sample)
    on Cornell and outdoor_1000 at both shapes;
 6. stream identity: the fused kernels' in-kernel Philox stream against the
@@ -965,6 +971,8 @@ def phase_fused_queue(role, dev, smi: str):
     log(f"[phase 5] {role['name']}: one sample under set_sync_debug_mode('error') passed; grid "
         f"{grid}; a sample with nothing to trace {empty_ms:.4f} ms ({empty_syncs} grid syncs "
         f"counted; the full sample counted {syncs}) [{smi}]")
+    renders = [queue_render_vs_loop(role, g, m, e, c, dev, res_w, spp_w, smi)
+               for res_w, spp_w in role.get("whole_render", ())]
     return dict(
         name=role["name"], route="cuda",
         source="ensem3a_openclraytracer_tpu_torch/csrc/fused_queue.cu",
@@ -976,8 +984,81 @@ def phase_fused_queue(role, dev, smi: str):
         empty_sample_ms=empty_ms, empty_sample_grid_syncs=empty_syncs, grid_syncs=syncs,
         segments=named["segments"], grid_sync_share=named["sync_cycles"] / named["kernel_cycles"],
         split_rounds=named["split_rounds"], work_items=named["items"],
-        coop_select_rounds=named["coop_select_rounds"],
+        coop_select_rounds=named["coop_select_rounds"], whole_renders=renders,
     )
+
+
+def device_kernels(prof) -> list:
+    """The names of the device kernels in a torch.profiler trace, as the
+    benchmark counts them: no copies, no memsets, no annotations."""
+    import torch
+
+    return [ev.name() for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation()
+            and not ev.name().startswith(("Memcpy", "Memset"))]
+
+
+def queue_render_vs_loop(role, g, m, e, c, dev, res: int, spp: int, smi: str) -> dict:
+    """2b's whole render (``render_fused_queue``) at ``res^2``, ``spp``
+    samples, 4 bounces, on the kernel's own stream, against the per-sample
+    loop it replaced (``sample_fused_queue`` a sample, then the IBL lookup
+    and the sum in PyTorch): pixel forks at 1e-3 (none allowed) and
+    bit-equality, CUDA-event times of each (eager, median of 3), the device
+    kernels a profiled run of each ran, and the escapes the render looked
+    up."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+    from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
+    from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
+
+    args = fused_inputs(g, m, e, c, res)
+    n, mb = args[2].shape[0], MAIN_SHAPE[1]
+    key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(13), dev)
+    kw = dict(max_bounce=mb, sun_enabled=role["sun"])
+    ibl = dict(ibl=e.ibl, ibl_power=e.ibl_power)
+
+    def loop():
+        acc = torch.zeros((n, 3), device=dev)
+        for s in range(spp):
+            rad, esc_thr, esc_dir = fu.sample_fused_queue(*args, key, s, **kw)
+            acc = acc + rad + esc_thr * (sample_ibl(e.ibl, esc_dir) * e.ibl_power)
+        return acc
+
+    whole = lambda: fu.render_fused_queue(*args, key, 0, spp, **ibl, **kw)
+    fields = fu.queue_stats_fields(mb)
+    stats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
+    out = fu.render_fused_queue(*args, key, 0, spp, stats=stats, **ibl, **kw)
+    ref = loop()
+    torch.cuda.synchronize()
+    forks = int(((out - ref).abs().amax(dim=-1) > 1e-3).sum())
+    equal = bool(torch.equal(out, ref))
+    max_diff = float((out - ref).abs().max())
+    lookups = int(stats[fields.index("escape_lookups")])
+    check(bool(torch.isfinite(out).all()) and float(out.mean()) > 0.0,
+          f"{role['name']}: whole render at {res}^2 non-finite or black")
+    check(forks == 0, f"{role['name']}: whole render at {res}^2, {spp} spp: {forks} pixel forks "
+          f"against the per-sample loop")
+    check(0 < lookups <= n * spp, f"{role['name']}: escape_lookups {lookups}")
+    times = {}
+    for name, fn in (("whole", whole), ("loop", loop)):
+        times[name] = float(np.median([cuda_ms(fn, iters=1) for _ in range(3)]))
+    kernels = {}
+    for name, fn in (("whole", whole), ("loop", loop)):
+        with launch_registry().trace() as prof:
+            fn()
+        kernels[name] = len(device_kernels(prof))
+    check(kernels["whole"] <= spp + 2, f"{role['name']}: the whole render ran {kernels['whole']} "
+          f"device kernels for {spp} samples")
+    log(f"[phase 5] {role['name']} whole render at {res}^2, {spp} spp, {mb} bounces, own stream: "
+        f"render_fused_queue {times['whole']:.3f} ms ({kernels['whole']} device kernels), "
+        f"per-sample loop with the IBL and the sum in PyTorch {times['loop']:.3f} ms "
+        f"({kernels['loop']} device kernels), ratio {times['loop'] / times['whole']:.4f}; "
+        f"{forks} pixel forks at 1e-3, bit-equal {equal}, max diff {max_diff:.3e}; escapes "
+        f"looked up {lookups} ({lookups / (n * spp):.4f} of lanes x samples) [{smi}]")
+    return dict(res=res, spp=spp, ms=times["whole"], loop_ms=times["loop"],
+                kernels=kernels["whole"], loop_kernels=kernels["loop"], forks=forks,
+                bit_equal=equal, max_diff=max_diff, escape_lookups=lookups)
 
 
 def phase_stream_identity(roles, dev):
@@ -2533,7 +2614,7 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
              sun=True, make=outdoor_panel, iters=10, nee=True),
         # the queue kernel at the other block counts and ray counts of the main path
         dict(name="sample_fused:outdoor_1300", render="outdoor_1300", blocks=61, sun=True,
-             make=outdoor(1300), iters=10),
+             make=outdoor(1300), iters=10, whole_render=((256, 100), (512, 16))),
         dict(name="sample_fused:outdoor_12500", render="outdoor_12500", blocks=586, sun=True,
              make=outdoor(12500), iters=5, res=256),
     ]

@@ -36,10 +36,14 @@
 //            (slot = lane) of each escaping lane (of every lane in record
 //            mode); advances to the new vertex;
 //   trace    the rounds on the sun rays (with sun only).
-// A last pass adds the last sun term and the final emissive term and writes
-// the outputs.  Every trace's (t, tri) equals trace_plain's bit for bit,
-// whatever order the work ran in: the fold is the exact 64-bit atomicMin of
-// (t bits) << 32 | tri.  The wrapper reads nothing back.
+// A last pass adds the last sun term and the final emissive term, then either
+// writes the outputs (one sample: rad, esc_thr, esc_dir) or, given a running
+// sum acc, looks up the sky of each escape (shade::ibl) and adds the sample
+// into acc in the host's order, as csrc/fused_sample.cu's whole-render launch
+// does; a render is then one launch a sample with nothing between them.
+// Every trace's (t, tri) equals trace_plain's bit for bit, whatever order the
+// work ran in: the fold is the exact 64-bit atomicMin of (t bits) << 32 | tri.
+// The wrapper reads nothing back.
 // What bounds it on an H100: FP32 operations, about 45 per (ray, triangle)
 // pair that its traces need, at 67 TFLOP/s; per lane and bounce the state
 // moves ~250 bytes, small beside them.
@@ -90,6 +94,10 @@ struct Params {
   float* rad;
   float* esc_thr;
   float* esc_dir;
+  float* acc;                            // [n, 3] running sum, or null (then rad, esc_*)
+  const float* __restrict__ ibl;         // [ibl_h, ibl_w, 3], with acc
+  int ibl_h, ibl_w, ibl_bilinear;
+  const float* __restrict__ ibl_power;  // [1], with acc
   float* u_rec;   // [mb+1, n, 2]
   int* tri_rec;   // [mb+1, n]
   int* sun_rec;   // [mb+1, n]
@@ -103,11 +111,13 @@ struct Params {
 // and from entry to exit, CUDA block 0's cycles by phase, the rounds that
 // ran with more than one triangle slice and the work items run (added by the
 // scan), the rounds whose select ran with more than one lane a ray (the three
-// slots of bq::Queues split), then the segments of each bounce.
+// slots of bq::Queues split), the lanes whose sky the launch looked up (with
+// acc only), then the segments of each bounce.
 constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
 enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
 constexpr int S_SPLIT = S_PHASE + N_PHASES;
-constexpr int S_LANES = S_SPLIT + 3;
+constexpr int S_LOOKUPS = S_SPLIT + 3;
+constexpr int S_LANES = S_LOOKUPS + 1;
 
 // Thread 0's clock (32 bits: a launch lasts far less than 2^32 cycles) in
 // shared memory, so that timing holds no register through the kernel: its
@@ -335,8 +345,12 @@ __device__ __forceinline__ void resolve_lane(const Params& P, int i, bool in, in
   S.flags[i] = (flags & (EMIT_OK | ESCAPED)) | (live ? LIVE : 0) | (miss ? MISS : 0);
 }
 
-// The last sun term, the final emissive term and the outputs of lane i.
-__device__ __forceinline__ void finish_lane(const Params& P, int i, float sun_power) {
+// The last sun term, the final emissive term and the outputs of lane i: with
+// acc, acc + rad + esc_thr * ibl(esc_dir) * ibl_power in the host's order
+// (csrc/fused_sample.cu's whole-render launch), a lane that never escaped
+// adding rad alone; else rad, esc_thr and esc_dir.  True where it looked up
+// the sky.
+__device__ __forceinline__ bool finish_lane(const Params& P, int i, float sun_power) {
   const int n = P.n;
   const State& S = P.s;
   float thr[3], rad[3];
@@ -350,10 +364,21 @@ __device__ __forceinline__ void finish_lane(const Params& P, int i, float sun_po
 #pragma unroll
     for (int k = 0; k < 3; ++k) rad[k] += thr[k] * rough;
   }
+  const bool esc = flags & ESCAPED;
   float esc_thr[3] = {0.0f, 0.0f, 0.0f}, esc_dir[3] = {0.0f, 0.0f, 1.0f};
-  if (flags & ESCAPED) {
+  if (esc) {
     ld3(S.esc_thr, n, i, esc_thr);
     ld3(S.esc_dir, n, i, esc_dir);
+  }
+  if (P.acc != nullptr) {  // uniform over the launch
+    float e[3] = {0.0f, 0.0f, 0.0f};
+    if (esc) ibl(P.ibl, P.ibl_h, P.ibl_w, P.ibl_bilinear != 0, P.ibl_power[0], esc_dir, e);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float a = __fadd_rn(P.acc[3 * i + k], rad[k]);
+      P.acc[3 * i + k] = esc ? __fadd_rn(a, __fmul_rn(esc_thr[k], e[k])) : a;
+    }
+    return esc;
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -361,6 +386,7 @@ __device__ __forceinline__ void finish_lane(const Params& P, int i, float sun_po
     P.esc_thr[3 * i + k] = esc_thr[k];
     P.esc_dir[3 * i + k] = esc_dir[k];
   }
+  return false;
 }
 
 // Four CUDA blocks an SM, the grid's occupancy: with the bound ptxas keeps
@@ -424,10 +450,14 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
       mark(s_clock, RESOLVE);
     }
   }
-  for (int i = gtid; i < n; i += stride) finish_lane(P, i, sun_power);
+  unsigned lookups = 0;
+  for (int i = gtid; i < n; i += stride) lookups += finish_lane(P, i, sun_power) ? 1u : 0u;
   if (P.stats != nullptr) {
     mark(s_clock, FINISH);
     bq::add_tally(P.stats, tally);
+    lookups = __reduce_add_sync(FULL, lookups);
+    if ((threadIdx.x & 31) == 0 && lookups != 0)
+      atomicAdd(&P.stats[S_LOOKUPS], static_cast<unsigned long long>(lookups));
     if (threadIdx.x == 0) {
       atomicAdd(&P.stats[S_SYNC_CYCLES], static_cast<unsigned long long>(bq::sync_cycles));
       atomicAdd(&P.stats[S_KERNEL_CYCLES],
@@ -490,8 +520,12 @@ extern "C" int fused_queue_grid(int* out) {
 // cudaStream_t passed as void*).  Arguments as fused_sample_launch's, except
 // the features: packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte
 // aligned; scratch of fused_queue_scratch_bytes(n, nb, nee) bytes, 16-byte
-// aligned, in any state.  `stats` may be null, else it receives its
-// max_bounce + 17 slots (see S_LANES; added).  Returns the cudaError_t of
+// aligned, in any state; and `acc`: null, and the sample goes to rad, esc_thr
+// and esc_dir (and the records), or an [n, 3] f32 running sum that the sample
+// is added into, its sky looked up in the IBL image `ibl` [ibl_h, ibl_w, 3]
+// f32 with `ibl_power` [1] and the lookup's filter (no record; rad, esc_thr
+// and esc_dir unused).  `stats` may be null, else it receives its
+// max_bounce + 18 slots (see S_LANES; added).  Returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,
@@ -500,7 +534,8 @@ extern "C" int fused_queue_launch(
     const float* sun_power, const float* packed, const float* bounds, int tp, int tile, int nb,
     const float* attrs, const float* light_v0, const float* light_v1, const float* light_v2,
     const float* light_n, const float* light_power, const float* light_area, int n_lights,
-    const float* uniforms, const unsigned* key, int sample, void* scratch, float* rad,
+    const float* uniforms, const unsigned* key, int sample, void* scratch, float* acc,
+    const float* ibl, int ibl_h, int ibl_w, int ibl_bilinear, const float* ibl_power, float* rad,
     float* esc_thr, float* esc_dir, float* u_rec, int* tri_rec, int* sun_rec,
     unsigned long long* stats, void* stream) {
   if (n <= 0) return 0;
@@ -511,7 +546,9 @@ extern "C" int fused_queue_launch(
                          light_area != nullptr;
   if ((uniforms == nullptr && key == nullptr) || (nee && !lights_ok) ||
       (record && (nee || u_rec == nullptr || tri_rec == nullptr ||
-                  (sun_enabled && sun_rec == nullptr))))
+                  (sun_enabled && sun_rec == nullptr))) ||
+      (acc != nullptr &&
+       (record || ibl == nullptr || ibl_power == nullptr || ibl_h <= 0 || ibl_w <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout l = layout(n, nb, nee != 0);
   char* s = static_cast<char*>(scratch);
@@ -547,6 +584,12 @@ extern "C" int fused_queue_launch(
   P.rad = rad;
   P.esc_thr = esc_thr;
   P.esc_dir = esc_dir;
+  P.acc = acc;
+  P.ibl = ibl;
+  P.ibl_h = ibl_h;
+  P.ibl_w = ibl_w;
+  P.ibl_bilinear = ibl_bilinear;
+  P.ibl_power = ibl_power;
   P.u_rec = u_rec;
   P.tri_rec = tri_rec;
   P.sun_rec = sun_rec;

@@ -4,8 +4,9 @@
 // term as ops/fused.sample_fused_plain: the random draws, the NEE light point
 // and its contribution, Lambert / GGX / tint-glass bounce sampling
 // (ops/bsdf.sample_bounce) and the sun's glass tint; and the escape's lat-long
-// IBL lookup (ops/envmap.sample_ibl) for csrc/fused_sample.cu's whole-render
-// launch.
+// IBL lookup (ops/envmap.sample_ibl) for the launches that add the samples up
+// themselves: csrc/fused_sample.cu's whole-render launch and
+// csrc/fused_queue.cu's sample launch given a running sum.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

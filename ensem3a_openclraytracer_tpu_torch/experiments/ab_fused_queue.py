@@ -16,7 +16,9 @@ with ``_build``'s nvcc flags; its ptxas registers, stack and spills and its
 launch grids are printed.  Both kernels keep their C interface across the
 sources (a stats buffer of :data:`STATS_SLOTS` slots takes any version's
 2b counters, printed raw); ``pairs.cu``'s entry points take no ``k``, so a
-source whose entry points do is not a match.
+source whose entry points do is not a match, and ``fused_queue_launch``
+takes a running sum and the sky after its scratch, so a source whose entry
+point does not is not one either.
 
 2b: one sample at each of :data:`SHAPES` (``cell`` is ``outdoor15k.render``'s:
 outdoor_1300 at 256^2, 4 bounces, sun, the kernel's own Philox stream;
@@ -85,7 +87,8 @@ def build(label: str, csrc: Path) -> dict:
         libs[name] = ctypes.CDLL(str(out))
     q = libs["fused_queue"]
     q.fused_queue_launch.argtypes = (fu._ARGTYPES_HEAD + fu._ARGTYPES_FEAT + fu._ARGTYPES_MID
-                                     + [ctypes.c_void_p] + fu._ARGTYPES_TAIL)
+                                     + [ctypes.c_void_p] * 2 + fu._ARGTYPES_SKY
+                                     + fu._ARGTYPES_TAIL)
     q.fused_queue_launch.restype = ctypes.c_int
     q.fused_queue_scratch_bytes.argtypes = [ctypes.c_int] * 3
     q.fused_queue_scratch_bytes.restype = ctypes.c_longlong
@@ -116,7 +119,8 @@ def sample(lib, args, key, nee, lights, stats=None):
     tail = tail[:6] + (None if stats is None else stats.data_ptr(),) + tail[7:]
     scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
                           dtype=torch.uint8, device=run.dev)
-    err = lib.fused_queue_launch(*run.head, *run.feat, *run.mid, scratch.data_ptr(), *tail)
+    err = lib.fused_queue_launch(*run.head, *run.feat, *run.mid, scratch.data_ptr(), None,
+                                 None, 0, 0, 0, None, *tail)  # no running sum
     if err != 0:
         raise RuntimeError(f"fused_queue launch failed: CUDA error {err}")
     return out

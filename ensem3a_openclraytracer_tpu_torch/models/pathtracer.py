@@ -21,11 +21,13 @@ additions):
   * output: mean over spp (``render_image``/``render_scene`` clamp).
 
 Engines: the scan estimator above, or the fused sample engine
-(``ops/fused``): on a one-block scene one CUDA kernel launch runs the
-whole render (``render_fused_resident``: every sample's bounce loop, the
-IBL of each escape and the sum over samples), on more blocks one launch
-per sample runs its bounce loop (``sample_fused``) and the IBL and the sum
-follow outside.  ``fused=None`` picks the fused engine for forward renders
+(``ops/fused``), which adds the samples up inside its kernels: on a
+one-block scene one CUDA kernel launch runs the whole render
+(``render_fused_resident``: every sample's bounce loop, the IBL of each
+escape and the sum over samples), on more blocks one launch per sample
+runs its bounce loop, looks up the IBL of its escapes and adds it into
+the running sum (``render_fused_queue``), with nothing between the
+launches.  ``fused=None`` picks the fused engine for forward renders
 on the card, without explicit uniforms, MIS, refraction or a tensor that
 needs a gradient, at any number of triangle blocks
 (:func:`fused_by_default`); the CPU stays on the scan path.
@@ -178,7 +180,10 @@ def radiance_for_rays(
     its plain version even on the card (a reference for the kernels).
     ``key`` (``[2]`` int32, ``ops/rng.key_from_generator``) may stand in
     for ``gen``: the key words that ``gen`` would give.  Explicit
-    ``uniforms`` take the place of both."""
+    ``uniforms`` take the place of both.  The fused engine renders every
+    sample in one call, with the IBL of the escapes and the sum inside the
+    kernels: ``render_fused_resident`` (one block), ``render_fused_queue``
+    (more), or ``render_fused_plain`` for ``engine="plain"``."""
     if engine not in ("kernel", "plain"):
         raise ValueError(f"unknown engine {engine!r}")
     if key is not None and gen is not None:
@@ -225,19 +230,13 @@ def radiance_for_rays(
         # the Morton order of their primary hit (one sort for every sample)
         f_args, order = fused_ops.fused_args(geom, materials, env, ray_o, ray_d, primary_hit,
                                              primary_surf)
-        kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, nee=nee, lights=lights)
-        if resident(geom.feats):  # the whole render in one launch
-            run = (fused_ops.render_fused_plain if engine == "plain"
-                   else fused_ops.render_fused_resident)
-            acc = run(*f_args, key, 0, spp, ibl=env.ibl.contiguous(), ibl_power=env.ibl_power,
-                      ibl_bilinear=ibl_bilinear, **kw)
-        else:  # one launch per sample; the IBL and the sum here
-            run = fused_ops.sample_fused_plain if engine == "plain" else fused_ops.sample_fused
-            stats = fused_ops.render_stats(dev, max_bounce).zero_()  # 2b's counters, one buffer
-            acc = torch.zeros_like(ray_d)
-            for s in range(spp):
-                rad, esc_thr, esc_dir = run(*f_args, key, s, stats=stats, **kw)
-                acc = acc + rad + esc_thr * env_radiance(esc_dir)
+        one = resident(geom.feats)  # the whole render in one launch, else one a sample
+        run = (fused_ops.render_fused_plain if engine == "plain" else
+               fused_ops.render_fused_resident if one else fused_ops.render_fused_queue)
+        stats = None if one else fused_ops.render_stats(dev, max_bounce).zero_()  # 2b's counters
+        acc = run(*f_args, key, 0, spp, ibl=env.ibl.contiguous(), ibl_power=env.ibl_power,
+                  ibl_bilinear=ibl_bilinear, max_bounce=max_bounce, sun_enabled=sun_enabled,
+                  nee=nee, lights=lights, stats=stats)
         if order is not None:
             acc = torch.empty_like(acc).index_copy_(0, order, acc)
         return acc / spp + primary_miss_rad

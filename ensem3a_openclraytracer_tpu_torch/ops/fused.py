@@ -14,18 +14,21 @@ closest hit (``t > MIN_HIT_DIST``, the answer of ``trace_plain``):
   shared memory.  :func:`render_fused_resident` runs a whole render in one
   launch (every sample, the IBL of each escape and the sum over samples);
   :func:`sample_fused_blocks` runs one sample (and record mode);
-* ``csrc/fused_queue.cu`` (:func:`sample_fused_queue`, scenes of more
-  blocks): one cooperative launch per sample, the rays' state in device
-  memory between the traces, each trace the block-queue rounds of
-  ``ops/pairs`` over the whole batch.
+* ``csrc/fused_queue.cu``, scenes of more blocks: one cooperative launch
+  per sample, the rays' state in device memory between the traces, each
+  trace the block-queue rounds of ``ops/pairs`` over the whole batch.
+  :func:`render_fused_queue` runs a whole render as one launch per sample,
+  each looking up the IBL of its escapes and adding the sample into the
+  running sum in the kernel; :func:`sample_fused_queue` runs one sample
+  (and record mode).
 
 :func:`sample_fused` picks between the per-sample kernels by
 ``ops/closest_hit.resident``; :func:`sample_fused_plain` and
 :func:`render_fused_plain` compute the same functions in plain torch.
 
-A sample's kernel writes ``(rad, esc_thr, esc_dir)``: a path escapes at
+A one-sample launch writes ``(rad, esc_thr, esc_dir)``: a path escapes at
 most once, and its radiance is ``rad + esc_thr * ibl(esc_dir)``, which the
-caller adds (the whole-render launch adds it in the kernel).
+caller adds; the render launches of both kernels add it in the kernel.
 
 Random numbers: an explicit ``uniforms [mb + 1, N, n_u]`` (``n_u`` = 2,
 or 5 with NEE: ``u1, u2`` for the bounce, ``u3, u4, u5`` for the light
@@ -88,7 +91,8 @@ N_ATTR = 8
 # ``csrc/fused_sample.cu`` (a whole render through
 # :func:`render_fused_resident`, or one sample through
 # :func:`sample_fused_blocks`), ``sample_fused_queue`` counts
-# ``csrc/fused_queue.cu``.  Only a launch on the card counts.
+# ``csrc/fused_queue.cu`` (one a sample, through :func:`sample_fused_queue`
+# or :func:`render_fused_queue`).  Only a launch on the card counts.
 LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_sample_kernel"),
                              "sample_fused_queue": ("fused_queue_kernel",)})
 
@@ -103,15 +107,18 @@ LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_samp
 # sun-trace rounds, finish); the rounds that split their work items into
 # more than one triangle slice and the work items run, one per slice
 # (``ops/pairs.slices``); the rounds whose select gave each ray a group of
-# more than one lane (``ops/pairs.select_lanes``); last the segments of each
-# bounce, whose number follows ``max_bounce``.  Cycles are one SM's clock:
-# only their ratios are read.  The plain version counts the same, with no
-# syncs, no cycles, neither of the two slice counts and no grouped rounds.
+# more than one lane (``ops/pairs.select_lanes``); the lanes whose sky a
+# render launch looked up (:func:`render_fused_queue`; a one-sample launch
+# looks up none); last the segments of each bounce, whose number follows
+# ``max_bounce``.  Cycles are one SM's clock: only their ratios are read.
+# The plain version counts the same, with no syncs, no cycles, neither of
+# the two slice counts and no grouped rounds.
 QUEUE_STATS = ("pairs", "stagings", "rounds", "slabs", "syncs", "segments", "sync_cycles",
                "kernel_cycles", "shade_cycles", "bounce_trace_cycles", "resolve_cycles",
                "sun_trace_cycles", "finish_cycles", "split_rounds", "items",
-               "coop_select_rounds")
+               "coop_select_rounds", "escape_lookups")
 SEGMENTS = QUEUE_STATS.index("segments")
+ESCAPE_LOOKUPS = QUEUE_STATS.index("escape_lookups")
 
 
 def queue_stats_fields(max_bounce: int) -> tuple:
@@ -223,7 +230,8 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
                        key: Optional[torch.Tensor] = None, sample: int = 0, *, max_bounce: int,
                        sun_enabled: bool, uniforms: Optional[torch.Tensor] = None,
                        nee: bool = False, lights=None, record: bool = False,
-                       stats: Optional[torch.Tensor] = None, traces: Optional[list] = None):
+                       stats: Optional[torch.Tensor] = None, traces: Optional[list] = None,
+                       escaped: Optional[list] = None):
     """:func:`sample_fused` in plain torch on the inputs' device, built
     from the scan estimator's ops; with ``uniforms=None`` it draws the
     kernel's stream with ``uniforms_plain``.
@@ -241,7 +249,8 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     ``trace_plain`` (``stats`` untouched).  Both equal ``trace_plain`` bit
     for bit.
     ``traces`` (a list, optional) receives each trace loop's ``(o, d,
-    hit)``."""
+    hit)``; ``escaped`` (a list, optional) the lanes that escaped, ``[N]``
+    bool."""
     n_rays = primary_p.shape[0]
     n_u = _check_args(max_bounce, uniforms, key, nee, lights, record, n_rays)
     if uniforms is None:
@@ -260,6 +269,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     esc_dir = torch.zeros_like(p)
     esc_dir[:, 2] = 1.0  # the caller's IBL lookup stays NaN-free
     emit_ok = torch.ones_like(live)
+    esc = torch.zeros_like(live)
     zero3 = torch.zeros_like(p)
     mb1 = max_bounce + 1
     if record:
@@ -325,6 +335,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         else:
             h = trace_loop(p, bdir, act)
         miss = live & ~h.hit
+        esc = esc | miss
         esc_thr = select(miss, thr, esc_thr)
         esc_dir = select(miss, bdir, esc_dir)
         if sun_enabled:  # the sun shadow ray of an escaping path, tinted by glass
@@ -357,6 +368,8 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         stats[:4] += counts.to(stats.device)
         stats[SEGMENTS] += sum(lanes)
         stats[len(QUEUE_STATS):] += torch.tensor(lanes, dtype=torch.int64, device=stats.device)
+    if escaped is not None:
+        escaped.append(esc)
     if record:
         return rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
     return rad, esc_thr, esc_dir
@@ -375,7 +388,10 @@ def render_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     :func:`sample_fused_plain`'s samples, added in the order the estimator
     adds them (``acc + rad + ...`` from zero).  ``uniforms``, when given,
     is ``[ns, mb + 1, N, n_u]``, else sample ``s`` draws the Philox stream
-    of ``key`` for ``s``.  ``stats`` and ``traces`` go to every sample.
+    of ``key`` for ``s``.  ``stats`` and ``traces`` go to every sample; on
+    a multi-block scene ``stats`` also counts the escaped lanes, whose sky
+    is looked up, under ``escape_lookups`` (:data:`QUEUE_STATS`), as
+    :func:`render_fused_queue`'s kernel does.
     The estimator renders from ``s0 = 0``; an offset renders a later run of
     samples of the same stream, as a render split into sample chunks (the
     replay estimator's) draws them."""
@@ -384,12 +400,16 @@ def render_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
             primary_live, in_dir, sun_dir, sun_power)
     acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=primary_p.device)
+    escaped = []
     for j in range(ns):
         rad, esc_thr, esc_dir = sample_fused_plain(
             *args, key, s0 + j, max_bounce=max_bounce, sun_enabled=sun_enabled,
             uniforms=None if uniforms is None else uniforms[j], nee=nee, lights=lights,
-            stats=stats, traces=traces)
+            stats=stats, traces=traces, escaped=escaped)
         acc = acc + rad + esc_thr * (sample_ibl(ibl, esc_dir, bilinear=ibl_bilinear) * ibl_power)
+    if stats is not None and not resident(feats):
+        for esc in escaped:
+            stats[ESCAPE_LOOKUPS] += esc.sum().to(stats.device)
     return acc
 
 
@@ -522,6 +542,8 @@ _ARGTYPES_TAIL = (
     [ctypes.c_void_p] * 6  # rad, esc_thr, esc_dir, u_rec, tri_rec, sun_rec
     + [ctypes.c_void_p] * 2  # stats, stream
 )
+_ARGTYPES_SKY = ([ctypes.c_void_p] + [ctypes.c_int] * 3  # ibl, h, w, bilinear
+                 + [ctypes.c_void_p])  # ibl_power
 _PLAN_KEYS = ("chunks", "per_chunk", "grid", "blocks_per_sm", "sms", "registers", "threads",
               "smem_bytes", "local_bytes", "items")
 
@@ -540,7 +562,7 @@ def _sample_lib():
         _ARGTYPES_HEAD[:4] + _ARGTYPES_HEAD[5:]  # no record
         + _ARGTYPES_FEAT + _ARGTYPES_MID
         + [ctypes.c_int]  # ns
-        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]  # ibl, h, w, bilinear, power
+        + _ARGTYPES_SKY
         + [ctypes.c_int] * 3  # chunks, per, grid
         + [ctypes.c_void_p] * 5)  # partial, ctrl, out, stats, stream
     lib.fused_render_launch.restype = ctypes.c_int
@@ -557,7 +579,8 @@ def _queue_lib():
 
     lib = _build.load("fused_queue")
     lib.fused_queue_launch.argtypes = (_ARGTYPES_HEAD + _ARGTYPES_FEAT + _ARGTYPES_MID
-                                       + [ctypes.c_void_p] + _ARGTYPES_TAIL)  # scratch
+                                       + [ctypes.c_void_p] * 2  # scratch, acc
+                                       + _ARGTYPES_SKY + _ARGTYPES_TAIL)
     lib.fused_queue_launch.restype = ctypes.c_int
     lib.fused_queue_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.fused_queue_scratch_bytes.restype = ctypes.c_longlong
@@ -646,7 +669,8 @@ def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     ``stats`` (int64 ``[queue_stats_len(max_bounce)]``, optional) receives
     :data:`QUEUE_STATS` and the segments of each bounce.  Rays on the CPU
     take :func:`sample_fused_plain`, whose counts on a multi-block scene
-    are the kernel's (no syncs, no cycles, no slices, no grouped selects)."""
+    are the kernel's (no syncs, no cycles, no slices, no grouped selects).
+    :func:`render_fused_queue` adds samples up in the same kernel."""
     kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
               lights=lights, record=record)
     args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
@@ -655,17 +679,75 @@ def sample_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         return sample_fused_plain(*args, stats=stats, **kw)
     run = _Launch(*args, stats=stats, stats_slots=queue_stats_len(max_bounce), **kw)
     out, tail = run.tail(record)
+    if run.n:
+        _queue_launch(run, nee, [run.mid], None, (None, 0, 0, 0, None), tail)
+    return out
+
+
+def _queue_launch(run: _Launch, nee: bool, mids: list, acc, sky: tuple, tail: tuple) -> None:
+    """One launch of ``csrc/fused_queue.cu`` for each of ``mids`` (a
+    sample's ``_Launch.mid``), in order, on one scratch: into the running
+    sum ``acc`` with the ``sky`` arguments, or (``acc`` None) to ``tail``'s
+    outputs."""
     slots = run.n * (2 if nee else 1)  # a lane's NEE shadow ray shares the bounce trace
     if slots * PAIRS_K >= 2 ** 31:
         raise ValueError(f"{slots} rays x {PAIRS_K} picks overflow the kernel's int32 queue")
-    if run.n:
-        lib = _queue_lib()
-        scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
-                              dtype=torch.uint8, device=run.dev)
-        err = lib.fused_queue_launch(*run.head, *run.feat, *run.mid, scratch.data_ptr(), *tail)
+    lib = _queue_lib()
+    scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
+                          dtype=torch.uint8, device=run.dev)
+    acc_ptr = None if acc is None else acc.data_ptr()
+    for mid in mids:
+        err = lib.fused_queue_launch(*run.head, *run.feat, *mid, scratch.data_ptr(), acc_ptr,
+                                     *sky, *tail)
         if err != 0:
             raise RuntimeError(f"fused_queue kernel launch failed: CUDA error {err}")
         LAUNCHES["sample_fused_queue"] += 1
+
+
+def _sky(ibl: torch.Tensor, ibl_power: torch.Tensor, ibl_bilinear: bool, dev) -> tuple:
+    """The checked IBL arguments of a render launch: ``(ibl, h, w,
+    bilinear, ibl_power)`` for an ``[h, w, 3]`` f32 image and a power of
+    one value."""
+    ibl_power = ibl_power.reshape(1)
+    _check(ibl_power, "ibl_power", (1,), torch.float32, dev)
+    if ibl.dim() != 3 or ibl.shape[-1] != 3:
+        raise ValueError(f"ibl: want [H, W, 3], got {tuple(ibl.shape)}")
+    _check(ibl, "ibl", tuple(ibl.shape), torch.float32, dev)
+    return ibl.data_ptr(), ibl.shape[0], ibl.shape[1], int(ibl_bilinear), ibl_power.data_ptr()
+
+
+def render_fused_queue(feats: TriFeatures, tri_attrs, primary_p, primary_n, primary_mtype,
+                       primary_color, primary_rough, primary_live, in_dir, sun_dir, sun_power,
+                       key: Optional[torch.Tensor] = None, s0: int = 0, ns: int = 1, *,
+                       ibl: torch.Tensor, ibl_power: torch.Tensor, ibl_bilinear: bool = True,
+                       max_bounce: int, sun_enabled: bool,
+                       uniforms: Optional[torch.Tensor] = None, nee: bool = False,
+                       lights=None, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`render_fused_plain` through ``csrc/fused_queue.cu`` for rays
+    on the card: ``[N, 3]`` zeroed once, then one launch per sample ``s0 +
+    j`` (drawing what :func:`sample_fused_queue` draws for it) that looks up
+    the IBL of each escape and adds ``rad + esc_thr * ibl(esc_dir) *
+    ibl_power`` into the sum in place, in the host's order, so nothing runs
+    between the launches.  ``stats`` (int64 ``[queue_stats_len(max_bounce)]``,
+    optional) receives every launch's :data:`QUEUE_STATS`, the lanes whose
+    sky was looked up among them.  Rays on the CPU take
+    :func:`render_fused_plain`.  ``s0`` is as :func:`render_fused_plain`'s."""
+    kw = dict(max_bounce=max_bounce, sun_enabled=sun_enabled, uniforms=uniforms, nee=nee,
+              lights=lights)
+    args = (feats, tri_attrs, primary_p, primary_n, primary_mtype, primary_color, primary_rough,
+            primary_live, in_dir, sun_dir, sun_power, key, s0)
+    if primary_p.device.type == "cpu":
+        return render_fused_plain(*args, ns, ibl=ibl, ibl_power=ibl_power,
+                                  ibl_bilinear=ibl_bilinear, stats=stats, **kw)
+    run = _Launch(*args, record=False, stats=stats, ns=ns,
+                  stats_slots=queue_stats_len(max_bounce), **kw)
+    sky = _sky(ibl, ibl_power, ibl_bilinear, run.dev)
+    out = torch.zeros((run.n, 3), dtype=torch.float32, device=run.dev)
+    if run.n:
+        ptr = lambda x: None if x is None else x.data_ptr()
+        mids = [run.mid[:-3] + (ptr(None if uniforms is None else uniforms[j]), run.mid[-2],
+                                s0 + j) for j in range(ns)]
+        _queue_launch(run, nee, mids, out, sky, (None,) * 6 + (ptr(stats), run.stream))
     return out
 
 
@@ -695,11 +777,7 @@ def render_fused_resident(feats: TriFeatures, tri_attrs, primary_p, primary_n, p
         return render_fused_plain(*args, ns, ibl=ibl, ibl_power=ibl_power,
                                   ibl_bilinear=ibl_bilinear, stats=stats, **kw)
     run = _Launch(*args, record=False, stats=stats, ns=ns, **kw)
-    ibl_power = ibl_power.reshape(1)
-    _check(ibl_power, "ibl_power", (1,), torch.float32, run.dev)
-    if ibl.dim() != 3 or ibl.shape[-1] != 3:
-        raise ValueError(f"ibl: want [H, W, 3], got {tuple(ibl.shape)}")
-    _check(ibl, "ibl", tuple(ibl.shape), torch.float32, run.dev)
+    sky = _sky(ibl, ibl_power, ibl_bilinear, run.dev)
     out = torch.empty((run.n, 3), dtype=torch.float32, device=run.dev)
     if run.n:
         plan = render_plan(run.n, ns)
@@ -709,8 +787,7 @@ def render_fused_resident(feats: TriFeatures, tri_attrs, primary_p, primary_n, p
         ctrl = torch.zeros(1 + (run.n + 127) // 128, dtype=torch.int32, device=run.dev)
         head = run.head[:4] + run.head[5:]  # no record
         err = _sample_lib().fused_render_launch(
-            *head, *run.feat, *run.mid, int(ns), ibl.data_ptr(), ibl.shape[0], ibl.shape[1],
-            int(ibl_bilinear), ibl_power.data_ptr(), chunks, plan["per_chunk"], plan["grid"],
+            *head, *run.feat, *run.mid, int(ns), *sky, chunks, plan["per_chunk"], plan["grid"],
             None if partial is None else partial.data_ptr(), ctrl.data_ptr(), out.data_ptr(),
             None if stats is None else stats.data_ptr(), run.stream)
         if err != 0:

@@ -3,7 +3,10 @@ on the card: the resident closest-hit kernel (``trace_resident`` against
 ``trace_plain``) on one-block scenes, the one-block fused sample
 kernel (``sample_fused`` against ``sample_fused_plain``, record mode, and
 its whole-render launch ``render_fused_resident`` against
-``render_fused_plain`` and against one launch per sample), the Philox
+``render_fused_plain`` and against one launch per sample), the
+multi-block render into a running sum (``render_fused_queue`` against
+``render_fused_plain``, against one-sample launches with the IBL and the
+sum on the host, and a profiled multi-block replay's kernel count), the Philox
 kernel (``uniforms`` against ``uniforms_plain``) and the two prototype
 closest-hit kernels
 (``trace_grouped`` and ``trace_compact`` against their plain versions,
@@ -291,6 +294,134 @@ def test_render_kernel_matches_per_sample_launches(cuda, role):
     u = torch.stack([rng.uniforms(key, (4, n, 5 if kw["nee"] else 2), s) for s in range(3)])
     assert torch.equal(fu.render_fused_resident(*args, key, 0, 3, **kw),
                        fu.render_fused_resident(*args, None, 0, 3, uniforms=u, **kw))
+
+
+RENDER_QUEUE = {  # role -> (scene maker, sun, nee, bilinear IBL): 2b's render into a sum
+    "outdoor_47_sun_ibl": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, device=dev), True,
+                           False, True),
+    "outdoor_47_sun_ibl_nearest": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, device=dev),
+                                   True, False, False),
+    "outdoor_panel_nee": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, emissive_panel=True,
+                                                            device=dev), True, True, True),
+}
+
+
+def _queue_render_kw(g, m, e, role):
+    _, sun, nee, bilinear = RENDER_QUEUE[role]
+    return dict(ibl=e.ibl, ibl_power=e.ibl_power, ibl_bilinear=bilinear, max_bounce=3,
+                sun_enabled=sun, nee=nee, lights=build_light_pack(g, m) if nee else None)
+
+
+@pytest.mark.parametrize("role", sorted(RENDER_QUEUE))
+def test_queue_render_kernel_matches_plain(cuda, role):
+    """2b's render (``render_fused_queue``: one launch a sample, the IBL and
+    the sum inside it) against ``render_fused_plain`` at 64^2, 2 spp, on
+    explicit uniforms: one launch a sample, pixel forks below 2 %, median
+    |diff| below 1e-5, counts (the escapes looked up among them) within
+    1 % of the plain version's."""
+    g, m, e, args = _fused_inputs(RENDER_QUEUE[role][0], cuda)
+    assert g.feats.block_bounds.shape[0] >= 2 and not ch.resident(g.feats)
+    kw = _queue_render_kw(g, m, e, role)
+    n, spp = args[2].shape[0], 2
+    rng_ = np.random.default_rng(19)
+    u = torch.as_tensor(rng_.random((spp, 4, n, 5 if kw["nee"] else 2)).astype(np.float32),
+                        device=cuda)
+    before = dict(fu.LAUNCHES)
+    stats = torch.zeros(fu.queue_stats_len(3), dtype=torch.int64, device=cuda)
+    k = fu.render_fused_queue(*args, None, 0, spp, uniforms=u, stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES == {**before, "sample_fused_queue": before["sample_fused_queue"] + spp}
+    plain_stats = torch.zeros_like(stats)
+    p = fu.render_fused_plain(*args, None, 0, spp, uniforms=u, stats=plain_stats, **kw)
+    assert k.shape == (n, 3) and bool(torch.isfinite(k).all()) and float(k.mean()) > 0.0
+    diff = (k - p).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) < 0.02
+    assert float(diff.median()) < 1e-5
+    counted = [0, 1, 2, 3, fu.SEGMENTS, fu.ESCAPE_LOOKUPS] + list(
+        range(len(fu.QUEUE_STATS), len(stats)))
+    ks, ps = stats[counted].double(), plain_stats[counted].double()
+    assert bool((ps > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats, plain_stats)
+
+
+@pytest.mark.parametrize("role", sorted(RENDER_QUEUE))
+def test_queue_render_kernel_matches_per_sample_launches(cuda, role):
+    """On the kernel's own Philox stream, 2b's render of 16 samples against
+    16 one-sample launches (no running sum: they write ``rad``,
+    ``esc_thr`` and ``esc_dir`` and look up no sky) plus the IBL and the
+    sum on the host: 0 pixel forks at 1e-3, one launch a sample either way;
+    one sample from an offset the same; the render draws what the RNG
+    kernel's stream fed in draws; and record mode still writes what the
+    plain recorder writes."""
+    g, m, e, args = _fused_inputs(RENDER_QUEUE[role][0], cuda)
+    kw = _queue_render_kw(g, m, e, role)
+    n, spp, mb = args[2].shape[0], 16, kw["max_bounce"]
+    key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(23), cuda)
+    s_kw = {k: kw[k] for k in ("max_bounce", "sun_enabled", "nee", "lights")}
+    env = lambda d: sample_ibl(e.ibl, d, bilinear=kw["ibl_bilinear"]) * e.ibl_power
+    fields = fu.queue_stats_fields(mb)
+    before = dict(fu.LAUNCHES)
+    one_stats = torch.zeros(len(fields), dtype=torch.int64, device=cuda)
+    acc = torch.zeros((n, 3), device=cuda)
+    for s in range(spp):
+        rad, esc_thr, esc_dir = fu.sample_fused_queue(*args, key, s, stats=one_stats, **s_kw)
+        acc = acc + rad + esc_thr * env(esc_dir)
+    assert fu.LAUNCHES["sample_fused_queue"] == before["sample_fused_queue"] + spp
+    stats = torch.zeros_like(one_stats)
+    whole = fu.render_fused_queue(*args, key, 0, spp, stats=stats, **kw)
+    assert fu.LAUNCHES["sample_fused_queue"] == before["sample_fused_queue"] + 2 * spp
+    assert int(((whole - acc).abs().amax(dim=-1) > 1e-3).sum()) == 0
+    assert float(whole.mean()) > 0.0
+    named, one_named = (dict(zip(fields, x.tolist())) for x in (stats, one_stats))
+    assert one_named["escape_lookups"] == 0 < named["escape_lookups"] <= spp * n
+    one = fu.render_fused_queue(*args, key, 5, 1, **kw)
+    rad, esc_thr, esc_dir = fu.sample_fused_queue(*args, key, 5, **s_kw)
+    assert int(((one - (rad + esc_thr * env(esc_dir))).abs().amax(dim=-1) > 1e-3).sum()) == 0
+    u = torch.stack([rng.uniforms(key, (mb + 1, n, 5 if kw["nee"] else 2), s) for s in range(3)])
+    assert torch.equal(fu.render_fused_queue(*args, key, 0, 3, **kw),
+                       fu.render_fused_queue(*args, None, 0, 3, uniforms=u, **kw))
+    if not kw["nee"]:  # record mode is BSDF-only
+        rk = fu.sample_fused_queue(*args, key, 1, record=True, **s_kw)
+        rp = fu.sample_fused_plain(*args, key, 1, record=True, **s_kw)
+        assert torch.equal(rk[3], rp[3])
+        for a, b in zip(rk[4:], rp[4:]):
+            assert float((a == b).float().mean()) >= 0.995
+        diff = (rk[0] + rk[1] * env(rk[2]) - rp[0] - rp[1] * env(rp[2])).abs().amax(dim=-1)
+        assert float((diff > 1e-3).float().mean()) < 0.02 and float(diff.median()) < 1e-5
+
+
+def test_multi_block_render_replay_runs_one_kernel_a_sample(cuda):
+    """Profiled ``render_radiance_jit`` replays on 61 blocks at 2 and at 8
+    samples run 2b once a sample and nothing else a sample: besides 2b's
+    launches they run the same device kernels, give or take the few that
+    a profiler's window misses at its edges (one sample of the per-sample
+    loop that the sky lookups and the sum inside 2b replaced ran ~59), and
+    each replay renders what its eager call does."""
+    from ensem3a_openclraytracer_tpu_torch.models.pathtracer import (
+        render_radiance,
+        render_radiance_jit,
+    )
+
+    g, m, e, c = tt.make_outdoor_scene(n_cubes=1300, device=cuda)
+    assert g.feats.block_bounds.shape[0] == 61
+    gen = lambda: torch.Generator(device=cuda).manual_seed(5)
+    counts = {}
+    for spp in (2, 8):
+        kw = dict(height=128, width=128, spp=spp, max_bounce=4, sun_enabled=True)
+        first = render_radiance_jit(g, m, e, c, gen(), **kw)  # warms up and captures
+        others = []
+        for _ in range(2):
+            with launches.trace() as prof:
+                replay = render_radiance_jit(g, m, e, c, gen(), **kw)
+            kernels = [ev.name() for ev in prof.profiler.kineto_results.events()
+                       if ev.device_type() == torch.autograd.DeviceType.CUDA
+                       and not ev.is_user_annotation()
+                       and not ev.name().startswith(("Memcpy", "Memset"))]
+            assert launches.count_kernels(kernels)["sample_fused_queue"] == spp
+            assert torch.equal(first, replay)
+            others.append(len(kernels) - spp)
+        assert torch.equal(replay, render_radiance(g, m, e, c, gen(), **kw))
+        counts[spp] = max(others)
+    assert abs(counts[8] - counts[2]) <= 5, counts
 
 
 def test_in_kernel_stream_matches_rng_kernel(cuda):
