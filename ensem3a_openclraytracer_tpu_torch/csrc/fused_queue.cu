@@ -111,13 +111,18 @@ struct Params {
 // and from entry to exit, CUDA block 0's cycles by phase, the rounds that
 // ran with more than one triangle slice and the work items run (added by the
 // scan), the rounds whose select ran with more than one lane a ray (the three
-// slots of bq::Queues split), the lanes whose sky the launch looked up (with
-// acc only), then the segments of each bounce.
+// slots of bq::Queues split), the NEE shadow rays listed, the lanes whose sky
+// the launch looked up (with acc only), then the segments of each bounce.
 constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
 enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
 constexpr int S_SPLIT = S_PHASE + N_PHASES;
-constexpr int S_LOOKUPS = S_SPLIT + 3;
+constexpr int S_NEE_RAYS = S_SPLIT + 3;
+constexpr int S_LOOKUPS = S_NEE_RAYS + 1;
 constexpr int S_LANES = S_LOOKUPS + 1;
+
+// The NEE shadow rays this CUDA block listed (with stats), in shared memory
+// as bq::sync_cycles is, so the count holds no register.
+__shared__ unsigned nee_listed;
 
 // Thread 0's clock (32 bits: a launch lasts far less than 2^32 cycles) in
 // shared memory, so that timing holds no register through the kernel: its
@@ -147,15 +152,16 @@ __device__ __forceinline__ void st3(float* a, int n, int i, const float v[3]) {
 
 // Lists ray (o, d) in slot `slot` for the next trace where `take`: no hit and
 // no cursor yet, and a place in live list 0.  Every lane of the warp calls it.
-__device__ __forceinline__ void list_ray(const Params& P, bool take, int slot, const float o[3],
-                                         const float d[3]) {
+// Returns the warp's rays listed.
+__device__ __forceinline__ int list_ray(const Params& P, bool take, int slot, const float o[3],
+                                        const float d[3]) {
   const unsigned m = __ballot_sync(FULL, take);
-  if (m == 0) return;
+  if (m == 0) return 0;
   const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
   int first = 0;
   if (lane == leader) first = atomicAdd(&P.q.ctrl->live[0], __popc(m));
   first = __shfl_sync(FULL, first, leader);
-  if (!take) return;
+  if (!take) return __popc(m);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     P.ray_o[3 * slot + k] = o[k];
@@ -164,6 +170,7 @@ __device__ __forceinline__ void list_ray(const Params& P, bool take, int slot, c
   P.q.best[slot] = bq::hit_key(ch::MAX_DIST, 0);
   P.q.cursor[slot] = bq::NONE;
   P.q.live[first + __popc(m & ((1u << lane) - 1u))] = slot;
+  return __popc(m);
 }
 
 // The traced hit of a listed slot, with the miss rule of trace_plain.
@@ -262,7 +269,9 @@ __device__ __forceinline__ void shade_lane(const Params& P, int i, bool in, int 
       S.nee_dist[i] = dist;
     }
     if (live) emit_ok = !sampled;
-    list_ray(P, want, n + i, p, ldir);
+    const int listed = list_ray(P, want, n + i, p, ldir);
+    if (P.stats != nullptr && (threadIdx.x & 31) == 0 && listed != 0)
+      atomicAdd(&nee_listed, static_cast<unsigned>(listed));
   }
 
   float bdir[3];
@@ -405,6 +414,7 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
     s_clock = Clock{};
     s_clock.entry = s_clock.last = static_cast<unsigned>(clock());
     bq::sync_cycles = 0;
+    nee_listed = 0;
   }
   for (int j = gtid; j < P.q.nb; j += stride) P.q.cnt[j] = 0;
   if (gtid == 0) {
@@ -459,6 +469,8 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
     if ((threadIdx.x & 31) == 0 && lookups != 0)
       atomicAdd(&P.stats[S_LOOKUPS], static_cast<unsigned long long>(lookups));
     if (threadIdx.x == 0) {
+      if (nee_listed != 0)
+        atomicAdd(&P.stats[S_NEE_RAYS], static_cast<unsigned long long>(nee_listed));
       atomicAdd(&P.stats[S_SYNC_CYCLES], static_cast<unsigned long long>(bq::sync_cycles));
       atomicAdd(&P.stats[S_KERNEL_CYCLES],
                 static_cast<unsigned long long>(static_cast<unsigned>(clock()) - s_clock.entry));
@@ -525,7 +537,7 @@ extern "C" int fused_queue_grid(int* out) {
 // is added into, its sky looked up in the IBL image `ibl` [ibl_h, ibl_w, 3]
 // f32 with `ibl_power` [1] and the lookup's filter (no record; rad, esc_thr
 // and esc_dir unused).  `stats` may be null, else it receives its
-// max_bounce + 18 slots (see S_LANES; added).  Returns the cudaError_t of
+// max_bounce + 19 slots (see S_LANES; added).  Returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,

@@ -53,8 +53,10 @@ calls it.
 Tracing (``utils/profiling``, while a profiler records): spans
 ``render_scene`` (inside it ``render_scene.settings``: the settings, the
 material, environment and camera tensors, the sun switch and the
-generator) and ``render_radiance_jit`` (the key draw and ``Graphed``'s
-spans), none inside the captured render.  A multi-block fused render gives
+generator; inside that, with NEE, ``render_scene.lights``: the light table
+built on the host from the scene's faces and copied to the device) and
+``render_radiance_jit`` (the key draw and ``Graphed``'s spans), none
+inside the captured render.  A multi-block fused render gives
 its sample launches one counter buffer (``ops/fused.render_stats``), which
 :func:`render_radiance_jit` then keeps a clone of under ``"fused_queue"``.
 """
@@ -457,7 +459,8 @@ def render_scene(scene, seed: int = 0, overrides: Optional[dict] = None) -> torc
             sun_enabled = float(env.sun_power) != 0.0
             lights = None
             if nee:
-                lights = scene.light_pack(materials)
+                with span("render_scene.lights"):
+                    lights = scene.light_pack(materials)
                 nee = lights is not None
             gen = torch.Generator(device=scene.device)
             gen.manual_seed(int(seed))

@@ -107,17 +107,20 @@ LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_samp
 # sun-trace rounds, finish); the rounds that split their work items into
 # more than one triangle slice and the work items run, one per slice
 # (``ops/pairs.slices``); the rounds whose select gave each ray a group of
-# more than one lane (``ops/pairs.select_lanes``); the lanes whose sky a
-# render launch looked up (:func:`render_fused_queue`; a one-sample launch
-# looks up none); last the segments of each bounce, whose number follows
-# ``max_bounce``.  Cycles are one SM's clock: only their ratios are read.
-# The plain version counts the same, with no syncs, no cycles, neither of
-# the two slice counts and no grouped rounds.
+# more than one lane (``ops/pairs.select_lanes``); the NEE shadow rays
+# listed (the lanes that want the light, counted where the kernel lists
+# them; among the segments); the lanes whose sky a render launch looked up
+# (:func:`render_fused_queue`; a one-sample launch looks up none); last the
+# segments of each bounce, whose number follows ``max_bounce``.  Cycles are
+# one SM's clock: only their ratios are read.  The plain version counts the
+# same, with no syncs, no cycles, neither of the two slice counts and no
+# grouped rounds.
 QUEUE_STATS = ("pairs", "stagings", "rounds", "slabs", "syncs", "segments", "sync_cycles",
                "kernel_cycles", "shade_cycles", "bounce_trace_cycles", "resolve_cycles",
                "sun_trace_cycles", "finish_cycles", "split_rounds", "items",
-               "coop_select_rounds", "escape_lookups")
+               "coop_select_rounds", "nee_rays", "escape_lookups")
 SEGMENTS = QUEUE_STATS.index("segments")
+NEE_RAYS = QUEUE_STATS.index("nee_rays")
 ESCAPE_LOOKUPS = QUEUE_STATS.index("escape_lookups")
 
 
@@ -244,10 +247,10 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     (int64 ``[queue_stats_len(max_bounce)]``, optional) receives what
     ``csrc/fused_queue.cu`` counts there (:data:`QUEUE_STATS`): pairs
     tested, block stagings, rounds, slab tests, the segments traced and
-    each bounce's; the plain version makes no grid syncs and counts no
-    cycles, no slices and no grouped selects.  On one block it traces with
-    ``trace_plain`` (``stats`` untouched).  Both equal ``trace_plain`` bit
-    for bit.
+    each bounce's, the NEE shadow rays among them; the plain version makes
+    no grid syncs and counts no cycles, no slices and no grouped selects.
+    On one block it traces with ``trace_plain`` (``stats`` untouched).
+    Both equal ``trace_plain`` bit for bit.
     ``traces`` (a list, optional) receives each trace loop's ``(o, d,
     hit)``; ``escaped`` (a list, optional) the lanes that escaped, ``[N]``
     bool."""
@@ -282,6 +285,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
                          f"{feats.block_bounds.shape[0]} blocks, got {tuple(stats.shape)}")
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     lanes = [0] * mb1  # segments traced per bounce
+    nee_rays = 0  # NEE shadow rays traced
 
     def trace_loop(o, d, act):
         idx = torch.nonzero(act).squeeze(1)
@@ -331,6 +335,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
             both = trace_loop(torch.cat([p, p]), torch.cat([bdir, ldir]), torch.cat([act, want]))
             h = Hit(t=both.t[:n_rays], tri=both.tri[:n_rays], hit=both.hit[:n_rays])
             visible = both.t[n_rays:] >= dist * (1.0 - 1e-3)
+            nee_rays += int(want.sum())
             rad = rad + select(want & visible, contrib, zero3)
         else:
             h = trace_loop(p, bdir, act)
@@ -367,6 +372,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     if stats is not None and multi:
         stats[:4] += counts.to(stats.device)
         stats[SEGMENTS] += sum(lanes)
+        stats[NEE_RAYS] += nee_rays
         stats[len(QUEUE_STATS):] += torch.tensor(lanes, dtype=torch.int64, device=stats.device)
     if escaped is not None:
         escaped.append(esc)

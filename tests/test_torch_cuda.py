@@ -15,7 +15,9 @@ partial sub-tiles),
 the block-queue closest hit (``trace_pairs`` against ``trace_plain`` and
 its plain version's counts; on 61 and 586 blocks) and the multi-block fused
 sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
-its counts, with NEE, in record mode, up to 586 blocks), and the gradient
+its counts, with NEE, in record mode, up to 586 blocks; with NEE also on
+the benchmark's closed box of 62 blocks, ``closedbox_nee``, in one sample,
+a whole render and a graphed render), and the gradient
 path: the replay of fused records against the forward render, the replay's
 gradients on the card against the CPU, the gather backward's determinism,
 and a stopped and resumed optimisation against an uninterrupted one; and
@@ -41,6 +43,11 @@ suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import functools
+import json
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -58,9 +65,24 @@ from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
-from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
+from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene, build_light_pack
 
 pytestmark = pytest.mark.cuda
+
+CLOSEDBOX = Path(__file__).resolve().parents[1] / "port_bench" / "configs" / "closedbox15k.json"
+
+
+@functools.cache
+def _closedbox(dev):
+    """The benchmark's ``closedbox15k`` scene (the Cornell box and a
+    15,720-triangle glossy sphere, 62 blocks, lit by its panel), written and
+    loaded as the cell loads it: ``(geometry, materials, env, camera)``."""
+    from port_bench.scenes import files
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = Scene.load(files.write_scene(json.loads(CLOSEDBOX.read_text()), 0, d, dev),
+                           device=dev)
+        return scene.geometry, scene.material_params(), scene.env_params(), scene.camera_params()
 
 ROLES = {  # role -> (scene maker, expected triangle blocks)
     "one_block": (lambda dev: tt.make_cornell_scene(device=dev), 1),
@@ -143,6 +165,7 @@ FUSED = {  # role -> (scene maker, expected blocks, sun, nee)
     "cornell_nee": (lambda dev: tt.make_cornell_scene(device=dev), 1, False, True),
     "outdoor_47_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, device=dev), 47, True,
                           False),
+    "closedbox_nee": (_closedbox, 62, False, True),
 }
 
 
@@ -191,8 +214,9 @@ def test_fused_kernel_matches_plain(cuda, role):
         want = dict(zip(fu.queue_stats_fields(mb), plain_stats.tolist()))
         lanes = [got[f"lanes.{b}"] for b in range(mb + 1)]
         assert got["segments"] == sum(lanes) > 0
-        for f in ("pairs", "stagings", "rounds", "slabs", "segments", "lanes.0"):
+        for f in ("pairs", "stagings", "rounds", "slabs", "segments", "lanes.0", "nee_rays"):
             assert abs(got[f] - want[f]) <= 0.01 * want[f], (f, got, want)
+        assert (got["nee_rays"] > 0) is nee
         assert 0 < got["sync_cycles"] < got["kernel_cycles"]
         assert min(got[f] for f in fu.QUEUE_STATS[8:]) >= 0 < got["shade_cycles"]
 
@@ -303,6 +327,7 @@ RENDER_QUEUE = {  # role -> (scene maker, sun, nee, bilinear IBL): 2b's render i
                                    True, False, False),
     "outdoor_panel_nee": (lambda dev: tt.make_outdoor_scene(n_cubes=1000, emissive_panel=True,
                                                             device=dev), True, True, True),
+    "closedbox_nee": (_closedbox, False, True, True),
 }
 
 
@@ -1304,6 +1329,7 @@ GRAPH_RENDERS = {  # role -> (scene maker, render settings)
     "outdoor_1300_tree": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, use_bvh=True,
                                                             device=dev),
                           dict(spp=4, sun_enabled=True)),
+    "closedbox_nee": (_closedbox, dict(spp=4, sun_enabled=False, nee=True)),
 }
 
 
