@@ -21,7 +21,12 @@ from ensem3a_openclraytracer_tpu_torch.models.optimize import (
     TrainableParams,
     save_optimizer_checkpoint,
 )
-from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import TriFeatures, pack_features
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
+    SUB_TILE,
+    TriFeatures,
+    pack_features,
+    tri_boxes,
+)
 from ensem3a_openclraytracer_tpu_torch.ops.traversal import BVHNodes, nodes_to
 from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     CameraParams,
@@ -53,9 +58,11 @@ def geometry(geom, device: DeviceLike = None) -> GeometryPack:
     feats = None
     if f is not None:
         edges, plane, normal_d = _t(f.edges, dev), _t(f.plane, dev), _t(f.normal_d, dev)
+        allv = np.stack([np.asarray(v, np.float32) for v in (geom.v0, geom.v1, geom.v2)])
         feats = TriFeatures(
             edges=edges, plane=plane, normal_d=normal_d, block_bounds=_t(f.block_bounds, dev),
             num_tris=int(f.num_tris), packed=pack_features(edges, plane, normal_d),
+            sub_bounds=_t(tri_boxes(allv, edges.shape[-1], SUB_TILE), dev),
         )
     return GeometryPack(
         v0=_t(geom.v0, dev), v1=_t(geom.v1, dev), v2=_t(geom.v2, dev), n=_t(geom.n, dev),

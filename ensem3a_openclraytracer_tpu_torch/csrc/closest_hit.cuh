@@ -14,7 +14,8 @@
 //     ~45 FP32 operations, and each read of a triangle serves R rays.  The
 //     one-block roles (csrc/closest_hit.cu, csrc/fused_sample.cu) stage their
 //     block once per CUDA block and keep it; csrc/pairs.cuh stages queued
-//     blocks in the same layout.
+//     blocks in the same layout and tests the sub-tiles a ray enters
+//     (test_range).
 //   * packed rows copied whole (bulk_copy / test_two): PACK4 float4s per
 //     triangle, as TriFeatures.packed holds them, copied by TMA; the two
 //     prototypes' kernels (csrc/grouped_pairs.cu, csrc/pair_compact.cu)
@@ -95,15 +96,15 @@ __device__ __forceinline__ void stage_packed(const float4* __restrict__ src, int
     fz[c] = __ldg(reinterpret_cast<const float*>(src + c * PACK4 + 6));
 }
 
-// Test R rays against the `tile` triangles of block `base / tile` staged in
-// the packed layout, each dot product summed term by term in index order.
-// Rays with act[k] false keep their best.
+// Test R rays against triangles [lo, hi) of a block staged in the packed
+// layout (global index base + c for staged triangle c), each dot product
+// summed term by term in index order.  Rays with act[k] false keep their best.
 template <int R>
-__device__ __forceinline__ void test_packed(const float4* f4, int base, int tile,
-                                            const Ray (&r)[R], const bool (&act)[R],
-                                            float (&best_t)[R], int (&best_i)[R]) {
+__device__ __forceinline__ void test_range(const float4* f4, int base, int lo, int hi,
+                                           const Ray (&r)[R], const bool (&act)[R],
+                                           float (&best_t)[R], int (&best_i)[R]) {
   const float* fz = reinterpret_cast<const float*>(f4 + 6 * TRI_TILE);
-  for (int c = 0; c < tile; ++c) {
+  for (int c = lo; c < hi; ++c) {
     float f[FEAT_ROWS];
 #pragma unroll
     for (int v = 0; v < 6; ++v) {
@@ -137,6 +138,15 @@ __device__ __forceinline__ void test_packed(const float4* f4, int base, int tile
       }
     }
   }
+}
+
+// Test R rays against the `tile` triangles of block `base / tile` staged in
+// the packed layout.
+template <int R>
+__device__ __forceinline__ void test_packed(const float4* f4, int base, int tile,
+                                            const Ray (&r)[R], const bool (&act)[R],
+                                            float (&best_t)[R], int (&best_i)[R]) {
+  test_range(f4, base, 0, tile, r, act, best_t, best_i);
 }
 
 // (float bits of t) << 32 | tri: ordered as (t, tri) for t >= 0, so a 64-bit

@@ -111,13 +111,16 @@ struct Params {
 // and from entry to exit, CUDA block 0's cycles by phase, the rounds that
 // ran with more than one triangle slice and the work items run (added by the
 // scan), the rounds whose select ran with more than one lane a ray (the three
-// slots of bq::Queues split), the NEE shadow rays listed, the lanes whose sky
-// the launch looked up (with acc only), then the segments of each bounce.
+// slots of bq::Queues split), the NEE shadow rays listed, the (ray, sub-tile)
+// entries of the queued pairs whose sub-tile holds a triangle and those the
+// test phase's cull kept (bq::add_tally), the lanes whose sky the launch
+// looked up (with acc only), then the segments of each bounce.
 constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
 enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
 constexpr int S_SPLIT = S_PHASE + N_PHASES;
 constexpr int S_NEE_RAYS = S_SPLIT + 3;
-constexpr int S_LOOKUPS = S_NEE_RAYS + 1;
+constexpr int S_SUBTILES = S_NEE_RAYS + 1;
+constexpr int S_LOOKUPS = S_SUBTILES + 2;
 constexpr int S_LANES = S_LOOKUPS + 1;
 
 // The NEE shadow rays this CUDA block listed (with stats), in shared memory
@@ -401,7 +404,7 @@ __device__ __forceinline__ bool finish_lane(const Params& P, int i, float sun_po
 // Four CUDA blocks an SM, the grid's occupancy: with the bound ptxas keeps
 // every value in registers (without it, it chose 96 and spilled 112 bytes).
 __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
-  extern __shared__ __align__(16) float4 smem[];  // two staging buffers, or select's bounds
+  extern __shared__ __align__(16) float4 smem[];  // staging buffers and lists, or select's bounds
   __shared__ int4 s_work;
   __shared__ unsigned long long s_scan[THREADS];
   __shared__ Clock s_clock;
@@ -414,6 +417,7 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
     s_clock = Clock{};
     s_clock.entry = s_clock.last = static_cast<unsigned>(clock());
     bq::sync_cycles = 0;
+    bq::test_counts = bq::TestCounts{};
     nee_listed = 0;
   }
   for (int j = gtid; j < P.q.nb; j += stride) P.q.cnt[j] = 0;
@@ -464,7 +468,7 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
   for (int i = gtid; i < n; i += stride) lookups += finish_lane(P, i, sun_power) ? 1u : 0u;
   if (P.stats != nullptr) {
     mark(s_clock, FINISH);
-    bq::add_tally(P.stats, tally);
+    bq::add_tally(P.stats, tally, P.stats + S_SUBTILES);
     lookups = __reduce_add_sync(FULL, lookups);
     if ((threadIdx.x & 31) == 0 && lookups != 0)
       atomicAdd(&P.stats[S_LOOKUPS], static_cast<unsigned long long>(lookups));
@@ -528,22 +532,28 @@ extern "C" int fused_queue_grid(int* out) {
   return static_cast<int>(err);
 }
 
+// Triangles per sub-tile of the test phase's cull (bq::SUB); a library
+// without this entry point takes no sub-tile boxes.
+extern "C" int fused_queue_sub_tile() { return bq::SUB; }
+
 // One sample for n rays in one cooperative launch on `stream` (a
 // cudaStream_t passed as void*).  Arguments as fused_sample_launch's, except
-// the features: packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte
-// aligned; scratch of fused_queue_scratch_bytes(n, nb, nee) bytes, 16-byte
-// aligned, in any state; and `acc`: null, and the sample goes to rad, esc_thr
+// the features: packed [tp, 28] f32, bounds [nb, 8] f32 and sub_bounds
+// [nb * bq::SUBS, 8] f32 (the sub-tile boxes), each 16-byte aligned; scratch
+// of fused_queue_scratch_bytes(n, nb, nee) bytes, 16-byte aligned, in any
+// state; and `acc`: null, and the sample goes to rad, esc_thr
 // and esc_dir (and the records), or an [n, 3] f32 running sum that the sample
 // is added into, its sky looked up in the IBL image `ibl` [ibl_h, ibl_w, 3]
 // f32 with `ibl_power` [1] and the lookup's filter (no record; rad, esc_thr
 // and esc_dir unused).  `stats` may be null, else it receives its
-// max_bounce + 19 slots (see S_LANES; added).  Returns the cudaError_t of
+// max_bounce + 21 slots (see S_LANES; added).  Returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,
     const float* nrm, const int* mtype, const float* color, const float* rough,
     const unsigned char* live, const float* in_dir, const float* sun_dir,
-    const float* sun_power, const float* packed, const float* bounds, int tp, int tile, int nb,
+    const float* sun_power, const float* packed, const float* bounds, const float* sub_bounds,
+    int tp, int tile, int nb,
     const float* attrs, const float* light_v0, const float* light_v1, const float* light_v2,
     const float* light_n, const float* light_power, const float* light_area, int n_lights,
     const float* uniforms, const unsigned* key, int sample, void* scratch, float* acc,
@@ -572,6 +582,7 @@ extern "C" int fused_queue_launch(
   P.q.ray_d = P.ray_d;
   P.q.packed = reinterpret_cast<const float4*>(packed);
   P.q.bounds = bounds;
+  P.q.sub_bounds = sub_bounds;
   P.q.split = stats == nullptr ? nullptr : stats + S_SPLIT;
   P.n = n;
   P.max_bounce = max_bounce;

@@ -21,7 +21,8 @@
 // What bounds it on an H100: FP32 operations, about 45 per (ray, triangle)
 // pair the closest hit needs, at 67 TFLOP/s; the rays, outputs, features and
 // queues are small beside them.  The design's answers: every staging serves up
-// to CHUNK rays that all need that block, with no barrier per block visit; the
+// to CHUNK rays that all need that block, with no barrier per block visit, and
+// each of them tests only the sub-tiles of the block that it enters; the
 // staging is overlapped with the previous item's tests; one launch and no host
 // sync per trace.
 #include <cuda_runtime.h>
@@ -47,11 +48,12 @@ struct Params {
 
 template <int K>
 __global__ void __launch_bounds__(THREADS) pairs_kernel(Params p) {
-  extern __shared__ __align__(16) float4 smem[];  // two staging buffers, or select's bounds
+  extern __shared__ __align__(16) float4 smem[];  // staging buffers and lists, or select's bounds
   __shared__ int4 s_work;
   __shared__ unsigned long long s_scan[THREADS];
   bq::cg::grid_group grid = bq::cg::this_grid();
 
+  if (threadIdx.x == 0) bq::test_counts = bq::TestCounts{};
   bq::init_trace(p.q, p.q.n);
   grid.sync();
   bq::Tally tally;
@@ -98,6 +100,11 @@ extern "C" int pairs_grid(int* out) {
 // `grid` CUDA blocks (bq::slices, which ops/pairs.slices mirrors).
 extern "C" int pairs_slices(int items, int grid) { return bq::slices(items, grid); }
 
+// Triangles per sub-tile of the test phase's cull (bq::SUB, which
+// ops/pairs.SUB mirrors); a library without this entry point takes no
+// sub-tile boxes.
+extern "C" int pairs_sub_tile() { return bq::SUB; }
+
 // The select lanes a ray in a round of n_live rays on nb blocks over
 // grid_threads threads (bq::select_lanes, which ops/pairs.select_lanes
 // mirrors).
@@ -106,13 +113,15 @@ extern "C" int pairs_select_lanes(int n_live, int nb, int grid_threads) {
 }
 
 // One cooperative launch on `stream` (a cudaStream_t passed as void*).
-// packed [tp, 28] f32 and bounds [nb, 8] f32, both 16-byte aligned; scratch
-// of pairs_scratch_bytes(n, nb) bytes, 16-byte aligned, in any state.
+// packed [tp, 28] f32, bounds [nb, 8] f32 and sub_bounds [nb * bq::SUBS, 8]
+// f32 (the sub-tile boxes), each 16-byte aligned; scratch of
+// pairs_scratch_bytes(n, nb) bytes, 16-byte aligned, in any state.
 // Writes out_t [n] f32, out_tri [n] int64, out_hit [n] bool; `stats` may be
 // null, else it receives [pairs tested, block stagings, rounds, slab tests]
 // (added).  Returns the cudaError_t of the launch.
 extern "C" int pairs_launch(const float* ray_o, const float* ray_d, int n, const float* packed,
-                            const float* bounds, int tp, int tile, int nb, void* scratch,
+                            const float* bounds, const float* sub_bounds, int tp, int tile, int nb,
+                            void* scratch,
                             float* out_t, long long* out_tri, unsigned char* out_hit,
                             unsigned long long* stats, void* stream) {
   if (n <= 0) return 0;
@@ -126,6 +135,7 @@ extern "C" int pairs_launch(const float* ray_o, const float* ray_d, int n, const
   p.q.ray_d = ray_d;
   p.q.packed = reinterpret_cast<const float4*>(packed);
   p.q.bounds = bounds;
+  p.q.sub_bounds = sub_bounds;
   p.out_t = out_t;
   p.out_tri = out_tri;
   p.out_hit = out_hit;

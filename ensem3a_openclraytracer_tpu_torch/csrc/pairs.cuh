@@ -29,14 +29,22 @@
 //           (slices(), chosen by the scan), each staging and testing only
 //           its tile / S triangles, so one warp no longer walks a whole
 //           256-triangle tile while the grid waits at the next sync; a round
-//           that fills the grid keeps S = 1.  The next item's triangles are
-//           staged with cp.async into the second of two shared-memory
-//           buffers while this one is tested; each thread tests RPT rays
-//           (ch::test_packed), so each shared-memory read of a triangle's
-//           features feeds RPT pair tests.  A ray's best hit is folded with
-//           a 64-bit atomicMin on (float bits of t) << 32 | tri, which
-//           orders (t, tri) lexicographically for t > 0: the fold is exact
-//           whatever order the items and slices run in.
+//           that fills the grid keeps S = 1.  The next item's triangles and
+//           its block's sub-tile boxes are staged with cp.async into the
+//           second of two shared-memory buffers while this one is tested.
+//           A queued ray is tested only against the sub-tiles of SUB
+//           triangles of its slice whose margined box (sub_bounds,
+//           ch::block_entry) it enters no farther than the best t its
+//           select read this round (sel_t): a farther sub-tile cannot hold
+//           a nearer hit, and the select's t, unlike the live best, makes
+//           the counts the same in every run.  The kept (ray, sub-tile)
+//           entries are listed by sub-tile in shared memory, and each
+//           thread takes two rays of one sub-tile at a time
+//           (ch::test_range), so a warp's lanes read the same triangle at
+//           once and each read feeds two pair tests.  A ray's best hit is
+//           folded with a 64-bit atomicMin on (float bits of t) << 32 |
+//           tri, which orders (t, tri) lexicographically for t > 0: the
+//           fold is exact whatever order the items and slices run in.
 // trace_rounds loops until no ray is live.  The arithmetic per (ray,
 // triangle) pair is ch::test_packed's, term for term, and the slab test is
 // ch::block_entry, so the result equals ops/closest_hit.trace_plain's.
@@ -52,16 +60,30 @@ namespace bq {
 namespace cg = cooperative_groups;
 
 constexpr int THREADS = 128;
-constexpr int RPT = 2;                  // rays per thread in the test phase
+constexpr int RPT = 2;                  // rays per thread in the test phase's cull and tests
 constexpr int CHUNK = THREADS * RPT;    // queued rays per work item
 constexpr int PACK4 = ch::PACK4;        // float4s per triangle in the packed features [tp, 28]
-constexpr int BUF4 = ch::PACKED_BUF4;   // one staged block in ch's packed layout
-constexpr int SMEM_BYTES = 2 * BUF4 * 16;  // two buffers: 51,200 bytes
-constexpr int SEL_BLOCKS = 2 * BUF4 / 2;   // bounds rows (two float4s each) per select chunk
+// Triangles per sub-tile of the test phase's cull (ops/pairs.SUB): a warp,
+// and the triangles of one slice at S = 8.
+constexpr int SUB = 32;
+constexpr int SUBS = ch::TRI_TILE / SUB;  // sub-tiles a block
+static_assert(SUBS * SUB == ch::TRI_TILE, "a block is whole sub-tiles");
+// One staged item: the block's triangles in ch's packed layout, then its
+// SUBS sub-tile boxes (two float4s each).
+constexpr int BUF4 = ch::PACKED_BUF4 + 2 * SUBS;
+// The select's share of shared memory (bounds, a grouped select's counts):
+// the two staging buffers without their boxes, 51,200 bytes.
+constexpr int SEL_BYTES = 2 * ch::PACKED_BUF4 * 16;
+// Two staging buffers, then the test phase's entry lists: per sub-tile the
+// byte slots of the item's rays that keep it, the item's rays and the
+// entries listed per sub-tile.
+constexpr int LISTS = 2 * BUF4 * 16;
+constexpr int SMEM_BYTES = LISTS + SUBS * CHUNK + 4 * CHUNK + 4 * SUBS;  // 54,816 bytes
+constexpr int SEL_BLOCKS = SEL_BYTES / 32;  // bounds rows (two float4s each) per select chunk
 // The most blocks whose bounds (32 bytes) and a grouped select's pick counts
 // and first slots (8 bytes) share the select's shared memory: the most for
 // which select groups lanes (ops/pairs.AGG_BLOCKS).
-constexpr int AGG_BLOCKS = SMEM_BYTES / 40;
+constexpr int AGG_BLOCKS = SEL_BYTES / 40;
 static_assert(AGG_BLOCKS <= SEL_BLOCKS, "a grouped select keeps every bound resident");
 constexpr unsigned long long NONE = ~0ull;  // cursor of a ray that queued nothing yet
 constexpr unsigned NO_BLOCK = 0xffffffffu;
@@ -107,13 +129,15 @@ __host__ __device__ __forceinline__ int select_lanes(int n_live, int nb, int gri
 struct Queues {
   const float* ray_o;    // [n, 3]
   const float* ray_d;    // [n, 3]
-  const float4* packed;  // [tp, 7] float4: ch::FEAT_ROWS rows per triangle, padded to 28
-  const float* bounds;   // [nb, 8]
+  const float4* packed;      // [tp, 7] float4: ch::FEAT_ROWS rows per triangle, padded to 28
+  const float* bounds;       // [nb, 8]
+  const float* sub_bounds;   // [nb * SUBS, 8]
   int n, nb, tile;
   unsigned long long* split;   // [3] rounds with S > 1, work items run and rounds whose select
                                // ran with G > 1 (added), or null
   unsigned long long* best;    // [n] (t bits << 32) | tri
   unsigned long long* cursor;  // [n] the last key queued, NONE before the first
+  float* sel_t;                // [n] the best t each live ray's select read this round
   int2* pairs;                 // [n, K] (block, slot in its queue) of each live ray's picks
   int* live;                   // [2, n] live ray lists, alternating by round
   int* queue;                  // [n * K] rays grouped by block
@@ -127,9 +151,19 @@ struct Queues {
 // What a thread's share of the rounds counted; rounds and grid syncs are the
 // same in every thread.
 struct Tally {
-  unsigned long long pairs = 0, stagings = 0, slabs = 0;
+  unsigned long long stagings = 0, slabs = 0;
   int rounds = 0, syncs = 0;
 };
+
+// What this CUDA block's test phases counted, on thread 0 alone and in
+// shared memory (as sync_cycles), so that counting holds no register
+// through the rounds: (ray, triangle) pairs tested, the (ray, sub-tile)
+// entries of the queued pairs whose sub-tile holds a triangle, and those of
+// them that the cull kept.  The kernel zeroes it.
+struct TestCounts {
+  unsigned long long pairs, offered, tested;
+};
+__shared__ TestCounts test_counts;
 
 // Thread 0's clock cycles inside this CUDA block's timed grid syncs.  Kept in
 // shared memory, 32 bits (a launch lasts far less than 2^32 cycles), so that
@@ -238,6 +272,7 @@ __device__ void select_threads(const Queues& p, int n_live, const int* live_in, 
     const int i = has ? __ldcg(live_in + q) : 0;
     const ch::Ray r = load_ray<FRESH>(p, i);
     const float best_t = has ? key_t(__ldcg(p.best + i)) : -1.0f;
+    if (has) p.sel_t[i] = best_t;
     const unsigned long long cur = has ? __ldcg(p.cursor + i) : NONE;
     unsigned long long sel[K];
 #pragma unroll
@@ -304,6 +339,7 @@ __device__ void select_groups(const Queues& p, int g, int n_live, const int* liv
   const int i = has ? __ldcg(live_in + q) : 0;
   const ch::Ray r = load_ray<FRESH>(p, i);
   const float best_t = has ? key_t(__ldcg(p.best + i)) : -1.0f;
+  if (has && l == 0) p.sel_t[i] = best_t;
   const unsigned long long cur = has ? __ldcg(p.cursor + i) : NONE;
   unsigned long long sel[K];  // this lane's K least, sorted
 #pragma unroll
@@ -422,16 +458,24 @@ __device__ void fill_round(const Queues& p, int n_live, const int* live_in) {
 }
 
 // The next work item: (slice, block, first queue slot, rays) of item
-// (block, chunk) x S + slice; slice -1 when none is left.
+// (block, chunk) x S + slice; slice -1 when none is left.  Every lane of
+// one warp calls it: the search for the last block whose first item is <=
+// the chunk reads 32 of the blocks' first items at a time, so it takes one
+// dependent read for up to 32 blocks and two for up to 1,024.
 __device__ int4 next_item(const Queues& p, int items, int lg) {
-  const int item = atomicAdd(&p.ctrl->work, 1);
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int item = 0;
+  if (lane == 0) item = atomicAdd(&p.ctrl->work, 1);
+  item = __shfl_sync(FULL, item, 0);
   if (item >= items) return make_int4(-1, 0, 0, 0);
   const int chunk = item >> lg;
-  int lo = 0, hi = p.nb;  // the last block whose first item is <= chunk
+  int lo = 0, hi = p.nb;  // item_off[lo] <= chunk < item_off[hi]
   while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldcg(p.item_off + mid) <= chunk) lo = mid;
-    else hi = mid;
+    const int step = (hi - lo + 31) >> 5, j = lo + lane * step;
+    const unsigned le = __ballot_sync(FULL, j < hi && __ldcg(p.item_off + j) <= chunk);
+    lo += (31 - __clz(le)) * step;  // item_off rises with j: le is lanes 0 to k
+    hi = min(hi, lo + step);
   }
   const int s = (chunk - __ldcg(p.item_off + lo)) * CHUNK;
   return make_int4(item & ((1 << lg) - 1), lo, __ldcg(p.qoff + lo) + s,
@@ -439,7 +483,7 @@ __device__ int4 next_item(const Queues& p, int items, int lg) {
 }
 
 // Triangles [lo, lo + cnt) of block blk into f4 in ch's packed layout, from
-// its first slot.
+// its first slot, and the block's sub-tile boxes after them.
 __device__ __forceinline__ void stage_slice(const Queues& p, int blk, int lo, int cnt, float4* f4) {
   const float4* src = p.packed + (static_cast<long long>(blk) * p.tile + lo) * PACK4;
   for (int k = threadIdx.x; k < 6 * cnt; k += THREADS) {
@@ -448,61 +492,123 @@ __device__ __forceinline__ void stage_slice(const Queues& p, int blk, int lo, in
   }
   float* fz = reinterpret_cast<float*>(f4 + 6 * ch::TRI_TILE);
   for (int c = threadIdx.x; c < cnt; c += THREADS) cp_async4(fz + c, src + c * PACK4 + 6);
+  const float4* boxes = reinterpret_cast<const float4*>(p.sub_bounds) + 2 * SUBS * blk;
+  for (int k = threadIdx.x; k < 2 * SUBS; k += THREADS)
+    cp_async16(f4 + ch::PACKED_BUF4 + k, boxes + k);
 }
 
 // Test: work items from the device-side counter, the next item's triangles
 // staged while this one's are tested.  Slice k of S tests the block's
 // triangles [k w, (k + 1) w), w = tile / S rounded up; slice 0 counts the
-// staging, so stagings stay one per (block, chunk).
+// staging, so stagings stay one per (block, chunk).  Each thread culls its
+// RPT rays against the slice's sub-tiles and lists the kept entries by
+// sub-tile (a ballot and one shared atomicAdd a warp and sub-tile); the
+// threads then take the listed entries two rays of one sub-tile at a time.
+// An entry counts where its sub-tile starts, so once per (ray, block) pair
+// whatever S; its pairs count in every slice that tests them.
 template <bool FRESH>
-__device__ void test_round(const Queues& p, float4* smem, int4* s_work, unsigned long long& pairs,
+__device__ void test_round(const Queues& p, float4* smem, int4* s_work,
                            unsigned long long& stagings) {
-  const int tid = threadIdx.x;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int items = __ldcg(&p.ctrl->items), lg = __ldcg(&p.ctrl->lg);
   const int width = (p.tile + (1 << lg) - 1) >> lg;
+  unsigned char* s_list = reinterpret_cast<unsigned char*>(smem) + LISTS;  // [SUBS][CHUNK]
+  int* s_ray = reinterpret_cast<int*>(s_list + SUBS * CHUNK);  // [CHUNK] the item's rays
+  int* s_cnt = s_ray + CHUNK;                                   // [SUBS] entries listed
   // the triangles of slice k: [k w, k w + count)
   auto count = [&](int k) { return max(0, min(width, p.tile - k * width)); };
-  if (tid == 0) *s_work = next_item(p, items, lg);
+  if (tid < 32) {
+    const int4 it = next_item(p, items, lg);
+    if (tid == 0) *s_work = it;
+  }
   __syncthreads();
   int4 cur = *s_work;
   if (cur.x >= 0) stage_slice(p, cur.y, cur.x * width, count(cur.x), smem);
   cp_async_commit();
   int buf = 0;
   while (cur.x >= 0) {
-    __syncthreads();  // every thread has read *s_work and is done with the other buffer
-    if (tid == 0) *s_work = next_item(p, items, lg);
+    __syncthreads();  // every thread has read *s_work and is done with the other buffer and the lists
+    if (tid < 32) {
+      const int4 it = next_item(p, items, lg);
+      if (tid == 0) *s_work = it;
+    }
+    if (tid < SUBS) s_cnt[tid] = 0;
     __syncthreads();
     const int4 nxt = *s_work;
     if (nxt.x >= 0) stage_slice(p, nxt.y, nxt.x * width, count(nxt.x), smem + (buf ^ 1) * BUF4);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();  // item cur's triangles are in buffer buf
+    __syncthreads();  // item cur's triangles and boxes are in buffer buf
     if (tid == 0 && cur.x == 0) ++stagings;
+    const float4* f4 = smem + buf * BUF4;
+    const float* boxes = reinterpret_cast<const float*>(f4 + ch::PACKED_BUF4);
+    const int lo = cur.x * width, hi = lo + count(cur.x);
+    const int s0 = lo / SUB, s1 = hi > lo ? (hi + SUB - 1) / SUB : s0;  // the sub-tiles it meets
 
-    int ray[RPT];
-    bool act[RPT];
-    ch::Ray r[RPT];
-    float best_t[RPT];
-    int best_i[RPT];
+    // the cull: slot tid + k THREADS keeps the sub-tiles it enters no farther
+    // than its select's best t
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       const int slot = tid + k * THREADS;
-      act[k] = slot < cur.w;
-      ray[k] = act[k] ? __ldcg(p.queue + cur.z + slot) : 0;
-      r[k] = load_ray<FRESH>(p, ray[k]);
-      best_t[k] = ch::MAX_DIST;
-      best_i[k] = 0;
+      const bool act = slot < cur.w;
+      const int ray = act ? __ldcg(p.queue + cur.z + slot) : 0;
+      if (act) s_ray[slot] = ray;
+      const ch::Ray r = load_ray<FRESH>(p, ray);
+      const float sel = act ? __ldcg(p.sel_t + ray) : -1.0f;
+      for (int s = s0; s < s1; ++s) {
+        const bool keep = act && ch::block_entry(r, boxes, s) <= sel;
+        const unsigned m = __ballot_sync(FULL, keep);
+        if (m == 0) continue;
+        int at = 0;
+        if (lane == 0) at = atomicAdd(s_cnt + s, __popc(m));
+        at = __shfl_sync(FULL, at, 0);
+        if (keep)
+          s_list[s * CHUNK + at + __popc(m & ((1u << lane) - 1u))] =
+              static_cast<unsigned char>(slot);
+      }
     }
-    if (act[0]) {  // slot tid + THREADS is live only if slot tid is
-      const int n_tri = count(cur.x);
-      ch::test_packed(smem + buf * BUF4, cur.y * p.tile + cur.x * width, n_tri, r, act, best_t,
-                      best_i);
+    __syncthreads();  // the lists are whole
+    if (tid == 0) {
+      for (int s = s0; s < s1; ++s) {
+        const unsigned long long c = static_cast<unsigned>(s_cnt[s]);
+        test_counts.pairs += c * static_cast<unsigned>(min(hi, SUB * (s + 1)) - max(lo, SUB * s));
+        if (SUB * s >= lo) {
+          test_counts.tested += c;
+          if (boxes[8 * s] <= boxes[8 * s + 3]) test_counts.offered += static_cast<unsigned>(cur.w);
+        }
+      }
+    }
+
+    // the tests: unit u is two listed rays of one sub-tile, sub-tile s's
+    // units following those of the sub-tiles before it
+    int s = s0, first = 0, c = s0 < s1 ? s_cnt[s0] : 0;
+    for (int u = tid;; u += THREADS) {
+      while (s < s1 && u - first >= (c + 1) >> 1) {
+        first += (c + 1) >> 1;
+        ++s;
+        c = s < s1 ? s_cnt[s] : 0;
+      }
+      if (s >= s1) break;
+      const int j = 2 * (u - first);
+      int ray[RPT];
+      bool act[RPT];
+      ch::Ray r[RPT];
+      float best_t[RPT];
+      int best_i[RPT];
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
-        if (!act[k]) continue;
-        pairs += n_tri;
-        if (best_t[k] < ch::MAX_DIST) atomicMin(p.best + ray[k], hit_key(best_t[k], best_i[k]));
+        act[k] = j + k < c;
+        ray[k] = s_ray[s_list[s * CHUNK + (act[k] ? j + k : j)]];
+        r[k] = load_ray<FRESH>(p, ray[k]);
+        best_t[k] = ch::MAX_DIST;
+        best_i[k] = 0;
       }
+      ch::test_range(f4, cur.y * p.tile + lo, max(lo, SUB * s) - lo, min(hi, SUB * s + SUB) - lo,
+                     r, act, best_t, best_i);
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        if (act[k] && best_t[k] < ch::MAX_DIST) atomicMin(p.best + ray[k], hit_key(best_t[k], best_i[k]));
     }
     cur = nxt;
     buf ^= 1;
@@ -563,7 +669,7 @@ __device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem
     sync<TIMED>(grid, tally);
     fill_round<K>(p, n_live, live_in);
     sync<TIMED>(grid, tally);
-    test_round<FRESH>(p, smem, s_work, tally.pairs, tally.stagings);
+    test_round<FRESH>(p, smem, s_work, tally.stagings);
     if (gtid == 0) p.ctrl->live[cur] = 0;  // list cur takes the round after next's survivors
     sync<TIMED>(grid, tally);
   }
@@ -584,14 +690,20 @@ __device__ __forceinline__ void write_hits(const Queues& p, int n, float* out_t,
 }
 
 // Each thread's tally added to stats [pairs tested, stagings, rounds, slab
-// tests] (rounds from one thread only).
-__device__ __forceinline__ void add_tally(unsigned long long* stats, Tally t) {
-  const unsigned long long pairs = warp_sum(t.pairs), stagings = warp_sum(t.stagings),
-                           slabs = warp_sum(t.slabs);
+// tests] (rounds from one thread only, pairs from this CUDA block's
+// test_counts), and where `sub` is given, the sub-tile entries offered and
+// tested into sub[0] and sub[1].
+__device__ __forceinline__ void add_tally(unsigned long long* stats, Tally t,
+                                          unsigned long long* sub = nullptr) {
+  const unsigned long long stagings = warp_sum(t.stagings), slabs = warp_sum(t.slabs);
   if ((threadIdx.x & 31) == 0) {
-    if (pairs) atomicAdd(&stats[0], pairs);
     if (stagings) atomicAdd(&stats[1], stagings);
     if (slabs) atomicAdd(&stats[3], slabs);
+  }
+  if (threadIdx.x == 0) {
+    if (test_counts.pairs) atomicAdd(&stats[0], test_counts.pairs);
+    if (sub != nullptr && test_counts.offered) atomicAdd(&sub[0], test_counts.offered);
+    if (sub != nullptr && test_counts.tested) atomicAdd(&sub[1], test_counts.tested);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(&stats[2], static_cast<unsigned long long>(t.rounds));
@@ -620,7 +732,7 @@ cudaError_t grid_size(Kernel kern, int* blocks_per_sm, int* sms) {
 // Scratch layout of the queues for n ray slots, nb blocks and K picks, from
 // byte `at` on; each array 16-byte aligned.  Returns the end.
 struct QueueLayout {
-  size_t best, cursor, pairs, live, queue, cnt, qoff, qcnt, item_off, ctrl;
+  size_t best, cursor, sel_t, pairs, live, queue, cnt, qoff, qcnt, item_off, ctrl;
 };
 
 inline size_t take(size_t& at, size_t bytes) {
@@ -633,6 +745,7 @@ inline QueueLayout queue_layout(long long n, long long nb, long long k, size_t& 
   QueueLayout l{};
   l.best = take(at, 8 * n);
   l.cursor = take(at, 8 * n);
+  l.sel_t = take(at, 4 * n);
   l.pairs = take(at, 8 * n * k);
   l.live = take(at, 4 * 2 * n);
   l.queue = take(at, 4 * n * k);
@@ -644,8 +757,8 @@ inline QueueLayout queue_layout(long long n, long long nb, long long k, size_t& 
   return l;
 }
 
-// The queues of n slots in scratch laid out by l (rays, features and bounds
-// set by the caller).
+// The queues of n slots in scratch laid out by l (rays, features, bounds and
+// sub-tile boxes set by the caller).
 inline Queues queues_at(char* s, const QueueLayout& l, int n, int nb, int tile) {
   Queues q{};
   q.n = n;
@@ -653,6 +766,7 @@ inline Queues queues_at(char* s, const QueueLayout& l, int n, int nb, int tile) 
   q.tile = tile;
   q.best = reinterpret_cast<unsigned long long*>(s + l.best);
   q.cursor = reinterpret_cast<unsigned long long*>(s + l.cursor);
+  q.sel_t = reinterpret_cast<float*>(s + l.sel_t);
   q.pairs = reinterpret_cast<int2*>(s + l.pairs);
   q.live = reinterpret_cast<int*>(s + l.live);
   q.queue = reinterpret_cast<int*>(s + l.queue);

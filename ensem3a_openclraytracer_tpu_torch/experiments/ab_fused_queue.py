@@ -15,24 +15,29 @@ This checkout's ``csrc/`` comes first, as ``this``.  Every source is built
 with ``_build``'s nvcc flags; its ptxas registers, stack and spills and its
 launch grids are printed.  Both kernels keep their C interface across the
 sources (a stats buffer of :data:`STATS_SLOTS` slots takes any version's
-2b counters, printed raw); ``pairs.cu``'s entry points take no ``k``, so a
-source whose entry points do is not a match, and ``fused_queue_launch``
-takes a running sum and the sky after its scratch, so a source whose entry
-point does not is not one either.
+2b counters, printed raw), but for the sub-tile boxes after the block
+bounds, which a library that exports ``pairs_sub_tile`` /
+``fused_queue_sub_tile`` takes and an older one does not; ``pairs.cu``'s
+entry points take no ``k``, so a source whose entry points do is not a
+match, and ``fused_queue_launch`` takes a running sum and the sky after its
+scratch, so a source whose entry point does not is not one either.
 
 2b: one sample at each of :data:`SHAPES` (``cell`` is ``outdoor15k.render``'s:
 outdoor_1300 at 256^2, 4 bounces, sun, the kernel's own Philox stream;
-the others are ``chip_smoke.py`` phase 5's), each source's outputs held
-bit-equal to this checkout's, then ``iters`` samples timed with CUDA
-events per turn, the sources in order and then in reverse, ``turns``
-times; the median ms a sample.  #3: one trace of ``chip_smoke.role_rays``
-(327,680 rays) on outdoor_1300 and outdoor_12500 and of the cell's 65,536
-primary rays, its hits and its four counts (pairs, stagings, rounds, slab
-tests) held equal to this checkout's, then timed the same way; at the
-:data:`GROUPS` shapes, which select with groups of lanes, also against the
-plain version (``ops/pairs.trace_pairs_plain``: the triangles that differ
-and its counts).  The last line is one JSON object with every number.
-Needs a card.
+``closedbox`` is ``closedbox15k.nee``'s: the benchmark's closed box at
+256^2, 4 bounces, NEE, no sun; the others are ``chip_smoke.py`` phase 5's),
+each source's outputs held bit-equal to this checkout's, then ``iters``
+samples timed with CUDA events per turn, the sources in order and then in
+reverse, ``turns`` times; the median ms a sample.  #3: one trace of
+``chip_smoke.role_rays`` (327,680 rays) on outdoor_1300 and outdoor_12500
+and of the cell's 65,536 primary rays, its hits and three of its counts
+(stagings, rounds, slab tests) held equal to this checkout's and its pairs
+tested printed (a source whose test phase culls otherwise tests other
+pairs), then timed the same way; at the :data:`GROUPS` shapes, which select
+with groups of lanes, also against the plain version
+(``ops/pairs.trace_pairs_plain``: the triangles that differ and its
+counts).  The last line is one JSON object with every number.  Needs a
+card.
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 STATS_SLOTS = 64
-# name -> (cubes, rays per side, NEE)
-SHAPES = {"cell": (1300, 256, False), "outdoor_1000": (1000, 512, False),
+# name -> (cubes, or None for the closed box, rays per side, NEE)
+SHAPES = {"cell": (1300, 256, False), "closedbox": (None, 256, True),
+          "outdoor_1000": (1000, 512, False),
           "outdoor_1000_nee": (1000, 512, True), "outdoor_1300": (1300, 512, False),
           "outdoor_12500": (12500, 256, False)}
 TRACES = {"rays_1300": (1300, 512, 65536), "rays_12500": (12500, 512, 65536),
@@ -86,7 +92,8 @@ def build(label: str, csrc: Path) -> dict:
                        if any(w in ln for w in ("registers", "stack frame", "Function properties"))]
         libs[name] = ctypes.CDLL(str(out))
     q = libs["fused_queue"]
-    q.fused_queue_launch.argtypes = (fu._ARGTYPES_HEAD + fu._ARGTYPES_FEAT + fu._ARGTYPES_MID
+    feat = fu._ARGTYPES_QUEUE_FEAT if takes_sub_tiles(q) else fu._ARGTYPES_FEAT
+    q.fused_queue_launch.argtypes = (fu._ARGTYPES_HEAD + feat + fu._ARGTYPES_MID
                                      + [ctypes.c_void_p] * 2 + fu._ARGTYPES_SKY
                                      + fu._ARGTYPES_TAIL)
     q.fused_queue_launch.restype = ctypes.c_int
@@ -94,7 +101,8 @@ def build(label: str, csrc: Path) -> dict:
     q.fused_queue_scratch_bytes.restype = ctypes.c_longlong
     q.fused_queue_grid.argtypes = [ctypes.c_void_p]
     p = libs["pairs"]
-    p.pairs_launch.argtypes = pp._KERNEL_ARGTYPES
+    p.pairs_launch.argtypes = (pp._KERNEL_ARGTYPES if takes_sub_tiles(p) else
+                               pp._KERNEL_ARGTYPES[:5] + pp._KERNEL_ARGTYPES[6:])
     p.pairs_launch.restype = ctypes.c_int
     p.pairs_scratch_bytes.argtypes = [ctypes.c_int] * 2
     p.pairs_scratch_bytes.restype = ctypes.c_longlong
@@ -103,23 +111,48 @@ def build(label: str, csrc: Path) -> dict:
     q.fused_queue_grid(ctypes.addressof(grid))
     pgrid = (ctypes.c_int * 5)()
     p.pairs_grid(ctypes.addressof(pgrid))
-    return dict(label=label, queue=q, pairs=p, ptxas=ptxas, grid=list(grid), pairs_grid=list(pgrid))
+    sub = p.pairs_sub_tile() if takes_sub_tiles(p) else None
+    return dict(label=label, queue=q, pairs=p, ptxas=ptxas, grid=list(grid), pairs_grid=list(pgrid),
+                sub=sub)
 
 
-def sample(lib, args, key, nee, lights, stats=None):
-    """One 2b sample of ``lib`` on the engine's arguments, as
+def takes_sub_tiles(lib) -> bool:
+    """Whether a library of ``pairs.cu`` or ``fused_queue.cu`` takes the
+    sub-tile boxes after the block bounds (it exports its sub-tile)."""
+    return hasattr(lib, "pairs_sub_tile") or hasattr(lib, "fused_queue_sub_tile")
+
+
+def sub_tiled(geom, feats, width):
+    """``feats`` with the sub-tile boxes of a source built for sub-tiles of
+    ``width`` triangles (None: a source without them)."""
+    import numpy as np
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
+
+    if width is None or width == ch.SUB_TILE:
+        return feats
+    allv = np.stack([x.cpu().numpy() for x in (geom.v0, geom.v1, geom.v2)])
+    boxes = ch.tri_boxes(allv, feats.edges.shape[-1], width)
+    return feats._replace(sub_bounds=torch.as_tensor(boxes, device=feats.edges.device))
+
+
+def sample(lib, args, key, nee, lights, stats=None, sun=True):
+    """One 2b sample of ``lib`` on the engine's arguments, 4 bounces, as
     ``ops/fused.sample_fused_queue`` launches it."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
 
-    run = fu._Launch(*args, key, 0, max_bounce=4, sun_enabled=True, uniforms=None, nee=nee,
+    run = fu._Launch(*args, key, 0, max_bounce=4, sun_enabled=sun, uniforms=None, nee=nee,
                      lights=lights, record=False, stats=None)
     out, tail = run.tail(False)
     tail = tail[:6] + (None if stats is None else stats.data_ptr(),) + tail[7:]
     scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
                           dtype=torch.uint8, device=run.dev)
-    err = lib.fused_queue_launch(*run.head, *run.feat, *run.mid, scratch.data_ptr(), None,
+    feat = (run.feat[:2] + (args[0].sub_bounds.data_ptr(),) + run.feat[2:]
+            if takes_sub_tiles(lib) else run.feat)
+    err = lib.fused_queue_launch(*run.head, *feat, *run.mid, scratch.data_ptr(), None,
                                  None, 0, 0, 0, None, *tail)  # no running sum
     if err != 0:
         raise RuntimeError(f"fused_queue launch failed: CUDA error {err}")
@@ -137,8 +170,10 @@ def trace(lib, feats, o, d, stats=None):
     out = (torch.empty(n, device=dev), torch.empty(n, dtype=torch.int64, device=dev),
            torch.empty(n, dtype=torch.bool, device=dev))
     scratch = torch.empty((lib.pairs_scratch_bytes(n, nb),), dtype=torch.uint8, device=dev)
+    bounds = (feats.block_bounds.data_ptr(),) + ((feats.sub_bounds.data_ptr(),)
+                                                 if takes_sub_tiles(lib) else ())
     err = lib.pairs_launch(o.data_ptr(), d.data_ptr(), n, feats.packed.data_ptr(),
-                           feats.block_bounds.data_ptr(), tp, tp // nb, nb, scratch.data_ptr(),
+                           *bounds, tp, tp // nb, nb, scratch.data_ptr(),
                            *(x.data_ptr() for x in out),
                            None if stats is None else stats.data_ptr(),
                            torch.cuda.current_stream().cuda_stream)
@@ -194,6 +229,7 @@ def main(argv=None) -> int:
     import torch
 
     from ensem3a_openclraytracer_tpu_torch import testing as tt
+    from ensem3a_openclraytracer_tpu_torch.experiments import common
     from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
     from ensem3a_openclraytracer_tpu_torch.ops import rng as rg
     from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
@@ -235,13 +271,16 @@ def main(argv=None) -> int:
     key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)
     for name in (s for s in a.shapes if s in SHAPES):
         cubes, res, nee = SHAPES[name]
-        g, m, e, c = tt.make_outdoor_scene(n_cubes=cubes, emissive_panel=nee, device=dev)
+        sun = cubes is not None
+        g, m, e, c = (tt.make_outdoor_scene(n_cubes=cubes, emissive_panel=nee, device=dev) if sun
+                      else common.closedbox(dev))
         args = cs.fused_inputs(g, m, e, c, res)
+        lb_args = {lb["label"]: (sub_tiled(g, args[0], lb["sub"]),) + args[1:] for lb in libs}
         lights = build_light_pack(g, m) if nee else None
         first = None
         for lb in libs:
             stats = torch.zeros(STATS_SLOTS, dtype=torch.int64, device=dev)
-            out = sample(lb["queue"], args, key, nee, lights, stats)
+            out = sample(lb["queue"], lb_args[lb["label"]], key, nee, lights, stats, sun)
             torch.cuda.synchronize()
             if first is None:
                 first = out
@@ -251,7 +290,8 @@ def main(argv=None) -> int:
                   f"{stats.tolist()}", flush=True)
             if not same:
                 raise SystemExit(f"{lb['label']} differs from this checkout on {name}")
-        times = in_turns({lb["label"]: (lambda lb=lb: sample(lb["queue"], args, key, nee, lights))
+        times = in_turns({lb["label"]: (lambda lb=lb: sample(lb["queue"], lb_args[lb["label"]], key,
+                                                             nee, lights, sun=sun))
                           for lb in libs}, a.iters, a.turns)
         result["sample_ms"][name] = times
         for k, v in times.items():
@@ -277,25 +317,27 @@ def main(argv=None) -> int:
         lanes = pp.select_lanes(o.shape[0], g.feats.block_bounds.shape[0], threads)
         print(f"[{name}] {o.shape[0]} rays: this checkout's first select gives each "
               f"{lanes} lanes", flush=True)
+        lb_feats = {lb["label"]: sub_tiled(g, g.feats, lb["sub"]) for lb in libs}
         first = None
         for lb in libs:
             stats = torch.zeros(4, dtype=torch.int64, device=dev)
-            out = trace(lb["pairs"], g.feats, o, d, stats)
+            out = trace(lb["pairs"], lb_feats[lb["label"]], o, d, stats)
             torch.cuda.synchronize()
             if first is None:
                 first = (out, stats)
             same = all(torch.equal(x, y) for x, y in zip(out, first[0]))
-            counts = torch.equal(stats, first[1])
+            counts = torch.equal(stats[1:], first[1][1:])
             result["stats"][f"{name}/{lb['label']}"] = stats.tolist()
             vs_plain = ("" if plain is None else
                         f"; triangles differing from the plain version's "
                         f"{int((out[1] != plain.tri).sum())}")
             print(f"[{name}] {lb['label']}: {o.shape[0]} rays, hits bit-equal to this "
-                  f"checkout's {same}, counts equal {counts}; stats "
+                  f"checkout's {same}, stagings, rounds and slab tests equal {counts}; stats "
                   f"{stats.tolist()}{vs_plain}", flush=True)
             if not (same and counts):
                 raise SystemExit(f"{lb['label']} differs from this checkout on {name}")
-        times = in_turns({lb["label"]: (lambda lb=lb: trace(lb["pairs"], g.feats, o, d))
+        times = in_turns({lb["label"]: (lambda lb=lb: trace(lb["pairs"], lb_feats[lb["label"]], o,
+                                                            d))
                           for lb in libs}, a.iters, a.turns)
         result["trace_ms"][name] = times
         for k, v in times.items():

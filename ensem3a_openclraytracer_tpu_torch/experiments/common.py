@@ -1,5 +1,6 @@
 """What the two prototypes share: their rays, their timer and the body of
-their ``main``."""
+their ``main``; and what the block queues' tests and experiments share: NEE's
+shadow rays and the benchmark's closed box."""
 
 from __future__ import annotations
 
@@ -29,6 +30,52 @@ def bounce_rays(geom, n: int, seed: int = 0, offset: float = 1e-4):
     dev = geom.v0.device
     return (torch.as_tensor((p + offset * d).astype(np.float32), device=dev),
             torch.as_tensor(d, device=dev))
+
+
+def shadow_rays(geom, n: int, seed: int = 0, offset: float = 1e-4):
+    """``n`` rays as next-event estimation casts them: from a uniform point
+    on a random triangle towards a uniform point on another random one
+    (numpy, from ``seed``), the origin moved ``offset`` along the
+    direction.  Returns ``(o, d)`` f32 ``[n, 3]`` on the geometry's
+    device."""
+    v0, v1, v2 = (x.cpu().numpy() for x in (geom.v0, geom.v1, geom.v2))
+    rng = np.random.default_rng(seed)
+
+    def points():
+        ti = rng.integers(0, len(v0), n)
+        s, r2 = np.sqrt(rng.random(n)), rng.random(n)
+        return (v0[ti] * (1 - s)[:, None] + v1[ti] * (s * (1 - r2))[:, None]
+                + v2[ti] * (s * r2)[:, None])
+
+    p, q = points(), points()
+    d = q - p
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+    dev = geom.v0.device
+    return (torch.as_tensor((p + offset * d).astype(np.float32), device=dev),
+            torch.as_tensor(d.astype(np.float32), device=dev))
+
+
+def closedbox(device):
+    """The benchmark's ``closedbox15k`` scene (the Cornell box and a
+    15,720-triangle glossy sphere, 62 blocks, lit by its panel), written
+    from ``port_bench/configs/closedbox15k.json`` and loaded as its cell
+    loads it: ``(geometry, materials, env, camera)``."""
+    import json
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene
+
+    root = Path(__file__).resolve().parents[2]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from port_bench.scenes import files
+
+    config = json.loads((root / "port_bench" / "configs" / "closedbox15k.json").read_text())
+    with tempfile.TemporaryDirectory() as d:
+        s = Scene.load(files.write_scene(config, 0, d, device), device=device)
+        return s.geometry, s.material_params(), s.env_params(), s.camera_params()
 
 
 def cuda_median_ms(fn, runs: int = 5) -> float:

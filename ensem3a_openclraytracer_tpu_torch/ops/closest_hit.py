@@ -33,6 +33,10 @@ from ensem3a_openclraytracer_tpu_torch.ops.geometry import MAX_DIST, MIN_HIT_DIS
 from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 
 TRI_TILE = 256  # triangles per culling block (the TPU kernels' TRI_TILE)
+# Triangles per sub-tile: the block queues test a queued ray only against the
+# sub-tiles of its block whose box it enters (csrc/pairs.cuh bq::SUB; a warp,
+# and the triangles of one slice at 8 slices a tile).
+SUB_TILE = 32
 MISS_T = MAX_DIST * 0.999
 
 # Launches of the CUDA kernel, by kernel name.  Only a launch on the card
@@ -52,8 +56,11 @@ class TriFeatures(NamedTuple):
     a conservative margin on their block culling.  ``packed [Tp, 28]``: the
     25 feature rows of each triangle side by side, padded to 28 (the
     triangle-major copy that every kernel stages with 16-byte loads;
-    :func:`pack_features`), built once per scene.  ``edges``, ``plane``
-    and ``normal_d`` are what the plain versions read."""
+    :func:`pack_features`), built once per scene.  ``sub_bounds [B *
+    TRI_TILE / SUB_TILE, 8]``: the same boxes and margin for each run of
+    ``SUB_TILE`` triangles of a block (:func:`tri_boxes`), which the block
+    queues cull a queued ray against.  ``edges``, ``plane`` and
+    ``normal_d`` are what the plain versions read."""
 
     edges: torch.Tensor
     plane: torch.Tensor
@@ -61,6 +68,7 @@ class TriFeatures(NamedTuple):
     block_bounds: torch.Tensor
     num_tris: int
     packed: torch.Tensor | None = None
+    sub_bounds: torch.Tensor | None = None
 
 
 PACKED_ROWS = 28  # feature rows per triangle in ``TriFeatures.packed``
@@ -101,22 +109,9 @@ def build_tri_features(v0, v1, v2, device: torch.device) -> TriFeatures:
     normal_d = np.zeros((3, tp), np.float32)
     normal_d[:, :t] = n.T
 
-    nb = -(-tp // TRI_TILE)
-    bounds = np.zeros((nb, 8), np.float32)
-    bounds[:, :3] = np.inf
-    bounds[:, 3:6] = -np.inf
     allv = np.stack([v0, v1, v2])  # [3, T, 3]
-    for b in range(nb):
-        lo_t, hi_t = b * TRI_TILE, min((b + 1) * TRI_TILE, t)
-        if lo_t < hi_t:
-            blk = allv[:, lo_t:hi_t].reshape(-1, 3)
-            bounds[b, :3] = blk.min(axis=0)
-            bounds[b, 3:6] = blk.max(axis=0)
-    scene_diag = 0.0
-    if t > 0:
-        flat = allv.reshape(-1, 3)
-        scene_diag = float(np.linalg.norm(flat.max(axis=0) - flat.min(axis=0)))
-    bounds[:, 6] = max(MIN_HIT_DIST, 2.0 ** -14 * scene_diag)
+    bounds = tri_boxes(allv, tp, TRI_TILE)
+    sub_bounds = tri_boxes(allv, tp, SUB_TILE)
 
     as_t = lambda a: torch.as_tensor(a, device=device)
     edges, plane, normal_d = as_t(edges), as_t(plane), as_t(normal_d)
@@ -127,7 +122,33 @@ def build_tri_features(v0, v1, v2, device: torch.device) -> TriFeatures:
         block_bounds=as_t(bounds),
         num_tris=t,
         packed=pack_features(edges, plane, normal_d),
+        sub_bounds=as_t(sub_bounds),
     )
+
+
+def tri_boxes(allv: np.ndarray, tp: int, width: int) -> np.ndarray:
+    """``[B * TRI_TILE / width, 8]`` f32: the AABB (columns 0-5) of each run
+    of ``width`` consecutive triangles (a divisor of ``TRI_TILE``) of the
+    ``tp`` padded triangles, rounded up to whole blocks, and in column 6
+    the scene-scale margin ``max(MIN_HIT_DIST, 2^-14 x the scene
+    diagonal)``; a run of padding alone is an inverted box (+inf lows,
+    -inf highs).  ``allv [3, T, 3]``: the triangles' vertices.  Array
+    operations, no loop over boxes."""
+    t = allv.shape[1]
+    nb = -(-tp // TRI_TILE)
+    runs = nb * TRI_TILE // width
+    lo = np.full((3, runs * width, 3), np.inf, np.float32)
+    hi = np.full((3, runs * width, 3), -np.inf, np.float32)
+    lo[:, :t], hi[:, :t] = allv, allv
+    boxes = np.zeros((runs, 8), np.float32)
+    boxes[:, :3] = lo.reshape(3, runs, width, 3).min(axis=(0, 2))
+    boxes[:, 3:6] = hi.reshape(3, runs, width, 3).max(axis=(0, 2))
+    scene_diag = 0.0
+    if t > 0:
+        flat = allv.reshape(-1, 3)
+        scene_diag = float(np.linalg.norm(flat.max(axis=0) - flat.min(axis=0)))
+    boxes[:, 6] = max(MIN_HIT_DIST, 2.0 ** -14 * scene_diag)
+    return boxes
 
 
 def _finish(best_t: torch.Tensor, best_i: torch.Tensor) -> Hit:
@@ -175,13 +196,15 @@ def tri_t(r6, q4, d, edges, plane, normal_d) -> torch.Tensor:
     return torch.where(valid, t, torch.full_like(t, MAX_DIST))
 
 
-def block_entries(block_bounds: torch.Tensor, ray_o: torch.Tensor,
-                  ray_d: torch.Tensor) -> torch.Tensor:
-    """``[N, B]`` conservative entry distance of each ray into each
-    triangle block's box, grown by the margin in ``block_bounds[:, 6]``,
-    ``+inf`` where the grown box is missed or the block holds only
+def block_entries(bounds: torch.Tensor, ray_o: torch.Tensor, ray_d: torch.Tensor) -> torch.Tensor:
+    """Conservative entry distance of each ray into each box, grown by the
+    margin in column 6, ``+inf`` where the grown box is missed or holds only
     padding: the plain twin of ``block_entry`` in ``csrc/closest_hit.cuh``,
-    with the same operations in the same order, one axis at a time."""
+    with the same operations in the same order, one axis at a time.  Boxes
+    ``[..., B, 8]`` (``block_bounds``' or ``sub_bounds``' rows) and rays
+    ``[..., 3]`` broadcast over the leading dimensions: ``[B, 8]`` boxes and
+    ``[N, 3]`` rays give ``[N, B]``, every ray against every box; ``[P, S,
+    8]`` and ``[P, 3]`` give ``[P, S]``, each ray against its own boxes."""
     tiny = 1e-12
     d = torch.where(
         torch.abs(ray_d) < tiny,
@@ -189,17 +212,17 @@ def block_entries(block_bounds: torch.Tensor, ray_o: torch.Tensor,
         ray_d,
     )
     inv = 1.0 / d
-    lo, hi, eps = block_bounds[:, 0:3], block_bounds[:, 3:6], block_bounds[:, 6]
+    lo, hi, eps = bounds[..., 0:3], bounds[..., 3:6], bounds[..., 6]
     tmin = tmax = None
     for k in range(3):
-        t1 = (lo[None, :, k] - ray_o[:, None, k]) * inv[:, None, k]
-        t2 = (hi[None, :, k] - ray_o[:, None, k]) * inv[:, None, k]
+        t1 = (lo[..., k] - ray_o[..., None, k]) * inv[..., None, k]
+        t2 = (hi[..., k] - ray_o[..., None, k]) * inv[..., None, k]
         near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
         tmin = near if tmin is None else torch.maximum(tmin, near)
         tmax = far if tmax is None else torch.minimum(tmax, far)
     tmin = tmin - eps - 1e-6 * torch.abs(tmin)
     tmax = tmax + eps + 1e-6 * torch.abs(tmax)
-    hit = (tmax >= tmin) & (tmax >= 0.0) & (lo[:, 0] <= hi[:, 0])
+    hit = (tmax >= tmin) & (tmax >= 0.0) & (lo[..., 0] <= hi[..., 0])
     return torch.where(hit, torch.clamp(tmin, min=0.0), torch.full_like(tmin, float("inf")))
 
 
@@ -290,6 +313,19 @@ def _check(x: torch.Tensor, name: str, shape: Tuple[int, ...], dtype, dev) -> No
             f"{name}: want a contiguous {dtype} tensor of shape {shape} on {dev}, got "
             f"{x.dtype} {tuple(x.shape)} on {x.device} (contiguous={x.is_contiguous()})"
         )
+
+
+def check_sub_bounds(feats: TriFeatures, nb: int, dev: torch.device) -> torch.Tensor:
+    """``feats.sub_bounds``, checked for the block-queue kernels, which
+    stage a block's sub-tile boxes with 16-byte copies: contiguous f32
+    ``[nb * TRI_TILE / SUB_TILE, 8]`` on ``dev``, 16-byte aligned; raises
+    otherwise."""
+    if feats.sub_bounds is None:
+        raise ValueError("features lack their sub-tile boxes: build them with build_tri_features")
+    _check(feats.sub_bounds, "sub_bounds", (nb * (TRI_TILE // SUB_TILE), 8), torch.float32, dev)
+    if feats.sub_bounds.data_ptr() % 16:
+        raise ValueError("sub_bounds must be 16-byte aligned")
+    return feats.sub_bounds
 
 
 def check_packed(feats: TriFeatures, tp: int, dev: torch.device) -> torch.Tensor:

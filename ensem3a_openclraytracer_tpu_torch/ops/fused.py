@@ -70,6 +70,7 @@ from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import (
     _expand_bits_10,
     check_features,
     check_packed,
+    check_sub_bounds,
     resident,
     trace_plain,
 )
@@ -109,19 +110,25 @@ LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_samp
 # (``ops/pairs.slices``); the rounds whose select gave each ray a group of
 # more than one lane (``ops/pairs.select_lanes``); the NEE shadow rays
 # listed (the lanes that want the light, counted where the kernel lists
-# them; among the segments); the lanes whose sky a render launch looked up
-# (:func:`render_fused_queue`; a one-sample launch looks up none); last the
-# segments of each bounce, whose number follows ``max_bounce``.  Cycles are
-# one SM's clock: only their ratios are read.  The plain version counts the
-# same, with no syncs, no cycles, neither of the two slice counts and no
-# grouped rounds.
+# them; among the segments); the (ray, sub-tile) entries of the queued (ray,
+# block) pairs whose sub-tile of ``ops/pairs.SUB`` triangles holds a
+# triangle, and those of them that the test phase's cull kept
+# (``ops/pairs.sub_tile_cull``: each tests its sub-tile's triangles, so
+# ``pairs`` is ``SUB`` times the kept entries on full blocks); the lanes
+# whose sky a render launch looked up (:func:`render_fused_queue`; a
+# one-sample launch looks up none); last the segments of each bounce, whose
+# number follows ``max_bounce``.  Cycles are one SM's clock: only their ratios are read.
+# The plain version counts the same, with no syncs, no cycles, neither of
+# the two slice counts and no grouped rounds.
 QUEUE_STATS = ("pairs", "stagings", "rounds", "slabs", "syncs", "segments", "sync_cycles",
                "kernel_cycles", "shade_cycles", "bounce_trace_cycles", "resolve_cycles",
                "sun_trace_cycles", "finish_cycles", "split_rounds", "items",
-               "coop_select_rounds", "nee_rays", "escape_lookups")
+               "coop_select_rounds", "nee_rays", "subtiles_offered", "subtiles_tested",
+               "escape_lookups")
 SEGMENTS = QUEUE_STATS.index("segments")
 NEE_RAYS = QUEUE_STATS.index("nee_rays")
 ESCAPE_LOOKUPS = QUEUE_STATS.index("escape_lookups")
+SUBTILES = QUEUE_STATS.index("subtiles_offered")  # and subtiles_tested after it
 
 
 def queue_stats_fields(max_bounce: int) -> tuple:
@@ -247,7 +254,8 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     (int64 ``[queue_stats_len(max_bounce)]``, optional) receives what
     ``csrc/fused_queue.cu`` counts there (:data:`QUEUE_STATS`): pairs
     tested, block stagings, rounds, slab tests, the segments traced and
-    each bounce's, the NEE shadow rays among them; the plain version makes
+    each bounce's, the NEE shadow rays among them, the sub-tile entries
+    offered to and kept by the test phase's cull; the plain version makes
     no grid syncs and counts no cycles, no slices and no grouped selects.
     On one block it traces with ``trace_plain`` (``stats`` untouched).
     Both equal ``trace_plain`` bit for bit.
@@ -283,7 +291,7 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
     if stats is not None and multi and tuple(stats.shape) != (queue_stats_len(max_bounce),):
         raise ValueError(f"stats: want shape ({queue_stats_len(max_bounce)},) on "
                          f"{feats.block_bounds.shape[0]} blocks, got {tuple(stats.shape)}")
-    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    counts = torch.zeros(6, dtype=torch.int64, device=dev)  # trace_pairs_plain's six
     lanes = [0] * mb1  # segments traced per bounce
     nee_rays = 0  # NEE shadow rays traced
 
@@ -370,7 +378,8 @@ def sample_fused_plain(feats: TriFeatures, tri_attrs, primary_p, primary_n, prim
         final_emis = final_emis & emit_ok
     rad = rad + select(final_emis, thr * rough[:, None], zero3)
     if stats is not None and multi:
-        stats[:4] += counts.to(stats.device)
+        stats[:4] += counts[:4].to(stats.device)
+        stats[SUBTILES:SUBTILES + 2] += counts[4:].to(stats.device)
         stats[SEGMENTS] += sum(lanes)
         stats[NEE_RAYS] += nee_rays
         stats[len(QUEUE_STATS):] += torch.tensor(lanes, dtype=torch.int64, device=stats.device)
@@ -503,6 +512,7 @@ class _Launch:
                                               sun_power)))
         self.feat = (feats.packed.data_ptr(), feats.block_bounds.data_ptr(), self.tp, self.tile,
                      self.nb)
+        self.feats = feats
         self.mid = (tri_attrs.data_ptr(), *(ptr(x) for x in light_cols), n_lights,
                     ptr(uniforms), ptr(key), int(sample))
 
@@ -511,6 +521,13 @@ class _Launch:
         """The stream current when the kernel launches (under graph capture,
         the capture's)."""
         return torch.cuda.current_stream(self.dev).cuda_stream
+
+    @property
+    def queue_feat(self) -> tuple:
+        """``feat`` with the sub-tile boxes after the bounds, as
+        ``csrc/fused_queue.cu`` takes them (checked here)."""
+        sub = check_sub_bounds(self.feats, self.nb, self.dev)
+        return self.feat[:2] + (sub.data_ptr(),) + self.feat[2:]
 
     def tail(self, record):
         """One sample's outputs ``(rad, esc_thr, esc_dir[, u, tri, sun_tri])``
@@ -539,6 +556,7 @@ _ARGTYPES_HEAD = (
     + [ctypes.c_void_p] * 2  # sun_dir [3], sun_power [1]
 )
 _ARGTYPES_FEAT = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
+_ARGTYPES_QUEUE_FEAT = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3  # ..., sub_bounds; tp, ...
 _ARGTYPES_MID = (
     [ctypes.c_void_p]  # attrs
     + [ctypes.c_void_p] * 6 + [ctypes.c_int]  # light v0, v1, v2, n, power, area; count
@@ -584,7 +602,7 @@ def _queue_lib():
     from ensem3a_openclraytracer_tpu_torch import _build
 
     lib = _build.load("fused_queue")
-    lib.fused_queue_launch.argtypes = (_ARGTYPES_HEAD + _ARGTYPES_FEAT + _ARGTYPES_MID
+    lib.fused_queue_launch.argtypes = (_ARGTYPES_HEAD + _ARGTYPES_QUEUE_FEAT + _ARGTYPES_MID
                                        + [ctypes.c_void_p] * 2  # scratch, acc
                                        + _ARGTYPES_SKY + _ARGTYPES_TAIL)
     lib.fused_queue_launch.restype = ctypes.c_int
@@ -699,11 +717,12 @@ def _queue_launch(run: _Launch, nee: bool, mids: list, acc, sky: tuple, tail: tu
     if slots * PAIRS_K >= 2 ** 31:
         raise ValueError(f"{slots} rays x {PAIRS_K} picks overflow the kernel's int32 queue")
     lib = _queue_lib()
+    feat = run.queue_feat
     scratch = torch.empty((lib.fused_queue_scratch_bytes(run.n, run.nb, int(nee)),),
                           dtype=torch.uint8, device=run.dev)
     acc_ptr = None if acc is None else acc.data_ptr()
     for mid in mids:
-        err = lib.fused_queue_launch(*run.head, *run.feat, *mid, scratch.data_ptr(), acc_ptr,
+        err = lib.fused_queue_launch(*run.head, *feat, *mid, scratch.data_ptr(), acc_ptr,
                                      *sky, *tail)
         if err != 0:
             raise RuntimeError(f"fused_queue kernel launch failed: CUDA error {err}")

@@ -13,10 +13,14 @@ above its cursor (the last key it queued) among the blocks whose margined
 box it enters no farther than its best ``t`` (``closest_hit.block_entries``).
 The (ray, block) pairs are grouped by block, each block is tested against
 the rays queued on it (``closest_hit.tri_t``), and each ray keeps the least
-``(t, tri)``.  A ray that had more than ``k`` such blocks stays live.  On the
-card all rounds run in one cooperative launch of ``csrc/pairs.cu``
-(:func:`trace_pairs`); :func:`trace_pairs_plain` runs the same rounds in
-tensor ops and equals ``trace_plain`` bit for bit.
+``(t, tri)``.  A queued ray is tested only against the sub-tiles of
+:data:`SUB` triangles of its block whose margined box
+(``TriFeatures.sub_bounds``) it enters no farther than the best ``t`` its
+select read that round; the others cannot hold a nearer hit.  A ray that had
+more than ``k`` such blocks stays live.  On the card all rounds run in one
+cooperative launch of ``csrc/pairs.cu`` (:func:`trace_pairs`);
+:func:`trace_pairs_plain` runs the same rounds in tensor ops and equals
+``trace_plain`` bit for bit.
 
 A round of the kernel whose work items (a block and up to ``CHUNK`` of
 its queued rays) are too few to fill the grid splits each item's triangles
@@ -48,6 +52,8 @@ from ensem3a_openclraytracer_tpu_torch.ops.intersect import Hit
 # tests up to ~600 blocks.
 K = 8
 CHUNK = 256  # queued rays per work item of the kernel (a block staging)
+SUB = ch.SUB_TILE  # triangles per sub-tile of the test phase's cull (csrc/pairs.cuh bq::SUB)
+SUBS = ch.TRI_TILE // SUB  # sub-tiles a block
 S_MAX = 32  # most triangle slices of one work item (csrc/pairs.cuh bq::S_MAX)
 G_MAX = 32  # most select lanes a ray: a warp (csrc/pairs.cuh bq::G_MAX)
 AGG_BLOCKS = 1280  # most blocks of a scene whose select groups lanes (bq::AGG_BLOCKS)
@@ -94,31 +100,55 @@ def select_lanes(n_live: int, nb: int, grid_threads: int) -> int:
 
 
 def _test_pairs(feats: ch.TriFeatures, r6, q4, d, rid: torch.Tensor, blk: torch.Tensor,
-                tile: int, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+                tile: int, lo: int = 0, hi: int | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
     """Per (ray, block) pair, the key of the ray's least ``(t, tri)`` among
-    the block's triangles ``[lo, hi)`` (all of them by default),
+    the block's triangles ``[lo, hi)`` (all of them by default) that lie in
+    the sub-tiles ``keep [P, SUBS]`` marks (every one by default),
     ``NO_HIT_KEY`` where it hits nothing there short of ``MAX_DIST``."""
     hi = tile if hi is None else hi
-    idx = blk[:, None] * tile + torch.arange(lo, hi, device=blk.device)  # [P, hi - lo]
+    local = torch.arange(lo, hi, device=blk.device)
+    idx = blk[:, None] * tile + local  # [P, hi - lo]
     t = ch.tri_t(r6[rid][:, None], q4[rid][:, None], d[rid][:, None], feats.edges[:, :, idx],
                  feats.plane[:, idx], feats.normal_d[:, idx])[:, 0]  # [P, tile]
+    if keep is not None:
+        t = torch.where(keep[:, local // SUB], t, torch.full_like(t, MAX_DIST))
     tmin, arg = torch.min(t, dim=1)
     tri = torch.gather(idx, 1, arg[:, None])[:, 0]
     key = (tmin.view(torch.int32).to(torch.int64) << 32) | tri
     return torch.where(tmin < MAX_DIST, key, torch.full_like(key, NO_HIT_KEY))
 
 
+def sub_tile_cull(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
+                  rid: torch.Tensor, blk: torch.Tensor, sel_t: torch.Tensor):
+    """The test phase's cull of (ray, block) pairs ``(rid, blk)``: ``(keep,
+    real)``, each ``[P, SUBS]`` bool.  ``real`` marks the block's sub-tiles
+    that hold a triangle (a padding-only one has an inverted box); ``keep``
+    those whose margined box the ray enters no farther than ``sel_t[rid]``,
+    the best ``t`` its select read this round (``csrc/pairs.cuh``'s
+    ``sel_t``)."""
+    boxes = feats.sub_bounds.view(-1, SUBS, 8)[blk]  # [P, SUBS, 8]
+    entry = ch.block_entries(boxes, ray_o[rid], ray_d[rid])
+    return entry <= sel_t[rid][:, None], boxes[..., 0] <= boxes[..., 3]
+
+
 def trace_pairs_plain(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
                       k: int = K, stats: torch.Tensor | None = None,
                       queues: List[Tuple[torch.Tensor, torch.Tensor]] | None = None) -> Hit:
     """The kernel's plain version: the same rounds in tensor ops, with a
-    host sync per round.  ``stats`` (int64 ``[4]``, optional) receives what
-    the kernel counts: (ray, triangle) pairs tested, block stagings (work
-    items of up to ``CHUNK`` queued rays), rounds and slab tests.
-    ``queues`` (a list, optional) receives each round's ``(rays, blocks)``
-    pairs."""
+    host sync per round.  ``stats`` (int64 ``[4]`` or ``[6]``, optional)
+    receives what the kernel counts: (ray, triangle) pairs tested, block
+    stagings (work items of up to ``CHUNK`` queued rays), rounds and slab
+    tests, then with six slots the (ray, sub-tile) entries of the queued
+    pairs whose sub-tile holds a triangle and those of them kept by the
+    cull (``csrc/fused_queue.cu``'s ``subtiles_offered`` and
+    ``subtiles_tested``).  A kept entry tests its sub-tile's triangles
+    within the tile, ``SUB`` of them on every full tile.  ``queues`` (a
+    list, optional) receives each round's ``(rays, blocks)`` pairs."""
     if k < 1:
         raise ValueError(f"k must be at least 1, not {k}")
+    if stats is not None and stats.shape not in ((4,), (6,)):
+        raise ValueError(f"stats: want 4 or 6 slots, got {tuple(stats.shape)}")
     o = ray_o.detach().to(torch.float32).contiguous()
     d = ray_d.detach().to(torch.float32).contiguous()
     n, nb = o.shape[0], feats.block_bounds.shape[0]
@@ -127,17 +157,19 @@ def trace_pairs_plain(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.T
     if n == 0 or nb == 0:
         return _finish(best)
     tile = feats.edges.shape[-1] // nb
+    sub_w = torch.clamp(tile - SUB * torch.arange(SUBS, device=dev), 0, SUB)  # within the tile
     r6, q4, dd = ch.ray_features(o, d)
     entry = ch.block_entries(feats.block_bounds, o, d)  # [N, B]
     keys = ((entry.view(torch.int32).to(torch.int64) << 32)
             | torch.arange(nb, device=dev))  # (entry bits << 32) | block
     cursor = torch.full((n,), -1, dtype=torch.int64, device=dev)  # keys are >= 0
     live = torch.arange(n, device=dev)
-    counts = [0, 0, 0, 0]
+    counts = [0] * 6
     while live.numel():
         counts[2] += 1
         counts[3] += live.numel() * nb
-        qual = (entry[live] <= key_t(best[live])[:, None]) & (keys[live] > cursor[live, None])
+        sel_t = key_t(best)  # what each live ray's select reads this round
+        qual = (entry[live] <= sel_t[live][:, None]) & (keys[live] > cursor[live, None])
         nq = qual.sum(dim=1)
         pick = torch.topk(torch.where(qual, keys[live], _NO_KEY), min(k, nb), dim=1,
                           largest=False).values  # sorted ascending
@@ -150,19 +182,23 @@ def trace_pairs_plain(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.T
             queues.append((rid, blk))
         for c in range(0, rid.numel(), PAIR_CHUNK):
             r, b = rid[c:c + PAIR_CHUNK], blk[c:c + PAIR_CHUNK]
-            best.scatter_reduce_(0, r, _test_pairs(feats, r6, q4, dd, r, b, tile), "amin")
+            keep, real = sub_tile_cull(feats, o, d, r, b, sel_t)
+            best.scatter_reduce_(0, r, _test_pairs(feats, r6, q4, dd, r, b, tile, keep=keep),
+                                 "amin")
+            counts[0] += int((keep * sub_w).sum())
+            counts[4] += int(real.sum())
+            counts[5] += int(keep.sum())
         per_block = torch.bincount(blk, minlength=nb)
-        counts[0] += rid.numel() * tile
         counts[1] += int(((per_block + CHUNK - 1) // CHUNK).sum())
         live = live[nq > k]
     if stats is not None:
-        stats += torch.tensor(counts, dtype=torch.int64, device=stats.device)
+        stats += torch.tensor(counts[:stats.shape[0]], dtype=torch.int64, device=stats.device)
     return _finish(best)
 
 
 _KERNEL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # ray_o, ray_d, n
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3  # packed, bounds; tp, tile, nb
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3  # packed, bounds, sub_bounds; tp, tile, nb
     + [ctypes.c_void_p] * 6  # scratch, out_t, out_tri, out_hit, stats, stream
 )
 
@@ -214,6 +250,7 @@ def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     n = ray_o.shape[0]
     tp, tile, nb = ch.check_features(feats, dev)
     ch.check_packed(feats, tp, dev)
+    ch.check_sub_bounds(feats, nb, dev)
     ch._check(ray_o, "ray_o", (n, 3), torch.float32, dev)
     ch._check(ray_d, "ray_d", (n, 3), torch.float32, dev)
     if stats is not None:
@@ -231,7 +268,8 @@ def trace_pairs(feats: ch.TriFeatures, ray_o: torch.Tensor, ray_d: torch.Tensor,
     scratch = torch.empty((lib.pairs_scratch_bytes(n, nb),), dtype=torch.uint8, device=dev)
     err = lib.pairs_launch(
         ray_o.data_ptr(), ray_d.data_ptr(), n, feats.packed.data_ptr(),
-        feats.block_bounds.data_ptr(), tp, tile, nb, scratch.data_ptr(),
+        feats.block_bounds.data_ptr(), feats.sub_bounds.data_ptr(), tp, tile, nb,
+        scratch.data_ptr(),
         out_t.data_ptr(), out_tri.data_ptr(), out_hit.data_ptr(),
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

@@ -1,7 +1,8 @@
 """Port parity, closest hit: the port's exact scan (the CUDA kernel's plain
 version) against the JAX package's ``trace_mxu`` scan, the ray order
-against ``coherent_order``, and ``resident``, the one rule that picks the
-kernel family of every trace and fused sample.
+against ``coherent_order``, the block and sub-tile boxes of the features,
+and ``resident``, the one rule that picks the kernel family of every trace
+and fused sample.
 
 Triangles sharing an edge tie under the inclusive side tests, and the two
 scans round their dot products in different orders, so a knife-edge ray
@@ -145,6 +146,56 @@ def test_features_of_empty_and_padded_blocks():
     d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32)), dim=-1)
     h = ch.trace_plain(f, o, d)
     assert h.hit.any() and int(h.tri.max()) < 257
+
+
+BOX_SCENES = {  # scene -> geometry: 1, 2 (a padded last block) and 61 blocks; a converted pack
+    "cornell": lambda: tt.make_cornell_scene(device="cpu")[0],
+    "random257": lambda: None,
+    "outdoor1300": lambda: tt.make_outdoor_scene(n_cubes=1300, device="cpu")[0],
+    "outdoor16_converted": lambda: convert.geometry(SCENES["outdoor16"]()[0], "cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOX_SCENES))
+def test_block_and_sub_tile_boxes_hold_their_triangles(name):
+    """``block_bounds`` and ``sub_bounds``: each box is the least and most
+    of its run's vertices (``TRI_TILE`` and ``SUB_TILE`` triangles), a run
+    of padding alone an inverted box, each with the scene's margin in
+    column 6; a block's sub-tile boxes lie inside its box."""
+    g = BOX_SCENES[name]()
+    if g is None:
+        rng = np.random.default_rng(4)
+        v = [rng.normal(size=(257, 3)).astype(np.float32) for _ in range(3)]
+        f = ch.build_tri_features(*v, "cpu")
+    else:
+        f = g.feats
+        v = [x.numpy() for x in (g.v0, g.v1, g.v2)]
+    allv = np.stack(v)  # [3, T, 3]
+    t, nb = allv.shape[1], f.block_bounds.shape[0]
+    subs = ch.TRI_TILE // ch.SUB_TILE
+    assert f.sub_bounds.shape == (nb * subs, 8) and f.sub_bounds.dtype == torch.float32
+    for boxes, width in ((f.block_bounds.numpy(), ch.TRI_TILE), (f.sub_bounds.numpy(), ch.SUB_TILE)):
+        for j, box in enumerate(boxes):
+            run = allv[:, j * width:min((j + 1) * width, t)].reshape(-1, 3)
+            if run.size:
+                assert np.array_equal(box[:3], run.min(0)) and np.array_equal(box[3:6], run.max(0))
+            else:  # padding alone: inverted, never entered
+                assert np.all(box[:3] == np.inf) and np.all(box[3:6] == -np.inf)
+        assert np.all(boxes[:, 6] == f.block_bounds.numpy()[0, 6]) and boxes[0, 6] > 0
+    sub = f.sub_bounds.numpy().reshape(nb, subs, 8)
+    real = sub[..., 0] <= sub[..., 3]
+    blk = f.block_bounds.numpy()[:, None]
+    assert np.all(~real | ((sub[..., :3] >= blk[..., :3]) & (sub[..., 3:6] <= blk[..., 3:6])).all(-1))
+    assert int(real.sum()) == -(-t // ch.SUB_TILE)
+    # a ray's entry into a sub-tile is never nearer than into its block
+    rng = np.random.default_rng(5)
+    lo, hi = allv.reshape(-1, 3).min(0), allv.reshape(-1, 3).max(0)
+    o = torch.as_tensor((lo + (hi - lo) * rng.random((512, 3))).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(512, 3)).astype(np.float32)),
+                                      dim=-1)
+    block = ch.block_entries(f.block_bounds, o, d)
+    inner = ch.block_entries(f.sub_bounds.view(nb, subs, 8), o[:, None], d[:, None])
+    assert bool((inner >= block[..., None]).all())
 
 
 RULE_SCENES = {  # scene -> (maker, triangle blocks)

@@ -17,7 +17,8 @@ its plain version's counts; on 61 and 586 blocks) and the multi-block fused
 sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
 its counts, with NEE, in record mode, up to 586 blocks; with NEE also on
 the benchmark's closed box of 62 blocks, ``closedbox_nee``, in one sample,
-a whole render and a graphed render), and the gradient
+a whole render and a graphed render; both kernels' test-phase cull to the
+sub-tiles a ray enters, counted as the plain versions count it), and the gradient
 path: the replay of fused records against the forward render, the replay's
 gradients on the card against the CPU, the gather backward's determinism,
 and a stopped and resumed optimisation against an uninterrupted one; and
@@ -44,9 +45,6 @@ suite's conftest:
 """
 
 import functools
-import json
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -65,30 +63,23 @@ from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops import traversal as tv
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
-from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene, build_light_pack
+from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
 pytestmark = pytest.mark.cuda
-
-CLOSEDBOX = Path(__file__).resolve().parents[1] / "port_bench" / "configs" / "closedbox15k.json"
 
 
 @functools.cache
 def _closedbox(dev):
-    """The benchmark's ``closedbox15k`` scene (the Cornell box and a
-    15,720-triangle glossy sphere, 62 blocks, lit by its panel), written and
-    loaded as the cell loads it: ``(geometry, materials, env, camera)``."""
-    from port_bench.scenes import files
-
-    with tempfile.TemporaryDirectory() as d:
-        scene = Scene.load(files.write_scene(json.loads(CLOSEDBOX.read_text()), 0, d, dev),
-                           device=dev)
-        return scene.geometry, scene.material_params(), scene.env_params(), scene.camera_params()
+    """The benchmark's ``closedbox15k`` scene (``common.closedbox``):
+    ``(geometry, materials, env, camera)``."""
+    return common.closedbox(dev)
 
 ROLES = {  # role -> (scene maker, expected triangle blocks)
     "one_block": (lambda dev: tt.make_cornell_scene(device=dev), 1),
     "one_block_outdoor": (lambda dev: tt.make_outdoor_scene(n_cubes=4, device=dev), 1),
     "61_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, device=dev), 61),
     "586_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=12500, device=dev), 586),
+    "closedbox": (_closedbox, 62),
 }
 
 
@@ -214,8 +205,11 @@ def test_fused_kernel_matches_plain(cuda, role):
         want = dict(zip(fu.queue_stats_fields(mb), plain_stats.tolist()))
         lanes = [got[f"lanes.{b}"] for b in range(mb + 1)]
         assert got["segments"] == sum(lanes) > 0
-        for f in ("pairs", "stagings", "rounds", "slabs", "segments", "lanes.0", "nee_rays"):
+        for f in ("pairs", "stagings", "rounds", "slabs", "segments", "lanes.0", "nee_rays",
+                  "subtiles_offered", "subtiles_tested"):
             assert abs(got[f] - want[f]) <= 0.01 * want[f], (f, got, want)
+        assert 0 < got["subtiles_tested"] <= got["subtiles_offered"]
+        assert got["pairs"] == pp.SUB * got["subtiles_tested"]
         assert (got["nee_rays"] > 0) is nee
         assert 0 < got["sync_cycles"] < got["kernel_cycles"]
         assert min(got[f] for f in fu.QUEUE_STATS[8:]) >= 0 < got["shade_cycles"]
@@ -362,7 +356,7 @@ def test_queue_render_kernel_matches_plain(cuda, role):
     diff = (k - p).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) < 0.02
     assert float(diff.median()) < 1e-5
-    counted = [0, 1, 2, 3, fu.SEGMENTS, fu.ESCAPE_LOOKUPS] + list(
+    counted = [0, 1, 2, 3, fu.SEGMENTS, fu.ESCAPE_LOOKUPS, fu.SUBTILES, fu.SUBTILES + 1] + list(
         range(len(fu.QUEUE_STATS), len(stats)))
     ks, ps = stats[counted].double(), plain_stats[counted].double()
     assert bool((ps > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats, plain_stats)
@@ -555,12 +549,20 @@ def test_compact_kernel_on_partial_sub_tiles(cuda, rt, k):
     _agree(t, tri, hit, ch.trace_plain(g.feats, o, d))
 
 
-@pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
+@pytest.mark.parametrize("role", ["61_blocks", "586_blocks", "closedbox"])
 def test_pairs_kernel_matches_plain(cuda, role):
+    """``pairs.cu`` on camera and bounce rays (and, in the closed box,
+    shadow rays towards other surfaces, as NEE casts them) against
+    ``trace_plain``; its counts, the pairs its test phase's cull let
+    through among them, equal the plain version's, and a second launch is
+    bit-equal."""
     make, blocks = ROLES[role]
     g, _, _, c = make(cuda)
     assert g.feats.block_bounds.shape[0] == blocks
     o, d = _rays(g, c, cuda, seed=blocks)
+    if role == "closedbox":
+        so, sd = common.shadow_rays(g, 16384, seed=blocks)
+        o, d = torch.cat([o, so]).contiguous(), torch.cat([d, sd]).contiguous()
     before = pp.LAUNCHES["pairs"]
     stats = torch.zeros(4, dtype=torch.int64, device=cuda)
     h = pp.trace_pairs(g.feats, o, d, stats=stats)
@@ -643,6 +645,17 @@ def test_kernel_slice_rule_is_the_plain_rule(cuda):
     for n in (1, 2, 3, 7, grid // 4, grid // 2, grid - 1, grid, grid + 1, 2 * grid):
         for items in range(0, 2 * n + 3):
             assert pp._lib().pairs_slices(items, n) == pp.slices(items, n), (items, n)
+
+
+def test_kernel_sub_tile_is_the_plain_sub_tile(cuda):
+    """Both block-queue kernels cull by ``ops/pairs.SUB`` triangles, the
+    sub-tile of ``TriFeatures.sub_bounds``, and 2b keeps four CUDA blocks an
+    SM with the cull's entry lists in its shared memory."""
+    assert pp._lib().pairs_sub_tile() == pp.SUB == fu._queue_lib().fused_queue_sub_tile()
+    assert pp.SUB == ch.SUB_TILE and ch.TRI_TILE == pp.SUBS * pp.SUB
+    grid = fu.queue_grid()
+    assert grid["blocks_per_sm"] == 4 and grid["registers"] <= 128, grid
+    assert pp.kernel_grid()["smem_bytes"] == grid["smem_bytes"]
 
 
 def test_kernel_select_rule_is_the_plain_rule(cuda):
@@ -732,15 +745,20 @@ QUEUE = {  # role -> (scene maker, expected blocks or None to read them, sun, ne
     "61_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=1300, device=dev), 61, True, False),
     "586_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=12500, device=dev), 586, True,
                    False),
+    "4_blocks": (lambda dev: tt.make_outdoor_scene(n_cubes=64, device=dev), 4, True, False),
+    "closedbox_nee": (_closedbox, 62, False, True),
 }
 
 
 @pytest.mark.parametrize("role", sorted(QUEUE))
 def test_queue_kernel_matches_plain(cuda, role):
     """The multi-block fused kernel against its plain version on one
-    explicit stream (forks, median, counts within 1 %: shading float order
-    forks a few knife-edge rays), then record mode on the Philox stream
-    (BSDF only), which on 586 blocks is beyond the JAX recorder's 256."""
+    explicit stream (forks, median, counts within 1 %, the sub-tile entries
+    its test phase's cull offered and kept among them: shading float order
+    forks a few knife-edge rays), a second launch bit-equal with the same
+    counts, then record mode on the Philox stream (BSDF only; on 4 blocks,
+    ``texel8k.grad``'s recorder), which on 586 blocks is beyond the JAX
+    recorder's 256, again twice bit-equal."""
     make, blocks, sun, nee = QUEUE[role]
     g, m, e, args = _fused_inputs(make, cuda)
     nb = g.feats.block_bounds.shape[0]
@@ -752,7 +770,8 @@ def test_queue_kernel_matches_plain(cuda, role):
               lights=build_light_pack(g, m) if nee else None)
     before = dict(fu.LAUNCHES)
     stats = torch.zeros(fu.queue_stats_len(mb), dtype=torch.int64, device=cuda)
-    k = _image(fu.sample_fused_queue(*args, stats=stats, **kw), e)
+    first = fu.sample_fused_queue(*args, stats=stats, **kw)
+    k = _image(first, e)
     torch.cuda.synchronize()
     assert fu.LAUNCHES == {**before, "sample_fused_queue": before["sample_fused_queue"] + 1}
     plain_stats = torch.zeros_like(stats)
@@ -761,17 +780,25 @@ def test_queue_kernel_matches_plain(cuda, role):
     diff = (k - p).abs().amax(dim=-1)
     assert float((diff > 1e-3).float().mean()) < 0.02
     assert float(diff.median()) < 1e-5
-    # pairs, stagings, rounds, slab tests, segments, segments by bounce
-    counted = [0, 1, 2, 3, fu.SEGMENTS] + list(range(len(fu.QUEUE_STATS), len(stats)))
+    # pairs, stagings, rounds, slab tests, segments, sub-tile entries, segments by bounce
+    counted = [0, 1, 2, 3, fu.SEGMENTS, fu.SUBTILES, fu.SUBTILES + 1] + list(
+        range(len(fu.QUEUE_STATS), len(stats)))
     ks, ps = stats[counted].double(), plain_stats[counted].double()
     assert bool((ps > 0).all()) and bool(((ks - ps).abs() <= 0.01 * ps).all()), (stats, plain_stats)
+    fields = fu.queue_stats_fields(mb)
+    named = dict(zip(fields, stats.tolist()))
+    assert 0 < named["subtiles_tested"] <= named["subtiles_offered"]
+    assert named["pairs"] == pp.SUB * named["subtiles_tested"]
+    again_stats = torch.zeros_like(stats)
+    again = fu.sample_fused_queue(*args, stats=again_stats, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+    counts = [i for i, f in enumerate(fields) if not f.endswith("cycles")]
+    assert torch.equal(again_stats[counts], stats[counts])
     # one sync to start, per bounce two around each trace loop, four per round
     loops = 1 + int(sun)
     assert int(stats[4]) == 1 + (mb + 1) * 2 * loops + 4 * int(stats[2]) and int(plain_stats[4]) == 0
-    named = dict(zip(fu.queue_stats_fields(mb), stats.tolist()))
     assert 0 < named["sync_cycles"] < named["kernel_cycles"]
-    assert all(v == 0 for f, v in zip(fu.queue_stats_fields(mb), plain_stats.tolist())
-               if f.endswith("cycles"))
+    assert all(v == 0 for f, v in zip(fields, plain_stats.tolist()) if f.endswith("cycles"))
     if not nee:
         key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(4), cuda)
         rk = fu.sample_fused_queue(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)
@@ -779,6 +806,8 @@ def test_queue_kernel_matches_plain(cuda, role):
         assert torch.equal(rk[3], rp[3])
         for a, b in zip(rk[4:], rp[4:]):
             assert float((a == b).float().mean()) >= 0.995
+        rk2 = fu.sample_fused_queue(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)
+        assert all(torch.equal(a, b) for a, b in zip(rk, rk2))
 
 
 @pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])

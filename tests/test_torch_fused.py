@@ -25,6 +25,7 @@ from ensem3a_openclraytracer_tpu_torch import convert
 from ensem3a_openclraytracer_tpu_torch import testing as tt
 from ensem3a_openclraytracer_tpu_torch.models import pathtracer as tp
 from ensem3a_openclraytracer_tpu_torch.ops import fused as tf
+from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
 from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident, trace
@@ -161,7 +162,8 @@ def test_plain_traces_are_exact_and_counted(nee):
     """On a multi-block scene the plain version traces each of the kernel's
     trace loops (bounce + NEE, then sun) with ``trace_pairs_plain`` on the
     rays the kernel traces: every trace equals ``trace_plain`` bit for bit,
-    and its counts add up to what ``stats`` receives."""
+    and its counts, the sub-tile entries that its test phase's cull offered
+    and kept among them, add up to what ``stats`` receives."""
     g, m, e, c = tt.make_outdoor_scene(n_cubes=24, emissive_panel=nee, device="cpu")
     assert g.feats.block_bounds.shape[0] == 2
     args, _, _ = _port_args(g, m, e, c, permute=True)
@@ -172,14 +174,17 @@ def test_plain_traces_are_exact_and_counted(nee):
     traces, stats = [], torch.zeros(tf.queue_stats_len(MB), dtype=torch.int64)
     out = tf.sample_fused_plain(*args, stats=stats, traces=traces, **kw)
     assert len(traces) == 2 * (MB + 1)  # bounce (+ NEE) and sun per bounce
-    total = torch.zeros(4, dtype=torch.int64)
+    total = torch.zeros(6, dtype=torch.int64)
     for o, d, h in traces:
         ref = trace(g, o, d)
         assert torch.equal(h.t, ref.t) and torch.equal(h.tri, ref.tri) and torch.equal(h.hit, ref.hit)
         pairs_plain(g.feats, o, d, stats=total)
     assert traces[0][0].shape[0] > n if nee else traces[0][0].shape[0] <= n
-    assert torch.equal(stats[:4], total) and int(stats[4]) == 0  # no grid syncs in plain
+    assert torch.equal(stats[:4], total[:4]) and int(stats[4]) == 0  # no grid syncs in plain
     named = dict(zip(tf.queue_stats_fields(MB), stats.tolist()))
+    assert [named["subtiles_offered"], named["subtiles_tested"]] == total[4:].tolist()
+    assert 0 < named["subtiles_tested"] <= named["subtiles_offered"]
+    assert named["pairs"] == pp.SUB * named["subtiles_tested"]
     assert all(named[f] == 0 for f in tf.QUEUE_STATS if f.endswith("cycles"))  # nor cycles
     assert bool((stats[:4] > 0).all()) and int(stats[2]) >= 1
     again = tf.sample_fused_plain(*args, **kw)  # counting changes nothing

@@ -2,8 +2,11 @@
 version against ``trace_plain`` (bit for bit) and against the JAX
 package's multi-block engines ``ops/pairs.trace_pairs`` and
 ``trace_pairs_streamed`` (interpret mode, under the bands that
-``tests/test_pairs.py`` holds them to), and the invariants of its rounds.
-The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``)."""
+``tests/test_pairs.py`` holds them to), the invariants of its rounds, and
+its test phase's cull to the sub-tiles a queued ray enters (bounce, shadow
+and grazing rays on 2, 61 and 62 blocks, the benchmark's closed box among
+them).  The CUDA kernel itself runs only on the card
+(``tests/test_torch_cuda.py``)."""
 
 import functools
 import math
@@ -81,7 +84,7 @@ def test_rounds_queue_each_pair_once_and_every_needed_pair(k):
     n, nb, tile = 1000, feats.block_bounds.shape[0], ch.TRI_TILE
     o, d = common.bounce_rays(g, n, seed=4)
     queues = []
-    stats = torch.zeros(4, dtype=torch.int64)
+    stats = torch.zeros(6, dtype=torch.int64)
     h = pp.trace_pairs_plain(feats, o, d, k=k, stats=stats, queues=queues)
     entry = ch.block_entries(feats.block_bounds, o, d)
     rid = torch.cat([q[0] for q in queues])
@@ -99,8 +102,12 @@ def test_rounds_queue_each_pair_once_and_every_needed_pair(k):
     stagings = sum(int(((torch.bincount(b, minlength=nb) + pp.CHUNK - 1) // pp.CHUNK).sum())
                    for _, b in queues)
     slabs = sum(torch.unique(qr).numel() for qr, _ in queues)
-    assert stats[0] == pair.numel() * tile and stats[1] == stagings and stats[2] == rounds
+    assert stats[1] == stagings and stats[2] == rounds
     assert int(stats[3]) >= slabs * nb  # every live ray slab-tests every block each round
+    # the cull: a kept (ray, sub-tile) entry tests its SUB triangles, no more than the uncut
+    # pair would, and keeps no entry of a sub-tile that holds no triangle
+    assert stats[0] == pp.SUB * stats[5] <= pair.numel() * tile
+    assert 0 < stats[5] <= stats[4] <= pair.numel() * pp.SUBS
     _assert_exact(h, ch.trace_plain(feats, o, d))
 
 
@@ -257,3 +264,73 @@ def test_packed_features_are_the_feature_rows_by_triangle(name):
     rows = torch.cat([f.edges.reshape(18, tp), f.plane, f.normal_d])  # csrc FEAT_ROWS order
     assert f.packed.shape == (tp, ch.PACKED_ROWS) and f.packed.is_contiguous()
     assert torch.equal(f.packed[:, :25], rows.t()) and not f.packed[:, 25:].any()
+
+
+@functools.cache
+def _cull_scene(name):
+    """The cull's scenes: the 2-block outdoor40, the 61-block outdoor1300 and
+    the benchmark's 62-block closed box (``common.closedbox``)."""
+    if name == "closedbox":
+        g = common.closedbox("cpu")[0]
+        assert g.feats.block_bounds.shape[0] == 62
+        return g
+    if name == "outdoor1300":
+        return _scene61_pairs()[0]
+    return _scene(name)[1]
+
+
+CULL_RAYS = {  # kind -> (o, d) of n rays on a geometry
+    "bounce": lambda g, n, seed: common.bounce_rays(g, n, seed=seed),
+    "shadow": lambda g, n, seed: common.shadow_rays(g, n, seed=seed),
+    "grazing": lambda g, n, seed: tt.grazing_rays(g, n, seed=seed),
+}
+
+
+@pytest.mark.parametrize("rays", sorted(CULL_RAYS))
+@pytest.mark.parametrize("name", ["closedbox", "outdoor1300", "outdoor40"])
+def test_cull_keeps_every_hit_and_counts_what_it_tests(name, rays):
+    """The test phase tests a queued ray only against the sub-tiles of its
+    block whose box it enters no farther than the best ``t`` its select
+    read: the hits stay ``trace_plain``'s bit for bit, a kept entry counts
+    its ``SUB`` triangles, the pairs tested stay under the uncut count
+    (every triangle of every queued block), the entries kept under those
+    offered, and the plain fused sample's counts are these."""
+    g = _cull_scene(name)
+    o, d = CULL_RAYS[rays](g, 1024, len(name) + len(rays))
+    queues = []
+    stats = torch.zeros(6, dtype=torch.int64)
+    h = pp.trace_pairs_plain(g.feats, o, d, stats=stats, queues=queues)
+    _assert_exact(h, ch.trace_plain(g.feats, o, d))
+    assert h.hit.any()
+    queued = sum(q[0].numel() for q in queues)
+    pairs, offered, tested = int(stats[0]), int(stats[4]), int(stats[5])
+    assert pairs == pp.SUB * tested <= queued * ch.TRI_TILE
+    assert 0 < tested <= offered <= queued * pp.SUBS
+    if rays == "bounce" and name != "outdoor40":  # the cull bites on the large scenes
+        assert pairs < 0.5 * queued * ch.TRI_TILE
+    four = torch.zeros(4, dtype=torch.int64)
+    pp.trace_pairs_plain(g.feats, o, d, stats=four)  # four slots: pairs.cu's
+    assert torch.equal(four, stats[:4])
+
+
+def test_cull_tests_every_sub_tile_a_ray_enters():
+    """Three full blocks whose every sub-tile holds a triangle spanning the
+    scene's whole box: rays from inside enter every sub-tile, so the cull
+    keeps every entry and the pairs tested are the uncut count."""
+    rng = np.random.default_rng(6)
+    t = 3 * ch.TRI_TILE
+    v = [rng.uniform(-1.0, 1.0, (t, 3)).astype(np.float32) for _ in range(3)]
+    big = np.arange(0, t, pp.SUB)  # the first triangle of each sub-tile spans the box
+    v[0][big], v[1][big], v[2][big] = [-2.0, -2.0, -2.0], [2.0, 2.0, 2.0], [2.0, -2.0, 2.0]
+    feats = ch.build_tri_features(*v, "cpu")
+    o = torch.as_tensor(rng.uniform(-0.5, 0.5, (500, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(500, 3)).astype(np.float32)),
+                                      dim=-1)
+    queues = []
+    stats = torch.zeros(6, dtype=torch.int64)
+    h = pp.trace_pairs_plain(feats, o, d, stats=stats, queues=queues)
+    _assert_exact(h, ch.trace_plain(feats, o, d))
+    queued = sum(q[0].numel() for q in queues)
+    assert queued >= 500
+    assert int(stats[0]) == queued * ch.TRI_TILE
+    assert int(stats[4]) == int(stats[5]) == queued * pp.SUBS
