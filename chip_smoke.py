@@ -928,11 +928,13 @@ def phase_fused_queue(role, dev, smi: str):
           f"version counted {plain_named['segments']} and traced {traces.rays} rays")
     phases = [named[f] for f in fu.QUEUE_STATS[8:13]]
     check(0 < named["sync_cycles"] < named["kernel_cycles"] and min(phases) >= 0
-          and sum(phases) > 0, f"{role['name']}: cycles {named}")
+          and sum(phases) > 0 and 0 < named["select_cycles"] < named["kernel_cycles"],
+          f"{role['name']}: cycles {named}")
     check(named["stagings"] <= named["items"] <= pp.S_MAX * named["stagings"]
           and named["split_rounds"] <= rounds and named["coop_select_rounds"] <= rounds,
           f"{role['name']}: slices {named}")
     log(f"[phase 5] {role['name']}: grid-sync share {named['sync_cycles'] / named['kernel_cycles']:.4f} "
+        f"and select share {named['select_cycles'] / named['kernel_cycles']:.4f} "
         f"of the CUDA blocks' cycles; rounds split into triangle slices {named['split_rounds']} of "
         f"{rounds}, work items {named['items']} for {stagings} stagings; rounds selecting with "
         f"a group of lanes a ray {named['coop_select_rounds']}; block 0's cycles by "

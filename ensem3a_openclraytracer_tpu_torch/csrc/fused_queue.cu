@@ -114,14 +114,16 @@ struct Params {
 // slots of bq::Queues split), the NEE shadow rays listed, the (ray, sub-tile)
 // entries of the queued pairs whose sub-tile holds a triangle and those the
 // test phase's cull kept (bq::add_tally), the lanes whose sky the launch
-// looked up (with acc only), then the segments of each bounce.
+// looked up (with acc only), the sum over CUDA blocks of thread 0's cycles
+// inside the rounds' selects, then the segments of each bounce.
 constexpr int S_SYNCS = 4, S_SEGMENTS = 5, S_SYNC_CYCLES = 6, S_KERNEL_CYCLES = 7, S_PHASE = 8;
 enum Phase { SHADE, BOUNCE_TRACE, RESOLVE, SUN_TRACE, FINISH, N_PHASES };
 constexpr int S_SPLIT = S_PHASE + N_PHASES;
 constexpr int S_NEE_RAYS = S_SPLIT + 3;
 constexpr int S_SUBTILES = S_NEE_RAYS + 1;
 constexpr int S_LOOKUPS = S_SUBTILES + 2;
-constexpr int S_LANES = S_LOOKUPS + 1;
+constexpr int S_SELECT_CYCLES = S_LOOKUPS + 1;
+constexpr int S_LANES = S_SELECT_CYCLES + 1;
 
 // The NEE shadow rays this CUDA block listed (with stats), in shared memory
 // as bq::sync_cycles is, so the count holds no register.
@@ -417,6 +419,7 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
     s_clock = Clock{};
     s_clock.entry = s_clock.last = static_cast<unsigned>(clock());
     bq::sync_cycles = 0;
+    bq::select_cycles = 0;
     bq::test_counts = bq::TestCounts{};
     nee_listed = 0;
   }
@@ -476,6 +479,7 @@ __global__ void __launch_bounds__(THREADS, 4) fused_queue_kernel(Params P) {
       if (nee_listed != 0)
         atomicAdd(&P.stats[S_NEE_RAYS], static_cast<unsigned long long>(nee_listed));
       atomicAdd(&P.stats[S_SYNC_CYCLES], static_cast<unsigned long long>(bq::sync_cycles));
+      atomicAdd(&P.stats[S_SELECT_CYCLES], static_cast<unsigned long long>(bq::select_cycles));
       atomicAdd(&P.stats[S_KERNEL_CYCLES],
                 static_cast<unsigned long long>(static_cast<unsigned>(clock()) - s_clock.entry));
     }
@@ -536,6 +540,10 @@ extern "C" int fused_queue_grid(int* out) {
 // without this entry point takes no sub-tile boxes.
 extern "C" int fused_queue_sub_tile() { return bq::SUB; }
 
+// Most blocks whose bounds the select keeps in shared memory for a whole
+// round (bq::SEL_BLOCKS).
+extern "C" int fused_queue_sel_blocks() { return bq::SEL_BLOCKS; }
+
 // One sample for n rays in one cooperative launch on `stream` (a
 // cudaStream_t passed as void*).  Arguments as fused_sample_launch's, except
 // the features: packed [tp, 28] f32, bounds [nb, 8] f32 and sub_bounds
@@ -546,7 +554,7 @@ extern "C" int fused_queue_sub_tile() { return bq::SUB; }
 // is added into, its sky looked up in the IBL image `ibl` [ibl_h, ibl_w, 3]
 // f32 with `ibl_power` [1] and the lookup's filter (no record; rad, esc_thr
 // and esc_dir unused).  `stats` may be null, else it receives its
-// max_bounce + 21 slots (see S_LANES; added).  Returns the cudaError_t of
+// max_bounce + 22 slots (see S_LANES; added).  Returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int fused_queue_launch(
     int n, int max_bounce, int sun_enabled, int nee, int record, const float* p,

@@ -105,6 +105,10 @@ extern "C" int pairs_slices(int items, int grid) { return bq::slices(items, grid
 // sub-tile boxes.
 extern "C" int pairs_sub_tile() { return bq::SUB; }
 
+// Most blocks whose bounds the select keeps in shared memory for a whole
+// round (bq::SEL_BLOCKS, which ops/pairs.SEL_BLOCKS mirrors).
+extern "C" int pairs_sel_blocks() { return bq::SEL_BLOCKS; }
+
 // The select lanes a ray in a round of n_live rays on nb blocks over
 // grid_threads threads (bq::select_lanes, which ops/pairs.select_lanes
 // mirrors).

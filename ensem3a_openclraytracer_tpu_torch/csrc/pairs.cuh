@@ -169,6 +169,12 @@ __shared__ TestCounts test_counts;
 // shared memory, 32 bits (a launch lasts far less than 2^32 cycles), so that
 // timing holds no register through the rounds.  The kernel zeroes it.
 __shared__ unsigned sync_cycles;
+// As sync_cycles, thread 0's cycles inside the timed rounds' selects: from
+// the round's start, bound staging included, to the end of the grid sync
+// that ends the select, so that a block with few rays or none counts the
+// wait for the slowest: each block's sum is the selects' wall time.  The
+// start is subtracted and the end added, so no register holds it.
+__shared__ unsigned select_cycles;
 
 // A grid-wide sync, counted, and with TIMED timed on thread 0.
 template <bool TIMED = false>
@@ -641,7 +647,7 @@ __device__ __forceinline__ void init_trace(const Queues& p, int n) {
 // The rounds, from ctrl->live[0] rays listed in live list 0 (their best and
 // cursor set, the per-block counts zero, ctrl->live[1] zero) until no ray is
 // live; every thread of the grid calls it after a grid sync.  TIMED times
-// its grid syncs (sync_cycles).  On return both
+// its grid syncs (sync_cycles) and its selects (select_cycles).  On return both
 // live counts and the per-block counts are zero again, and every block has
 // passed the last round's sync: the hits in best are final.
 template <int K, bool FRESH, bool TIMED = false>
@@ -654,6 +660,7 @@ __device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem
     if (n_live == 0) break;  // the same value in every thread: no sync is left waiting
     ++tally.rounds;
     const int* live_in = p.live + cur * p.n;
+    if (TIMED && threadIdx.x == 0) select_cycles -= static_cast<unsigned>(clock());
     int* live_out = p.live + (cur ^ 1) * p.n;  // select: each live ray's next K blocks
     const int g = select_lanes(n_live, p.nb, gridDim.x * THREADS);
     if (g == 1) {
@@ -665,6 +672,7 @@ __device__ void trace_rounds(const Queues& p, cg::grid_group& grid, float4* smem
                               tally.slabs);
     }
     sync<TIMED>(grid, tally);
+    if (TIMED && threadIdx.x == 0) select_cycles += static_cast<unsigned>(clock());
     if (blockIdx.x == 0) scan_round(p, s_scan);
     sync<TIMED>(grid, tally);
     fill_round<K>(p, n_live, live_in);

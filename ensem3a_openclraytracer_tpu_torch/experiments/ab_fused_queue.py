@@ -25,7 +25,8 @@ scratch, so a source whose entry point does not is not one either.
 2b: one sample at each of :data:`SHAPES` (``cell`` is ``outdoor15k.render``'s:
 outdoor_1300 at 256^2, 4 bounces, sun, the kernel's own Philox stream;
 ``closedbox`` is ``closedbox15k.nee``'s: the benchmark's closed box at
-256^2, 4 bounces, NEE, no sun; the others are ``chip_smoke.py`` phase 5's),
+256^2, 4 bounces, NEE, no sun; ``outdoor_50000`` is ``outdoor600k.render``'s
+2,344 blocks at 256^2, sun; the others are ``chip_smoke.py`` phase 5's),
 each source's outputs held bit-equal to this checkout's, then ``iters``
 samples timed with CUDA events per turn, the sources in order and then in
 reverse, ``turns`` times; the median ms a sample.  #3: one trace of
@@ -57,7 +58,7 @@ STATS_SLOTS = 64
 SHAPES = {"cell": (1300, 256, False), "closedbox": (None, 256, True),
           "outdoor_1000": (1000, 512, False),
           "outdoor_1000_nee": (1000, 512, True), "outdoor_1300": (1300, 512, False),
-          "outdoor_12500": (12500, 256, False)}
+          "outdoor_12500": (12500, 256, False), "outdoor_50000": (50000, 256, False)}
 TRACES = {"rays_1300": (1300, 512, 65536), "rays_12500": (12500, 512, 65536),
           "rays_cell": (1300, 256, 0)}  # name -> (cubes, rays per side, bounce rays)
 # name -> cubes: the rays of tests/test_torch_cuda.py's

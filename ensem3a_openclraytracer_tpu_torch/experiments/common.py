@@ -1,6 +1,6 @@
 """What the two prototypes share: their rays, their timer and the body of
 their ``main``; and what the block queues' tests and experiments share: NEE's
-shadow rays and the benchmark's closed box."""
+shadow rays, a floor of many blocks, and the benchmark's scenes."""
 
 from __future__ import annotations
 
@@ -55,11 +55,55 @@ def shadow_rays(geom, n: int, seed: int = 0, offset: float = 1e-4):
             torch.as_tensor(d.astype(np.float32), device=dev))
 
 
-def closedbox(device):
-    """The benchmark's ``closedbox15k`` scene (the Cornell box and a
-    15,720-triangle glossy sphere, 62 blocks, lit by its panel), written
-    from ``port_bench/configs/closedbox15k.json`` and loaded as its cell
-    loads it: ``(geometry, materials, env, camera)``."""
+def floor_features(bx: int, by: int, device) -> ch.TriFeatures:
+    """The features of a flat floor of ``bx`` x ``by`` triangle blocks
+    centred on the origin, each block one unit quad (two triangles; the rest
+    of the block repeats the quad's centre, triangles of zero area that are
+    never hit), so the side tests are conditioned as on the outdoor
+    scenes."""
+    x0, y0 = (g.reshape(-1).astype(np.float32) - n / 2 for g, n in
+              zip(np.meshgrid(np.arange(bx), np.arange(by), indexing="ij"), (bx, by)))
+    z = np.zeros_like(x0)
+    corner = lambda dx, dy: np.stack([x0 + dx, y0 + dy, z], axis=-1)  # noqa: E731
+    quad = [(corner(0, 0), corner(1, 0), corner(1, 1)), (corner(0, 0), corner(1, 1), corner(0, 1))]
+    mid = np.repeat(corner(0.5, 0.5)[:, None], ch.TRI_TILE - 2, axis=1)  # [blocks, 254, 3]
+    v = [np.concatenate([quad[0][k][:, None], quad[1][k][:, None], mid], axis=1).reshape(-1, 3)
+         for k in range(3)]
+    feats = ch.build_tri_features(*v, resolve_device(device))
+    if feats.block_bounds.shape[0] != bx * by:
+        raise ValueError(f"{bx} x {by} floor packed into {feats.block_bounds.shape[0]} blocks")
+    return feats
+
+
+def floor_sample_inputs(side: int, n: int, device):
+    """``(args, kw)`` of a one-bounce fused sample (``max_bounce`` 0, sun) of
+    ``n`` lanes on a ``side`` x ``side``-block floor (:func:`floor_features`),
+    for ``ops/fused.sample_fused_*(*args, **kw)``: each bounce and sun ray
+    leaves a quad's inner part within 45 degrees of the zenith and enters
+    its own block alone, so each trace is one round of every lane."""
+    dev = resolve_device(device)
+    feats = floor_features(side, side, dev)
+    tp = feats.edges.shape[-1]
+    rng = np.random.default_rng(40)
+    xy = np.floor(rng.uniform(-side / 2, side / 2, (n, 2))) + rng.uniform(0.2, 0.8, (n, 2))
+    p = torch.as_tensor(np.concatenate([xy, np.zeros((n, 1))], 1).astype(np.float32), device=dev)
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3).contiguous()
+    attrs = torch.zeros((tp, 8), device=dev)
+    attrs[:, 2], attrs[:, 3], attrs[:, 4:7] = 1.0, 1.0, 0.5  # upward normal, diffuse, grey
+    args = (feats, attrs, p, up, torch.ones(n, dtype=torch.int32, device=dev),
+            torch.full((n, 3), 0.5, device=dev), torch.full((n,), 0.5, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev), -up,
+            torch.nn.functional.normalize(torch.tensor([0.2, 0.1, 1.0], device=dev), dim=0),
+            torch.ones(1, device=dev))
+    u = torch.as_tensor(rng.random((1, n, 2)).astype(np.float32), device=dev)
+    u[..., 0] *= 0.5  # within 45 degrees of the normal
+    return args, dict(max_bounce=0, sun_enabled=True, uniforms=u)
+
+
+def bench_scene(config: str, device):
+    """The benchmark's configuration ``config``'s scene, written from
+    ``port_bench/configs/<config>.json`` with the seed 0 (its sky) and
+    loaded as its cells load it: ``(geometry, materials, env, camera)``."""
     import json
     import sys
     import tempfile
@@ -72,10 +116,23 @@ def closedbox(device):
         sys.path.insert(0, str(root))
     from port_bench.scenes import files
 
-    config = json.loads((root / "port_bench" / "configs" / "closedbox15k.json").read_text())
+    cfg = json.loads((root / "port_bench" / "configs" / f"{config}.json").read_text())
     with tempfile.TemporaryDirectory() as d:
-        s = Scene.load(files.write_scene(config, 0, d, device), device=device)
+        s = Scene.load(files.write_scene(cfg, 0, d, device), device=device)
         return s.geometry, s.material_params(), s.env_params(), s.camera_params()
+
+
+def closedbox(device):
+    """The benchmark's ``closedbox15k`` scene (the Cornell box and a
+    15,720-triangle glossy sphere, 62 blocks, lit by its panel)."""
+    return bench_scene("closedbox15k", device)
+
+
+def outdoor600k(device):
+    """The benchmark's ``outdoor600k`` scene: the ground and 50,000 jittered
+    cubes (600,002 triangles, 2,344 blocks) under a sun and an 8192 x 4096
+    sky."""
+    return bench_scene("outdoor600k", device)
 
 
 def cuda_median_ms(fn, runs: int = 5) -> float:

@@ -3,7 +3,7 @@ piece by piece, and select split into its steps, from copies of ``csrc/``
 with clock stamps patched in.
 
     python -m ensem3a_openclraytracer_tpu_torch.experiments.pieces_fused_queue \\
-        [LABEL=DIR[:g1] ...] [--res R] [--scene outdoor|closedbox]
+        [LABEL=DIR[:g1] ...] [--res R] [--scene outdoor|closedbox|outdoor600k]
 
 This checkout's ``csrc/`` comes first, as ``this``; each ``DIR`` is another
 copy of ``csrc/`` (see ``ab_fused_queue``).  A source with one select per
@@ -13,8 +13,10 @@ source take with ``select_groups`` at G = 1 the rounds that ``select_lanes``
 leaves to one thread a ray, where the scene has at most ``AGG_BLOCKS``
 blocks and the round's rays fit in the grid's threads (the one-thread select
 then runs only above).  One sample at ``R``^2 (default 256), 4 bounces,
-three times: of outdoor_1300 with sun (``outdoor15k.render``'s shape), or
-of the benchmark's closed box with NEE and no sun (``closedbox15k.nee``'s).
+three times: of outdoor_1300 with sun (``outdoor15k.render``'s shape), of
+the benchmark's closed box with NEE and no sun (``closedbox15k.nee``'s), or
+of the benchmark's ``outdoor600k`` scene with sun (``outdoor600k.render``'s:
+2,344 blocks, every select one thread a ray over bounds staged in chunks).
 
 Per round and CUDA block, thread 0's cycles of each piece: select, scan,
 fill, test and the grid syncs between them.  Per warp (lane 0) the cycles of
@@ -47,7 +49,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-R, G, W = 64, 1024, 24  # rounds, CUDA blocks and words a (round, block) kept
+R, G, W = 128, 1024, 24  # rounds, CUDA blocks and words a (round, block) kept
 REPS = 3
 STEPS = ["slab", "picks", "append", "stage"]
 # the test phase's steps a work item, where the source culls by sub-tile
@@ -265,7 +267,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("sources", nargs="*", help="LABEL=DIR[:g1], a copy of csrc/")
     ap.add_argument("--res", type=int, default=256)
-    ap.add_argument("--scene", choices=("outdoor", "closedbox"), default="outdoor")
+    ap.add_argument("--scene", choices=("outdoor", "closedbox", "outdoor600k"), default="outdoor")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -284,8 +286,10 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
 
-    sun = a.scene == "outdoor"  # the closed box: NEE, no sun
-    g, m, e, c = tt.make_outdoor_scene(n_cubes=1300, device=dev) if sun else common.closedbox(dev)
+    sun = a.scene != "closedbox"  # the closed box: NEE, no sun
+    g, m, e, c = {"outdoor": lambda: tt.make_outdoor_scene(n_cubes=1300, device=dev),
+                  "closedbox": lambda: common.closedbox(dev),
+                  "outdoor600k": lambda: common.outdoor600k(dev)}[a.scene]()
     lights = None if sun else build_light_pack(g, m)
     args = cs.fused_inputs(g, m, e, c, a.res)
     key = rg.key_from_generator(torch.Generator(device=dev).manual_seed(3), dev)

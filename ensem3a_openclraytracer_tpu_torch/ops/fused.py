@@ -116,15 +116,18 @@ LAUNCHES = launches.counter({"sample_fused": ("fused_render_kernel", "fused_samp
 # (``ops/pairs.sub_tile_cull``: each tests its sub-tile's triangles, so
 # ``pairs`` is ``SUB`` times the kept entries on full blocks); the lanes
 # whose sky a render launch looked up (:func:`render_fused_queue`; a
-# one-sample launch looks up none); last the segments of each bounce, whose
-# number follows ``max_bounce``.  Cycles are one SM's clock: only their ratios are read.
+# one-sample launch looks up none); the sum over CUDA blocks of thread 0's
+# clock cycles inside the rounds' selects (``ops/pairs.select_lanes``'s one
+# thread or groups of lanes, bound staging included, each up to the end of
+# the grid sync that ends it, so a block's wait for the slowest counts); last the segments of each bounce, whose number
+# follows ``max_bounce``.  Cycles are one SM's clock: only their ratios are read.
 # The plain version counts the same, with no syncs, no cycles, neither of
 # the two slice counts and no grouped rounds.
 QUEUE_STATS = ("pairs", "stagings", "rounds", "slabs", "syncs", "segments", "sync_cycles",
                "kernel_cycles", "shade_cycles", "bounce_trace_cycles", "resolve_cycles",
                "sun_trace_cycles", "finish_cycles", "split_rounds", "items",
                "coop_select_rounds", "nee_rays", "subtiles_offered", "subtiles_tested",
-               "escape_lookups")
+               "escape_lookups", "select_cycles")
 SEGMENTS = QUEUE_STATS.index("segments")
 NEE_RAYS = QUEUE_STATS.index("nee_rays")
 ESCAPE_LOOKUPS = QUEUE_STATS.index("escape_lookups")

@@ -57,6 +57,10 @@ SUBS = ch.TRI_TILE // SUB  # sub-tiles a block
 S_MAX = 32  # most triangle slices of one work item (csrc/pairs.cuh bq::S_MAX)
 G_MAX = 32  # most select lanes a ray: a warp (csrc/pairs.cuh bq::G_MAX)
 AGG_BLOCKS = 1280  # most blocks of a scene whose select groups lanes (bq::AGG_BLOCKS)
+# Most blocks whose bounds the select keeps in shared memory for a whole round;
+# above, each batch of rays stages them in chunks of this many (bq::SEL_BLOCKS,
+# which both libraries export: pairs_sel_blocks, fused_queue_sel_blocks).
+SEL_BLOCKS = 1600
 PAIR_CHUNK = 2048  # (ray, block) pairs per step of the plain version (bounds its memory)
 # (float bits of MAX_DIST) << 32 | triangle 0: "no hit yet"
 NO_HIT_KEY = int(torch.tensor(MAX_DIST, dtype=torch.float32).view(torch.int32)) << 32

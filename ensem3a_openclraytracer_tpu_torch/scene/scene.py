@@ -34,6 +34,7 @@ from ensem3a_openclraytracer_tpu_torch.scene.materials import (
     default_sky,
 )
 from ensem3a_openclraytracer_tpu_torch.scene.objloader import ObjMesh, load_obj
+from ensem3a_openclraytracer_tpu_torch.utils.profiling import span
 
 
 class LightPack(NamedTuple):
@@ -177,7 +178,8 @@ class Scene:
              geometry: Optional[GeometryPack] = None, use_bvh: Optional[bool] = None,
              device: DeviceLike = None) -> "Scene":
         dev = resolve_device(device)
-        mesh = load_obj(obj_path)
+        with span("scene.load.parse"):
+            mesh = load_obj(obj_path)
         config = ConfigReader(
             obj_path[: -len(".obj")] + ".ini" if obj_path.endswith(".obj") else obj_path + ".ini",
             material_count=mesh.num_materials - 1,

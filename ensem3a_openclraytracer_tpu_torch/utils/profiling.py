@@ -15,6 +15,8 @@ nothing else:
   profiler's clock, which the device's records share.  Spans of one call
   nest, and nesting is the parent link.  No span goes inside a function
   that is captured as a CUDA graph: it would run only at the capture.
+  ``scene/scene.Scene.load`` opens ``scene.load.parse`` around the OBJ
+  parse, a span of set-up that a profiler started before the load sees.
 * :func:`record_counters` keeps a device clone of a counter buffer that a
   kernel wrote (no host sync); :func:`counter_totals` sums the clones kept
   under a name on the host (one sync, at read time), :func:`clear_counters`

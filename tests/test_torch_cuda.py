@@ -18,7 +18,9 @@ sample kernel (``sample_fused_queue`` against ``sample_fused_plain`` and
 its counts, with NEE, in record mode, up to 586 blocks; with NEE also on
 the benchmark's closed box of 62 blocks, ``closedbox_nee``, in one sample,
 a whole render and a graphed render; both kernels' test-phase cull to the
-sub-tiles a ray enters, counted as the plain versions count it), and the gradient
+sub-tiles a ray enters, counted as the plain versions count it; above
+``SEL_BLOCKS``, a floor of 41 x 41 blocks and one sample of the benchmark's
+``outdoor600k`` scene of 2,344 blocks), and the gradient
 path: the replay of fused records against the forward render, the replay's
 gradients on the card against the CPU, the gather backward's determinism,
 and a stopped and resumed optimisation against an uninterrupted one; and
@@ -73,6 +75,12 @@ def _closedbox(dev):
     """The benchmark's ``closedbox15k`` scene (``common.closedbox``):
     ``(geometry, materials, env, camera)``."""
     return common.closedbox(dev)
+
+@functools.cache
+def _outdoor600k(dev):
+    """The benchmark's ``outdoor600k`` scene (``common.outdoor600k``)."""
+    return common.outdoor600k(dev)
+
 
 ROLES = {  # role -> (scene maker, expected triangle blocks)
     "one_block": (lambda dev: tt.make_cornell_scene(device=dev), 1),
@@ -595,34 +603,15 @@ def test_pairs_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):
     assert h0.t.shape == (0,) and pp.LAUNCHES["pairs"] == before["pairs"] + 1
 
 
-def _floor(bx, by, dev):
-    """The features of a flat floor of ``bx`` x ``by`` triangle blocks
-    centred on the origin, each block one unit quad (two triangles; the rest
-    of the block repeats the quad's centre, triangles of zero area that are
-    never hit), so the side tests are conditioned as on the outdoor
-    scenes."""
-    x0, y0 = (g.reshape(-1).astype(np.float32) - n / 2 for g, n in
-              zip(np.meshgrid(np.arange(bx), np.arange(by), indexing="ij"), (bx, by)))
-    z = np.zeros_like(x0)
-    corner = lambda dx, dy: np.stack([x0 + dx, y0 + dy, z], axis=-1)
-    quad = [(corner(0, 0), corner(1, 0), corner(1, 1)), (corner(0, 0), corner(1, 1), corner(0, 1))]
-    mid = np.repeat(corner(0.5, 0.5)[:, None], ch.TRI_TILE - 2, axis=1)  # [blocks, 254, 3]
-    v = [np.concatenate([quad[0][k][:, None], quad[1][k][:, None], mid], axis=1).reshape(-1, 3)
-         for k in range(3)]
-    feats = ch.build_tri_features(*v, dev)
-    assert feats.block_bounds.shape[0] == bx * by
-    return feats
-
-
 def test_pairs_kernel_beyond_the_shared_memory_block_limit(cuda):
     """More triangle blocks than the select phase's shared memory holds
     (``csrc/pairs.cuh``'s ``SEL_BLOCKS``, one staging buffer's float4s):
     the select phase stages the bounds in chunks, on the floor of
-    ``_floor``."""
+    ``common.floor_features``."""
     rng = np.random.default_rng(12)
     bx, by = 129, 128
-    assert bx * by > ch.TRI_TILE * 6 + ch.TRI_TILE // 4  # bq::SEL_BLOCKS
-    feats = _floor(bx, by, cuda)
+    assert bx * by > pp.SEL_BLOCKS
+    feats = common.floor_features(bx, by, cuda)
     o = np.stack([rng.uniform(-bx / 2, bx / 2, 2000), rng.uniform(-by / 2, by / 2, 2000),
                   np.full(2000, 5.0)], axis=-1)
     dd = np.concatenate([rng.normal(scale=0.5, size=(2000, 2)), -np.ones((2000, 1))], axis=-1)
@@ -656,6 +645,16 @@ def test_kernel_sub_tile_is_the_plain_sub_tile(cuda):
     grid = fu.queue_grid()
     assert grid["blocks_per_sm"] == 4 and grid["registers"] <= 128, grid
     assert pp.kernel_grid()["smem_bytes"] == grid["smem_bytes"]
+
+
+def test_kernel_select_block_limit_is_the_plain_limit(cuda):
+    """Both block-queue kernels keep the bounds of ``ops/pairs.SEL_BLOCKS``
+    blocks resident in their select's shared memory and stage more in
+    chunks of that many, so the cases above it are above the kernels' own
+    limit; ``AGG_BLOCKS`` lies below it (a grouped select keeps every bound
+    resident)."""
+    assert pp._lib().pairs_sel_blocks() == pp.SEL_BLOCKS == fu._queue_lib().fused_queue_sel_blocks()
+    assert pp.AGG_BLOCKS <= pp.SEL_BLOCKS
 
 
 def test_kernel_select_rule_is_the_plain_rule(cuda):
@@ -798,6 +797,7 @@ def test_queue_kernel_matches_plain(cuda, role):
     loops = 1 + int(sun)
     assert int(stats[4]) == 1 + (mb + 1) * 2 * loops + 4 * int(stats[2]) and int(plain_stats[4]) == 0
     assert 0 < named["sync_cycles"] < named["kernel_cycles"]
+    assert 0 < named["select_cycles"] < named["kernel_cycles"]
     assert all(v == 0 for f, v in zip(fields, plain_stats.tolist()) if f.endswith("cycles"))
     if not nee:
         key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(4), cuda)
@@ -808,6 +808,44 @@ def test_queue_kernel_matches_plain(cuda, role):
             assert float((a == b).float().mean()) >= 0.995
         rk2 = fu.sample_fused_queue(*args, key, 1, max_bounce=mb, sun_enabled=sun, record=True)
         assert all(torch.equal(a, b) for a, b in zip(rk, rk2))
+
+
+@pytest.mark.parametrize("mb, sun", [(4, True), (0, False)], ids=["render", "first_bounce"])
+def test_queue_kernel_matches_plain_on_the_outdoor600k_scene(cuda, mb, sun):
+    """One 2b sample of ``outdoor600k.render``'s scene (600,002 triangles in
+    2,344 blocks, above ``AGG_BLOCKS`` and ``SEL_BLOCKS``: every select one
+    thread a ray over bounds staged in chunks) at its 65,536 lanes on the
+    kernel's own Philox stream, against its plain version: the image agrees
+    (forks and median as ``test_queue_kernel_matches_plain``), no select
+    groups lanes, and a second launch gives the same outputs and counts.
+    With one bounce and no sun the counts are those of one trace of the
+    bounce rays off the camera rays' hits, and equal the plain version's
+    exactly, so a pick that depended on the chunking would show; with the
+    render's 4 bounces and sun a knife-edge ray that forks in shading's
+    float order changes the later traces, so the counts agree within 1 %."""
+    g, m, e, c = _outdoor600k(cuda)
+    assert g.feats.block_bounds.shape[0] == 2344
+    args = _fused_inputs(lambda dev: (g, m, e, c), cuda, res=256)[3]
+    assert args[2].shape[0] == 65536
+    key = rng.key_from_generator(torch.Generator(device=cuda).manual_seed(25), cuda)
+    kw = dict(max_bounce=mb, sun_enabled=sun)
+    fields = fu.queue_stats_fields(mb)
+    runs = []
+    for sample in (fu.sample_fused_queue, fu.sample_fused_queue, fu.sample_fused_plain):
+        stats = torch.zeros(len(fields), dtype=torch.int64, device=cuda)
+        out = sample(*args, key, 0, stats=stats, **kw)
+        runs.append((dict(zip(fields, stats.tolist())), out))
+    (named, out), (again, out2), (plain, ref) = runs
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    assert all(named[f] == again[f] for f in fields if not f.endswith("cycles"))
+    diff = (_image(out, e) - _image(ref, e)).abs().amax(dim=-1)
+    assert float((diff > 1e-3).float().mean()) < 0.02 and float(diff.median()) < 1e-5
+    gap = 0.01 if mb else 0.0
+    for f in fu.QUEUE_STATS[:4] + ("segments", "subtiles_offered", "subtiles_tested") + tuple(
+            f"lanes.{b}" for b in range(mb + 1)):
+        assert abs(named[f] - plain[f]) <= gap * plain[f], (f, named, plain)
+    assert named["coop_select_rounds"] == 0 and named["rounds"] > 0
+    assert 0 < named["select_cycles"] < named["kernel_cycles"]
 
 
 @pytest.mark.parametrize("role", ["61_blocks", "586_blocks"])
@@ -860,33 +898,17 @@ def test_queue_kernel_slices_small_samples_exactly(cuda, role):
 
 def _floor_sample(dev, n, side=40):
     """A 2b sample of ``n`` lanes on a ``side`` x ``side``-block floor
-    (``_floor``), one bounce (``max_bounce`` 0) with sun: each bounce and
-    sun ray from a quad's inner part within 45 degrees of the zenith,
-    entering its own block alone, so each trace is one round of every lane.
-    Its outputs and counts, and the plain version's."""
-    feats = _floor(side, side, dev)
-    tp = feats.edges.shape[-1]
-    rng_ = np.random.default_rng(40)
-    xy = np.floor(rng_.uniform(-side / 2, side / 2, (n, 2))) + rng_.uniform(0.2, 0.8, (n, 2))
-    p = torch.as_tensor(np.concatenate([xy, np.zeros((n, 1))], 1).astype(np.float32), device=dev)
-    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3).contiguous()
-    attrs = torch.zeros((tp, 8), device=dev)
-    attrs[:, 2], attrs[:, 3], attrs[:, 4:7] = 1.0, 1.0, 0.5  # upward normal, diffuse, grey
-    args = (feats, attrs, p, up, torch.ones(n, dtype=torch.int32, device=dev),
-            torch.full((n, 3), 0.5, device=dev), torch.full((n,), 0.5, device=dev),
-            torch.ones(n, dtype=torch.bool, device=dev), -up,
-            torch.nn.functional.normalize(torch.tensor([0.2, 0.1, 1.0], device=dev), dim=0),
-            torch.ones(1, device=dev))
-    u = torch.as_tensor(rng_.random((1, n, 2)).astype(np.float32), device=dev)
-    u[..., 0] *= 0.5  # within 45 degrees of the normal
-    kw = dict(max_bounce=0, sun_enabled=True, uniforms=u)
+    (``common.floor_sample_inputs``), each trace one round of every lane.
+    Its outputs and counts, those of a second launch, and the plain
+    version's."""
+    args, kw = common.floor_sample_inputs(side, n, dev)
     fields = fu.queue_stats_fields(0)
-    stats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
-    out = fu.sample_fused_queue(*args, stats=stats, **kw)
-    plain_stats = torch.zeros_like(stats)
-    ref = fu.sample_fused_plain(*args, stats=plain_stats, **kw)
-    return (dict(zip(fields, stats.tolist())), out, dict(zip(fields, plain_stats.tolist())),
-            ref)
+    runs = []
+    for sample in (fu.sample_fused_queue, fu.sample_fused_queue, fu.sample_fused_plain):
+        stats = torch.zeros(len(fields), dtype=torch.int64, device=dev)
+        out = sample(*args, stats=stats, **kw)
+        runs.append((dict(zip(fields, stats.tolist())), out))
+    return runs
 
 
 def test_queue_kernel_keeps_full_rounds_whole(cuda):
@@ -894,7 +916,7 @@ def test_queue_kernel_keeps_full_rounds_whole(cuda):
     the grid holds twice (4,096 lanes of ``_floor_sample``) splits no round:
     ``split_rounds`` 0 and ``items`` equal to ``stagings``; its counts
     equal the plain version's."""
-    named, out, plain, ref = _floor_sample(cuda, 4096)
+    (named, out), _, (plain, ref) = _floor_sample(cuda, 4096)
     grid = fu.queue_grid()
     assert named["rounds"] == 2 and named["stagings"] > grid["blocks_per_sm"] * grid["sms"]
     assert named["split_rounds"] == 0 and named["items"] == named["stagings"]
@@ -903,29 +925,36 @@ def test_queue_kernel_keeps_full_rounds_whole(cuda):
         assert float((a - b).abs().max()) < 1e-5
 
 
-@pytest.mark.parametrize("side, full, grouped", [(32, False, 2), (32, True, 0), (40, False, 0)],
-                         ids=["few_rays", "full_grid", "above_agg_blocks"])
+@pytest.mark.parametrize("side, full, grouped", [(32, False, 2), (32, True, 0), (40, False, 0),
+                                                (41, False, 0)],
+                         ids=["few_rays", "full_grid", "above_agg_blocks", "above_sel_blocks"])
 def test_queue_kernel_groups_selects_below_a_full_grid(cuda, side, full, grouped):
     """The two rounds of a ``_floor_sample`` on 32 x 32 blocks select with a
     group of lanes a ray when their rays are too few to fill the grid's
     threads twice (4,096 lanes: ``coop_select_rounds`` 2) and with one
     thread a ray when they fill it (as many lanes as the grid has threads:
     ``coop_select_rounds`` 0); on 40 x 40 blocks, more than
-    ``ops/pairs.AGG_BLOCKS``, 4,096 lanes keep one thread a ray.  Either way
-    the counts of pairs, stagings, rounds, slab tests, segments and lanes
-    are the plain version's and the outputs agree with it."""
+    ``ops/pairs.AGG_BLOCKS``, 4,096 lanes keep one thread a ray, and on 41 x
+    41, more than ``bq::SEL_BLOCKS`` (1,600), too, with the block bounds
+    staged in chunks for every batch of rays.  Either way the counts of
+    pairs, stagings, rounds, slab tests, segments and lanes are the plain
+    version's, the outputs agree with it, and a second launch gives the same
+    outputs and counts bit for bit."""
     grid = fu.queue_grid()
     threads = grid["blocks_per_sm"] * grid["sms"] * grid["threads"]
     n = threads if full else 4096
-    assert (side * side > pp.AGG_BLOCKS) == (side == 40)
-    named, out, plain, ref = _floor_sample(cuda, n, side)
+    assert (side * side > pp.AGG_BLOCKS) == (side >= 40)
+    assert (side * side > pp.SEL_BLOCKS) == (side == 41)
+    (named, out), (again, out2), (plain, ref) = _floor_sample(cuda, n, side)
     assert named["rounds"] == 2 and named["segments"] == 2 * n
     assert named["coop_select_rounds"] == grouped
     assert plain["coop_select_rounds"] == 0
     for f in fu.QUEUE_STATS[:4] + ("segments", "lanes.0"):
         assert named[f] == plain[f], (f, named, plain)
-    for a, b in zip(out, ref):
-        assert float((a - b).abs().max()) < 1e-5
+    for a, b, c in zip(out, ref, out2):
+        assert float((a - b).abs().max()) < 1e-5 and torch.equal(a, c)
+    assert all(named[f] == again[f] for f in named if not f.endswith("cycles"))
+    assert 0 < named["select_cycles"] < named["kernel_cycles"]
 
 
 def test_queue_kernel_makes_no_host_sync_and_is_the_dispatch(cuda):

@@ -23,12 +23,13 @@ from ensem3a_openclraytracer_tpu.ops.envmap import sun_direction as j_sun_direct
 from ensem3a_openclraytracer_tpu.scene.scene import build_light_pack as j_light_pack
 from ensem3a_openclraytracer_tpu_torch import convert
 from ensem3a_openclraytracer_tpu_torch import testing as tt
+from ensem3a_openclraytracer_tpu_torch.experiments import common
 from ensem3a_openclraytracer_tpu_torch.models import pathtracer as tp
 from ensem3a_openclraytracer_tpu_torch.ops import fused as tf
 from ensem3a_openclraytracer_tpu_torch.ops import pairs as pp
 from ensem3a_openclraytracer_tpu_torch.ops import rng
 from ensem3a_openclraytracer_tpu_torch.ops.camera import camera_rays
-from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident, trace
+from ensem3a_openclraytracer_tpu_torch.ops.closest_hit import resident, trace, trace_plain
 from ensem3a_openclraytracer_tpu_torch.ops.pairs import trace_pairs_plain as pairs_plain
 from ensem3a_openclraytracer_tpu_torch.ops.envmap import sample_ibl
 from ensem3a_openclraytracer_tpu_torch.scene.scene import build_light_pack
@@ -190,6 +191,32 @@ def test_plain_traces_are_exact_and_counted(nee):
     again = tf.sample_fused_plain(*args, **kw)  # counting changes nothing
     for a, b in zip(out, again):
         assert torch.equal(a, b)
+
+
+def test_plain_sample_above_the_select_block_limit_is_exact_and_counted():
+    """A one-bounce sample of 128 lanes with sun on a floor of 41 x 41
+    blocks (``common.floor_sample_inputs``), more than ``ops/pairs.SEL_BLOCKS``:
+    each of its two traces equals ``trace_plain`` bit for bit, a second
+    sample gives the same outputs and counts, and the cycle slots, the
+    kernel's alone (``select_cycles`` among them), stay 0."""
+    args, kw = common.floor_sample_inputs(41, 128, "cpu")
+    assert args[0].block_bounds.shape[0] > pp.SEL_BLOCKS
+    fields = tf.queue_stats_fields(0)
+    runs = []
+    for _ in range(2):
+        traces, stats = [], torch.zeros(len(fields), dtype=torch.int64)
+        runs.append((tf.sample_fused_plain(*args, stats=stats, traces=traces, **kw), stats, traces))
+    (out, stats, traces), (out2, stats2, _) = runs
+    assert len(traces) == 2  # the bounce, then the sun
+    for o, d, h in traces:
+        ref = trace_plain(args[0], o, d)
+        assert torch.equal(h.t, ref.t) and torch.equal(h.tri, ref.tri) and torch.equal(h.hit, ref.hit)
+    assert all(torch.equal(a, b) for a, b in zip(out, out2)) and torch.equal(stats, stats2)
+    named = dict(zip(fields, stats.tolist()))
+    assert named["segments"] == 2 * 128 and named["rounds"] == 2 and named["pairs"] > 0
+    assert named["slabs"] == 2 * 128 * args[0].block_bounds.shape[0]
+    assert all(named[f] == 0 for f in tf.QUEUE_STATS if f.endswith("cycles"))
+    assert named["select_cycles"] == 0
 
 
 def test_sample_fused_dispatch_by_block_count():

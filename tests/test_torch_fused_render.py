@@ -243,14 +243,16 @@ def test_multi_block_route_equals_per_sample_loop(name, bilinear):
 
 
 def test_render_fused_plain_counts_escape_lookups():
-    """``escape_lookups`` is one of 2b's fields, before the lanes of each
-    bounce; ``render_fused_plain`` on a multi-block scene counts into it
+    """``escape_lookups`` is one of 2b's fields, before ``select_cycles``
+    and the lanes of each bounce; ``render_fused_plain`` on a multi-block
+    scene counts into it
     exactly the lanes that escaped in each sample (the lanes whose sky it
     looks up), a one-sample ``sample_fused_plain`` none, and a one-block
     render has no such slot."""
     fields = tf.queue_stats_fields(MB)
     assert "escape_lookups" in fields
-    assert fields.index("escape_lookups") == len(tf.QUEUE_STATS) - 1
+    assert fields.index("escape_lookups") == len(tf.QUEUE_STATS) - 2
+    assert fields.index("select_cycles") == len(tf.QUEUE_STATS) - 1
     assert fields[len(tf.QUEUE_STATS):] == tuple(f"lanes.{b}" for b in range(MB + 1))
     g, m, e, c = MULTI["outdoor24_sun_ibl"]["make"]()
     args, _, _ = _port_args(g, m, e, c, permute=True)

@@ -5,7 +5,7 @@ package's multi-block engines ``ops/pairs.trace_pairs`` and
 ``tests/test_pairs.py`` holds them to), the invariants of its rounds, and
 its test phase's cull to the sub-tiles a queued ray enters (bounce, shadow
 and grazing rays on 2, 61 and 62 blocks, the benchmark's closed box among
-them).  The CUDA kernel itself runs only on the card
+them), and a floor of more blocks than the kernel's select keeps resident.  The CUDA kernel itself runs only on the card
 (``tests/test_torch_cuda.py``)."""
 
 import functools
@@ -237,6 +237,31 @@ def test_matches_jax_multi_block_engines(engine):
     port = pp.trace_pairs_plain(g.feats, torch.as_tensor(o), torch.as_tensor(d))
     _assert_within_jax_bands(port, ref)
     assert port.hit.float().mean() > 0.3
+
+
+def test_plain_equals_trace_plain_above_the_select_block_limit():
+    """On a floor of 41 x 41 blocks, more than ``SEL_BLOCKS`` (above which the
+    kernel's select stages the bounds in chunks) and ``AGG_BLOCKS``, rays
+    falling at a slant across several blocks each: the hits are
+    ``trace_plain``'s bit for bit, and a second trace counts the same."""
+    feats = common.floor_features(41, 41, "cpu")
+    nb = feats.block_bounds.shape[0]
+    assert nb > pp.SEL_BLOCKS > pp.AGG_BLOCKS
+    rng = np.random.default_rng(41)
+    n = 200
+    o = np.stack([rng.uniform(-20.5, 20.5, n), rng.uniform(-20.5, 20.5, n), np.full(n, 3.0)], -1)
+    d = np.concatenate([rng.normal(scale=2.0, size=(n, 2)), -np.ones((n, 1))], -1)
+    o = torch.as_tensor(o.astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(d.astype(np.float32)), dim=-1)
+    stats, again = torch.zeros(6, dtype=torch.int64), torch.zeros(6, dtype=torch.int64)
+    queues = []
+    h = pp.trace_pairs_plain(feats, o, d, stats=stats, queues=queues)
+    _assert_exact(h, ch.trace_plain(feats, o, d))
+    assert float(h.hit.float().mean()) > 0.5
+    _assert_exact(pp.trace_pairs_plain(feats, o, d, stats=again), h)
+    assert torch.equal(stats, again)
+    assert int(stats[2]) == len(queues) >= 1 and int(stats[3]) >= n * nb
+    assert max(int(torch.bincount(qr).max()) for qr, _ in queues) > 1  # rays queue several blocks
 
 
 def test_cpu_wrapper_and_dispatch_take_the_plain_version():

@@ -15,6 +15,7 @@ from ensem3a_openclraytracer_tpu import testing as jt
 from ensem3a_openclraytracer_tpu.scene.scene import Scene as JScene
 from ensem3a_openclraytracer_tpu.scene.scene import build_light_pack as j_light_pack
 from ensem3a_openclraytracer_tpu_torch import testing as tt
+from ensem3a_openclraytracer_tpu_torch.scene import objloader
 from ensem3a_openclraytracer_tpu_torch.scene.objloader import load_obj
 from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene, build_light_pack, pack_geometry
 
@@ -122,6 +123,124 @@ def test_written_scene_round_trips(tmp_path):
     for f in cam._fields:
         _eq(getattr(cam, f), getattr(c, f), f)
     assert s.config.render_settings().spp == 2
+
+
+def _same_mesh(a, b):
+    for f in ("v_p", "v_n", "v_uv", "face_data"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        assert x.tobytes() == y.tobytes(), f
+    assert a.num_materials == b.num_materials and a.material_names == b.material_names
+
+
+def _bench_obj(directory, config, n_cubes=None):
+    """The OBJ that ``port_bench/scenes/files.write_scene`` writes for the
+    benchmark's configuration ``config`` (its sky left out), at ``n_cubes``."""
+    import json
+
+    sys.path.insert(0, str(PORT.parent))
+    from port_bench.scenes import files
+
+    cfg = json.loads((PORT.parent / "port_bench" / "configs" / f"{config}.json").read_text())
+    cfg.pop("sky", None)
+    if n_cubes is not None:
+        cfg["params"]["n_cubes"] = n_cubes
+    return files.write_scene(cfg, 2147483659, str(directory), "cpu")
+
+
+def _testing_obj(directory, name):
+    g, m, e, c = SCENES[name][1]()
+    obj = str(directory / f"{name}.obj")
+    tt.write_scene_files(obj, g, m, e, c, resolution=8, spp=1, max_bounce=1)
+    return obj
+
+
+OBJS = {  # name -> writer(directory) of an OBJ the array parser takes
+    "bench_outdoor": lambda d: _bench_obj(d, "outdoor600k", n_cubes=40),
+    "bench_closedbox": lambda d: _bench_obj(d, "closedbox15k"),
+    **{f"testing_{n}": (lambda d, n=n: _testing_obj(d, n)) for n in sorted(SCENES)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(OBJS))
+def test_array_parser_equals_the_per_line_parser(tmp_path, name):
+    """The benchmark's and ``testing.py``'s OBJ files (triangles, positive
+    indices, one ``usemtl`` run a material) go through the array parser,
+    which gives the per-line parser's mesh bit for bit."""
+    obj = OBJS[name](tmp_path)
+    text = Path(obj).read_text()
+    arrays = objloader._load_arrays(text)
+    assert arrays is not None and arrays.num_faces > 0
+    _same_mesh(arrays, objloader.load_obj_lines(obj))
+    _same_mesh(load_obj(obj), arrays)
+
+
+CORNERS = {  # a face form -> the unit square's two triangles, with vt and vn lines
+    "p": "f 1 2 3\nf 1 3 4\n",
+    "p/t": "f 1/1 2/2 3/3\nf 1/1 3/3 4/4\n",
+    "p//n": "f 1//1 2//1 3//2\nf 1//2 3//2 4//1\n",
+    "p/t/n": "f 1/1/1 2/2/1 3/3/2\nf 1/1/2 3/3/2 4/4/1\n",
+}
+HEAD = ("# a unit square\nmtllib x.mtl\no square\nv 0 0 0\nv 1 0 0\nv 1 1 0.5\nv 0 1 0\n"
+        "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 0 1\nvn 0.6 0 0.8\ns off\n")
+
+
+@pytest.mark.parametrize("form", sorted(CORNERS))
+def test_array_parser_takes_each_face_form(tmp_path, form):
+    """Triangles of each corner form, with comments, ignored tags, a
+    ``usemtl`` without a name and a degenerate face, parse bit for bit as
+    the per-line parser reads them."""
+    body = CORNERS[form].replace("f 1", "usemtl\nf 1", 1)
+    degenerate = {"p": "f 1 1 2\n", "p/t": "f 1/1 1/1 2/2\n", "p//n": "f 1//1 1//1 2//1\n",
+                  "p/t/n": "f 1/1/1 1/1/1 2/2/1\n"}[form]
+    (tmp_path / "a.obj").write_text(HEAD + "usemtl red\n" + body + "usemtl\n" + degenerate)
+    text = (tmp_path / "a.obj").read_text()
+    arrays = objloader._load_arrays(text)
+    assert arrays is not None and arrays.num_faces == 3
+    lines = objloader.load_obj_lines(str(tmp_path / "a.obj"))
+    _same_mesh(arrays, lines)
+    assert lines.material_names == ["red", "mat1", "mat2"]
+
+
+@pytest.mark.parametrize("extra", ["polygon", "negative", "mixed_forms", "vt_with_w",
+                                   "v_with_w", "indented", "zero_index"])
+def test_files_the_array_parser_declines_parse_as_before(tmp_path, extra):
+    """Polygons, negative indices, corners of mixed forms (a ``vn`` missing
+    from some), extra coordinates and tags after blanks go to the per-line
+    parser, which ``load_obj`` gives unchanged."""
+    body = {
+        "polygon": HEAD + "f 1 2 3 4\n",
+        "negative": HEAD + "f -4 -3 -2\nf 1 3 4\n",
+        "mixed_forms": HEAD + "f 1//1 2//1 3//1\nf 1 3 4\n",
+        "vt_with_w": HEAD + "vt 0.5 0.5 0\nf 1/1 2/2 3/5\n",
+        "v_with_w": HEAD + "v 2 2 2 1\nf 1 2 5\n",
+        "indented": HEAD + "  v 3 3 3\nf 1 2 5\n",
+        "zero_index": HEAD.replace("v 0 0 0\n", "") + "f 1 2 3\nf 0 1 2\n",
+    }[extra]
+    (tmp_path / "a.obj").write_text(body)
+    assert objloader._load_arrays(body) is None
+    try:
+        want = objloader.load_obj_lines(str(tmp_path / "a.obj"))
+    except IndexError:  # an index the file does not hold
+        return
+    _same_mesh(load_obj(str(tmp_path / "a.obj")), want)
+
+
+def test_flat_normals_take_the_norm_of_np_linalg():
+    """The array parser's face normals are the per-line parser's: each
+    norm equals ``np.linalg.norm`` of its row bit for bit, and a degenerate
+    face gets ``(0, 0, 1)``."""
+    rng = np.random.default_rng(5)
+    p = rng.normal(size=(3000, 3)) * rng.uniform(0.01, 100.0, (3000, 1))
+    tri = rng.integers(0, 3000, (4000, 3))
+    tri[0] = [7, 7, 8]
+    got = objloader.flat_normals(p, tri)
+    for k in range(tri.shape[0]):
+        a, b, c = p[tri[k]]
+        n = np.cross(b - a, c - a)
+        ln = np.linalg.norm(n)
+        want = n / ln if ln > 0 else np.array([0.0, 0.0, 1.0])
+        assert got[k].tobytes() == want.tobytes(), k
 
 
 def test_bvh_gives_tree_only_packs_and_fused_refuses_them():

@@ -95,6 +95,16 @@ def test_render_scene_spans_nest(tmp_path):
     assert not any(_named(events, n) for n in GRAPH_SPANS[1:6])  # nothing captured on the CPU
 
 
+def test_scene_load_opens_the_parse_span(tmp_path):
+    """Under the profiler ``Scene.load`` names its OBJ parse
+    ``scene.load.parse``, once, outside any other span."""
+    _scene(tmp_path, "outdoor")
+    obj = str(tmp_path / "outdoor.obj")
+    scene, events = _profiled(lambda: Scene.load(obj, device="cpu"))
+    (parse,) = _named(events, "scene.load.parse")
+    assert parse.cpu_parent is None and scene.num_tris == 12 * 24 + 2
+
+
 def test_graphed_spans_capture_then_replay(monkeypatch):
     """Through the stand-in backend the first call gives ``graphs.warm_up``
     then ``graphs.capture``, a later one ``graphs.key``, ``graphs.copy_in``,
