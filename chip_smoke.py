@@ -16,15 +16,18 @@ path (record, replay, train step, optimisation) and its command line
    plus 65,536 bounce rays, with times, the (ray, triangle) pairs tested and
    needed, the least time the card could take (from the needed pairs), and
    its registers;
-3. the main path at full size: ``Scene.load`` -> ``render_scene`` on six
+3. the main path at full size: ``Scene.load`` -> ``render_scene`` on seven
    renders, all on the fused engine, each a replay of the graph that the
    scene's first ``render_scene`` captured (``render_radiance_jit``; that
    first call's warm-up, capture and instantiation on a line of their
    own).  Cornell (1 block) and Cornell with NEE
    take it on ``csrc/fused_sample.cu``'s whole-render launch (``closest_hit``
    once, ``sample_fused`` once per render); outdoor_1000 (47 blocks),
-   outdoor_1000 with a light panel and NEE, outdoor_1300 (61 blocks) and
-   outdoor_12500 (586 blocks) on ``csrc/fused_queue.cu`` (``pairs`` once,
+   outdoor_1000 with a light panel and NEE, outdoor_1300 (61 blocks),
+   outdoor_12500 (586 blocks) and the benchmark's ``outdoor600k`` (2,344
+   blocks, above ``AGG_BLOCKS`` and ``SEL_BLOCKS``; written from
+   ``port_bench/configs/outdoor600k.json`` as its cell writes it, at its
+   256^2, 100 spp, 4 bounces) on ``csrc/fused_queue.cu`` (``pairs`` once,
    ``sample_fused_queue`` once per sample, ``sample_fused`` and ``uniforms``
    never).  The launch counts are set to 0 before each scene's first
    render (the main path: it launches every kernel through its wrapper,
@@ -48,13 +51,16 @@ path (record, replay, train step, optimisation) and its command line
    one-sample launch's and the per-sample path's, its bound (from the pairs
    its traces need), ptxas registers and spills, its grid, items and
    waves.  Several blocks (outdoor_1000 with sun + IBL, and with its light
-   panel and NEE, outdoor_1300 and outdoor_12500, on ``fused_queue``): one
-   sample at 64^2 on explicit uniforms and at the render's own ray count
-   (512^2; 256^2 on outdoor_12500; Morton-permuted, 4 bounces) on its own
-   stream,
+   panel and NEE, outdoor_1300, outdoor_12500 and phase 3's outdoor600k, on
+   ``fused_queue``): one sample at 64^2 on explicit uniforms and at the
+   render's own ray count (512^2; 256^2 on outdoor_12500 and outdoor600k;
+   Morton-permuted, 4 bounces) on its own stream,
    its counts within 1 % of its plain version's, rounds, the grid syncs it
    counted, one sample under ``set_sync_debug_mode("error")``, its grid,
-   and a sample with nothing to trace; on outdoor_1300 the whole render
+   and a sample with nothing to trace; above ``AGG_BLOCKS`` some rounds
+   but not all group lanes, and above ``SEL_BLOCKS`` one bounce without
+   sun counts exactly what the plain version counts; on outdoor_1300 the
+   whole render
    (``render_fused_queue``: one launch a sample, the IBL and the sum inside
    it) at the benchmark's 256^2, 100 spp and the main path's 512^2, 16 spp
    against the per-sample loop it replaced (one launch a sample, the IBL
@@ -98,8 +104,9 @@ path (record, replay, train step, optimisation) and its command line
    ``pairs``, one cooperative launch per trace) in roles #3 and #4, on
    phase 2's kind of rays (``role_rays``: 512^2 primary rays plus 65,536
    bounce rays, 327,680 in all) and at each render's own trace shape
-   (262,144 bounce rays on outdoor_1300, 65,536 on outdoor_12500): against
-   ``trace_plain`` at phase 2's bounds, counts equal to its plain
+   (262,144 bounce rays on outdoor_1300, 65,536 on outdoor_12500), and on
+   outdoor600k's 2,344 blocks at its 256^2 (131,072 rays, then 65,536):
+   against ``trace_plain`` at phase 2's bounds, counts equal to its plain
    version's, two runs equal, one trace under
    ``set_sync_debug_mode("error")`` (no host sync), times, pairs tested
    against needed, rounds, bound from the needed pairs.  Phases 8-9 also
@@ -436,16 +443,26 @@ def phase_kernel_vs_plain(role, dev, logs: dict):
     )
 
 
+def bench_config(name: str) -> dict:
+    """The benchmark's configuration ``port_bench/configs/<name>.json``."""
+    return json.loads((ROOT / "port_bench" / "configs" / f"{name}.json").read_text())
+
+
 def load_scene(scn, dev, workdir: Path):
-    """Write the scene's ``.obj`` + ``.ini`` at its render settings and
-    load it back with ``Scene.load`` on the card."""
+    """Write the scene's ``.obj`` + ``.ini`` at its render settings (a
+    benchmark configuration's, ``scn["config"]``, as its cells write it with
+    the seed 0) and load it back with ``Scene.load`` on the card."""
     from ensem3a_openclraytracer_tpu_torch import testing as tt
     from ensem3a_openclraytracer_tpu_torch.scene.scene import Scene
 
     res, spp, mb = scn["render"]
-    g, m, e, c = scn["make"]("cpu")
     obj = workdir / f"{scn['scene']}.obj"
-    if not obj.exists():
+    if "config" in scn:
+        from port_bench.scenes import files
+
+        obj = Path(files.write_scene(scn["config"], 0, str(workdir), dev))
+    elif not obj.exists():
+        g, m, e, c = scn["make"]("cpu")
         tt.write_scene_files(str(obj), g, m, e, c, resolution=res, spp=spp, max_bounce=mb)
     t0 = time.perf_counter()
     scene = Scene.load(str(obj), device=dev)
@@ -941,6 +958,11 @@ def phase_fused_queue(role, dev, smi: str):
         f"phase (shade, bounce trace, resolve, sun trace, finish) "
         f"{[round(p / sum(phases), 4) for p in phases]}; pairs per segment "
         f"{pairs / max(named['segments'], 1):.2f}; lanes by bounce {lanes}")
+    if nb > pp.AGG_BLOCKS:  # the groups take their slots from the global counts
+        check(0 < named["coop_select_rounds"] < rounds,
+              f"{role['name']}: {named['coop_select_rounds']} of {rounds} rounds grouped lanes")
+    if nb > pp.SEL_BLOCKS:
+        first_bounce_exact(role, args, key, nee, lights)
     if role.get("record"):
         check_record(role, args, mb_t, 6, f"{res_t}^2")
     ms = cuda_ms(lambda: fu.sample_fused(*args, key, 0, **kw), iters=role["iters"])
@@ -988,6 +1010,35 @@ def phase_fused_queue(role, dev, smi: str):
         split_rounds=named["split_rounds"], work_items=named["items"],
         coop_select_rounds=named["coop_select_rounds"], whole_renders=renders,
     )
+
+
+def first_bounce_exact(role, args, key, nee, lights):
+    """Above ``SEL_BLOCKS`` the selects stage the block bounds in chunks:
+    one bounce without sun is one trace of the bounce rays off the camera
+    rays' hits, whose counts must equal the plain version's exactly, with
+    some rounds but not all grouping lanes, so a pick that hung on the
+    chunking or on the group would show."""
+    import torch
+
+    from ensem3a_openclraytracer_tpu_torch.ops import fused as fu
+
+    kw = dict(max_bounce=0, sun_enabled=False, nee=nee, lights=lights)
+    fields = fu.queue_stats_fields(0)
+    stats, plain_stats = (torch.zeros(len(fields), dtype=torch.int64, device=args[2].device)
+                          for _ in range(2))
+    out_k = fu.sample_fused(*args, key, 0, stats=stats, **kw)
+    out_p = fu.sample_fused_plain(*args, key, 0, stats=plain_stats, **kw)
+    named, plain = (dict(zip(fields, x.tolist())) for x in (stats, plain_stats))
+    counted = fu.QUEUE_STATS[:4] + ("segments", "subtiles_offered", "subtiles_tested", "lanes.0")
+    ks, ps = [named[f] for f in counted], [plain[f] for f in counted]
+    equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    log(f"[phase 5] {role['name']} one bounce, no sun: kernel counts ({', '.join(counted)}) "
+        f"{ks}, plain {ps}; rounds grouping lanes {named['coop_select_rounds']} of "
+        f"{named['rounds']}; outputs bit-equal to plain {equal}")
+    check(ks == ps, f"{role['name']}: one bounce, counts {ks} vs plain {ps}")
+    check(0 < named["coop_select_rounds"] < named["rounds"],
+          f"{role['name']}: one bounce, {named['coop_select_rounds']} of {named['rounds']} "
+          f"rounds grouped lanes")
 
 
 def device_kernels(prof) -> list:
@@ -1403,7 +1454,7 @@ def phase_compact(scn, inp, dev, smi: str, logs: dict) -> dict:
     )
 
 
-def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
+def phase_pairs(role, dev, smi: str, proto: dict | None) -> dict:
     """Phase 10 on one role: ``ops/pairs.trace_pairs`` (the block-queue
     kernel that ``ops/closest_hit.trace`` runs on multi-block scenes) on
     ``role_rays`` as phase 2 builds them and on as many bounce rays as the
@@ -1411,7 +1462,10 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
     against ``trace_plain`` at phase 2's bounds, its counts against its
     plain version's (on the first rays), one trace under
     ``torch.cuda.set_sync_debug_mode("error")``, its time, pairs tested
-    against ``needed_pairs``, rounds, and a bound from the needed pairs."""
+    against ``needed_pairs``, rounds, and a bound from the needed pairs.
+    ``proto`` is phase 8's inputs on the role's scene, or None where the
+    prototypes do not run; ``role["phase2_res"]`` (default 512) sets the
+    primary rays of the first shape."""
     import torch
 
     from ensem3a_openclraytracer_tpu_torch.ops import closest_hit as ch
@@ -1421,7 +1475,7 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
     feats, name = g.feats, role["name"]
     nb, tp = feats.block_bounds.shape[0], feats.edges.shape[-1]
     res = role["render_res"]
-    o2, d2 = role_rays(g, c, dev, seed=nb)
+    o2, d2 = role_rays(g, c, dev, seed=nb, res=role.get("phase2_res", 512))
     ob, db = role_rays(g, c, dev, seed=nb + 1, res=res, n_bounce=res * res)
     shapes = {"phase2": (o2, d2), "render": (ob[res * res:].contiguous(), db[res * res:].contiguous())}
     grid = pp.kernel_grid()
@@ -1472,10 +1526,11 @@ def phase_pairs(role, dev, smi: str, proto: dict) -> dict:
             out.update(shape, plain_ms=plain_ms)
         else:
             out["render_shape"] = shape
-    out["prototype_rays"] = dict(rays=PROTO_RAYS, ms=proto["pairs_ms"],
-                                 pairs_per_ray=proto["pairs_pairs"] / PROTO_RAYS,
-                                 needed_per_ray=proto["needed_pairs"] / PROTO_RAYS,
-                                 rounds=proto["pairs_rounds"])
+    if proto is not None:
+        out["prototype_rays"] = dict(rays=PROTO_RAYS, ms=proto["pairs_ms"],
+                                     pairs_per_ray=proto["pairs_pairs"] / PROTO_RAYS,
+                                     needed_per_ray=proto["needed_pairs"] / PROTO_RAYS,
+                                     rounds=proto["pairs_rounds"])
     return out
 
 
@@ -2564,6 +2619,11 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
     outdoor = lambda k: (lambda d: tt.make_outdoor_scene(n_cubes=k, device=d))
     outdoor_panel = lambda d: tt.make_outdoor_scene(n_cubes=1000, emissive_panel=True, device=d)
     panel_blocks = outdoor_panel("cpu")[0].feats.block_bounds.shape[0]  # read, not assumed
+    big_cfg = bench_config("outdoor600k")
+    big_render = tuple(big_cfg["ini"][k] for k in ("resolution", "spp", "maxBounce"))
+    # the scene phase 3 loaded and rendered, on the card
+    big = lambda d: (lambda s: (s.geometry, s.material_params(), s.env_params(),
+                                s.camera_params()))(loaded["outdoor600k"])
     roles = [
         dict(name="closest_hit:role1", scene="cornell", blocks=1, iters=50, sun=False,
              make=cornell, replaces="ensem3a_openclraytracer_tpu/ops/intersect_mxu.py:431"),
@@ -2588,6 +2648,9 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
              sun=True),
         dict(name="outdoor_12500", scene="outdoor_12500", make=outdoor(12500),
              render=(256, 16, 4), sun=True),
+        # outdoor600k.render's scene and settings, above AGG_BLOCKS and SEL_BLOCKS
+        dict(name="outdoor600k", scene="outdoor600k", config=big_cfg, render=big_render,
+             sun=True),
     ]
     (ROOT / "build").mkdir(exist_ok=True)
     renders, loaded = [], {}
@@ -2619,6 +2682,8 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
              make=outdoor(1300), iters=10, whole_render=((256, 100), (512, 16))),
         dict(name="sample_fused:outdoor_12500", render="outdoor_12500", blocks=586, sun=True,
              make=outdoor(12500), iters=5, res=256),
+        dict(name="sample_fused:outdoor600k", render="outdoor600k", blocks=2344, sun=True,
+             make=big, iters=3, res=big_render[0]),
     ]
     for fr in fused_roles:
         if fr["blocks"] == 1:
@@ -2655,6 +2720,13 @@ def phases_2_to_12(dev, smi: str, logs: dict) -> tuple:
         line["launches"] = by_render[scn]["pairs"]
         check(line["launches"] > 0, f"{scn}: the render launched no pairs kernel")
         kernels.append(line)
+    big_role = dict(name="closest_hit:outdoor600k", scene="outdoor600k", blocks=2344, iters=3,
+                    sun=True, make=big, replaces="ensem3a_openclraytracer_tpu/ops/pairs.py:99",
+                    render_res=big_render[0], phase2_res=big_render[0])
+    line = phase_pairs(big_role, dev, smi, None)
+    line["launches"] = by_render["outdoor600k"]["pairs"]
+    check(line["launches"] > 0, "outdoor600k: the render launched no pairs kernel")
+    kernels.append(line)
     log(f"[phase 10] wall {time.perf_counter() - t10:.1f} s")
 
     t11 = time.perf_counter()

@@ -12,14 +12,17 @@
 //           sort.  Each chosen (ray, block) pair takes a slot in its block's
 //           queue from a per-block counter.  A ray with more than K such
 //           blocks stays live for the next round.  A round whose rays fill
-//           the grid, or a scene of more than AGG_BLOCKS blocks, gives each
-//           ray one thread (warp-aggregated atomicAdd per pick); a smaller
-//           round gives each a group of G lanes (select_lanes), spread over
-//           every CUDA block: each lane tests every G-th box and keeps its
-//           own K least, the group merges them by K warp minima, and each
-//           pick's lane queues it, every pick at once, the CUDA block's picks
-//           of one triangle block sharing one atomicAdd.  The picks, cursor
-//           and counts are the same for any G.
+//           the grid gives each ray one thread (warp-aggregated atomicAdd per
+//           pick); a smaller round gives each a group of G lanes
+//           (select_lanes), spread over every CUDA block: each lane tests
+//           every G-th box of each staged chunk and keeps its own K least
+//           across the chunks, the group merges them by K warp minima, and
+//           each pick's lane queues it.  Up to AGG_BLOCKS blocks the CUDA
+//           block's picks of one triangle block share one atomicAdd, counted
+//           in shared memory beside the resident bounds; above, the picks of
+//           one warp do (__match_any_sync).  The picks, cursor, sel_t, counts
+//           and live list are the same for any G and any chunking; only the
+//           order of a block's queue slots may differ.
 //   scan    one CUDA block turns the per-block counts into queue offsets and
 //           work items of up to CHUNK queued rays (an exclusive scan).
 //   fill    each pair writes its ray into its block's queue.
@@ -82,9 +85,10 @@ constexpr int SMEM_BYTES = LISTS + SUBS * CHUNK + 4 * CHUNK + 4 * SUBS;  // 54,8
 constexpr int SEL_BLOCKS = SEL_BYTES / 32;  // bounds rows (two float4s each) per select chunk
 // The most blocks whose bounds (32 bytes) and a grouped select's pick counts
 // and first slots (8 bytes) share the select's shared memory: the most for
-// which select groups lanes (ops/pairs.AGG_BLOCKS).
+// which a grouped select counts its picks there (ops/pairs.AGG_BLOCKS); above,
+// its warps take their slots from the global counts.
 constexpr int AGG_BLOCKS = SEL_BYTES / 40;
-static_assert(AGG_BLOCKS <= SEL_BLOCKS, "a grouped select keeps every bound resident");
+static_assert(AGG_BLOCKS <= SEL_BLOCKS, "shared counts sit beside one chunk of every bound");
 constexpr unsigned long long NONE = ~0ull;  // cursor of a ray that queued nothing yet
 constexpr unsigned NO_BLOCK = 0xffffffffu;
 // The most CUDA blocks that share one (block, chunk) item: 8 triangles a
@@ -114,12 +118,11 @@ __host__ __device__ __forceinline__ int slices(int items, int grid) {
 // The lanes G that select gives each live ray in a round of n_live rays on nb
 // triangle blocks over grid_threads threads: the largest power of two with G
 // <= G_MAX, G <= nb and n_live x G <= grid_threads, so one pass of the grid's
-// groups takes every ray; 1 when none is larger, when no ray is live, or when
-// nb > AGG_BLOCKS (ops/pairs.select_lanes).
+// groups takes every ray; 1 when none is larger or when no ray is live
+// (ops/pairs.select_lanes).
 __host__ __device__ __forceinline__ int select_lanes(int n_live, int nb, int grid_threads) {
   int g = 1;
-  while (n_live > 0 && nb <= AGG_BLOCKS && 2 * g <= G_MAX && 2 * g <= nb &&
-         n_live <= grid_threads / (2 * g))
+  while (n_live > 0 && 2 * g <= G_MAX && 2 * g <= nb && n_live <= grid_threads / (2 * g))
     g *= 2;
   return g;
 }
@@ -264,6 +267,17 @@ __device__ __forceinline__ void slab_keys(const ch::Ray& r, const float* b, int 
   }
 }
 
+// This lane's slot in block blk's queue (blk NO_BLOCK: no pick, the slot
+// unused): the warp's lanes that pick one block share one atomicAdd on p.cnt.
+__device__ __forceinline__ int warp_slot(const Queues& p, unsigned blk, int lane) {
+  const unsigned peers = __match_any_sync(0xffffffffu, blk);
+  const int leader = __ffs(peers) - 1;
+  int first = 0;
+  if (lane == leader && blk != NO_BLOCK) first = atomicAdd(p.cnt + blk, __popc(peers));
+  first = __shfl_sync(0xffffffffu, first, leader);
+  return first + __popc(peers & ((1u << lane) - 1u));
+}
+
 // Select with one thread per live ray, the rays packed from CUDA block 0 on.
 template <int K, bool FRESH>
 __device__ void select_threads(const Queues& p, int n_live, const int* live_in, int* live_out,
@@ -297,12 +311,7 @@ __device__ void select_threads(const Queues& p, int n_live, const int* live_in, 
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       const unsigned blk = s < nsel ? static_cast<unsigned>(sel[s] & 0xffffffffu) : NO_BLOCK;
-      const unsigned peers = __match_any_sync(0xffffffffu, blk);
-      const int leader = __ffs(peers) - 1;
-      int first = 0;
-      if (lane == leader && blk != NO_BLOCK) first = atomicAdd(p.cnt + blk, __popc(peers));
-      first = __shfl_sync(0xffffffffu, first, leader);
-      const int slot = first + __popc(peers & ((1u << lane) - 1u));
+      const int slot = warp_slot(p, blk, lane);
       if (has && s <= nsel)  // the picks, then a terminator when fewer than K
         p.pairs[static_cast<long long>(q) * K + s] =
             make_int2(blk == NO_BLOCK ? -1 : static_cast<int>(blk), slot);
@@ -321,12 +330,15 @@ __device__ void select_threads(const Queues& p, int n_live, const int* live_in, 
 }
 
 // Select with a group of g lanes per live ray (g a power of two, 2 to G_MAX,
-// n_live x g <= the grid's threads and nb <= AGG_BLOCKS: select_lanes).  The
-// live list is cut into one run of consecutive rays per CUDA block, so the
-// groups spread over every CUDA block and a block's rays are neighbours in the
-// list.  The CUDA block first counts its picks per triangle block in shared
-// memory, beside the resident bounds, then takes each block's slots with one
-// atomicAdd.
+// n_live x g <= the grid's threads: select_lanes).  The live list is cut into
+// one run of consecutive rays per CUDA block, so the groups spread over every
+// CUDA block and a block's rays are neighbours in the list.  The bounds are
+// staged in chunks of SEL_BLOCKS (one chunk up to that many blocks); each lane
+// tests the boxes j = l mod g of every chunk and keeps its K least across
+// them.  Up to AGG_BLOCKS blocks the CUDA block first counts its picks per
+// triangle block in shared memory, beside the resident bounds, then takes
+// each block's slots with one atomicAdd; above, each warp takes its slots from
+// the global counts, its lanes that queue one block sharing one atomicAdd.
 template <int K, bool FRESH>
 __device__ void select_groups(const Queues& p, int g, int n_live, const int* live_in,
                               int* live_out, int* n_live_out, float4* sb,
@@ -338,10 +350,10 @@ __device__ void select_groups(const Queues& p, int g, int n_live, const int* liv
   const int t = threadIdx.x / g;
   const int q = blockIdx.x * run + t;
   const bool has = t < run && q < n_live;
+  const bool shared_counts = p.nb <= AGG_BLOCKS;  // the bounds then are one chunk
   int* s_cnt = reinterpret_cast<int*>(sb + 2 * p.nb);  // [nb] picks, then [nb] first slots
-  for (int j = threadIdx.x; j < p.nb; j += THREADS) s_cnt[j] = 0;
-  stage_bounds(p, sb, 0, p.nb);  // its barriers order the zeroing too
-  const float* b = reinterpret_cast<const float*>(sb);
+  if (shared_counts)
+    for (int j = threadIdx.x; j < p.nb; j += THREADS) s_cnt[j] = 0;
   const int i = has ? __ldcg(live_in + q) : 0;
   const ch::Ray r = load_ray<FRESH>(p, i);
   const float best_t = has ? key_t(__ldcg(p.best + i)) : -1.0f;
@@ -351,7 +363,12 @@ __device__ void select_groups(const Queues& p, int g, int n_live, const int* liv
 #pragma unroll
   for (int s = 0; s < K; ++s) sel[s] = NONE;
   int qual = 0;
-  if (has) slab_keys<K>(r, b, 0, p.nb, l, g, best_t, cur, sel, qual);
+  const float* b = reinterpret_cast<const float*>(sb);
+  for (int c0 = 0; c0 < p.nb; c0 += SEL_BLOCKS) {
+    const int c1 = min(p.nb, c0 + SEL_BLOCKS);
+    stage_bounds(p, sb, c0, c1);  // its barriers order the zeroing too
+    if (has) slab_keys<K>(r, b, c0, c1, c0 + l, g, best_t, cur, sel, qual);
+  }
   if (has && l == 0) slabs += p.nb;
   qual = static_cast<int>(__reduce_add_sync(group, static_cast<unsigned>(qual)));
   const int nsel = min(qual, K);
@@ -378,22 +395,34 @@ __device__ void select_groups(const Queues& p, int g, int n_live, const int* liv
     if (s == nsel - 1) last = m;
   }
 
-  // lane s mod g queues pick s, every pick's atomicAdd in flight at once
-  int slot[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s)
-    if (s < nsel && (s & (g - 1)) == l) slot[s] = atomicAdd(s_cnt + blk[s], 1);
-  __syncthreads();  // the CUDA block's first slot in each block's queue
-  for (int j = threadIdx.x; j < p.nb; j += THREADS) {
-    const int c = s_cnt[j];
-    if (c > 0) s_cnt[p.nb + j] = atomicAdd(p.cnt + j, c);
-  }
-  __syncthreads();
+  // lane s mod g queues pick s
   int2* row = p.pairs + static_cast<long long>(q) * K;
+  if (shared_counts) {  // every pick's shared atomicAdd in flight at once
+    int slot[K];
 #pragma unroll
-  for (int s = 0; s < K; ++s)
-    if (s < nsel && (s & (g - 1)) == l)
-      row[s] = make_int2(static_cast<int>(blk[s]), slot[s] + s_cnt[p.nb + blk[s]]);
+    for (int s = 0; s < K; ++s)
+      if (s < nsel && (s & (g - 1)) == l) slot[s] = atomicAdd(s_cnt + blk[s], 1);
+    __syncthreads();  // the CUDA block's first slot in each block's queue
+    for (int j = threadIdx.x; j < p.nb; j += THREADS) {
+      const int c = s_cnt[j];
+      if (c > 0) s_cnt[p.nb + j] = atomicAdd(p.cnt + j, c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+      if (s < nsel && (s & (g - 1)) == l)
+        row[s] = make_int2(static_cast<int>(blk[s]), slot[s] + s_cnt[p.nb + blk[s]]);
+  } else {  // pass k: each lane its pick l + k g, a warp's picks of one block one atomicAdd
+    for (int k = 0; k * g < steps; ++k) {
+      const int s = l + k * g;
+      unsigned bk = NO_BLOCK;
+#pragma unroll
+      for (int u = 0; u < K; ++u)
+        if (u == s && u < nsel) bk = blk[u];
+      const int slot = warp_slot(p, bk, lane);
+      if (bk != NO_BLOCK) row[s] = make_int2(static_cast<int>(bk), slot);
+    }
+  }
   if (has && nsel < K && (nsel & (g - 1)) == l) row[nsel] = make_int2(-1, 0);  // terminator
   if (has && nsel > 0 && l == 0) p.cursor[i] = last;
 

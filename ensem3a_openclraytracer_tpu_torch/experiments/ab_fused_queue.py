@@ -63,8 +63,9 @@ TRACES = {"rays_1300": (1300, 512, 65536), "rays_12500": (12500, 512, 65536),
           "rays_cell": (1300, 256, 0)}  # name -> (cubes, rays per side, bounce rays)
 # name -> cubes: the rays of tests/test_torch_cuda.py's
 # test_pairs_kernel_groups_small_selects_exactly at half the grid's threads
-# (group_rays)
-GROUPS = {"groups_61": 1300, "groups_586": 12500}
+# (group_rays; groups_2344 on outdoor_50000, whose 2,344 blocks stand for its
+# outdoor600k role's)
+GROUPS = {"groups_61": 1300, "groups_586": 12500, "groups_2344": 50000}
 
 
 def build(label: str, csrc: Path) -> dict:

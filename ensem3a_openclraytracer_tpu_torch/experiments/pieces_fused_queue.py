@@ -8,24 +8,28 @@ with clock stamps patched in.
 This checkout's ``csrc/`` comes first, as ``this``; each ``DIR`` is another
 copy of ``csrc/`` (see ``ab_fused_queue``).  A source with one select per
 round (``select_round``) or with one thread and grouped selects
-(``select_threads``, ``select_groups``) is patched; ``:g1`` makes a grouped
-source take with ``select_groups`` at G = 1 the rounds that ``select_lanes``
-leaves to one thread a ray, where the scene has at most ``AGG_BLOCKS``
-blocks and the round's rays fit in the grid's threads (the one-thread select
-then runs only above).  One sample at ``R``^2 (default 256), 4 bounces,
-three times: of outdoor_1300 with sun (``outdoor15k.render``'s shape), of
-the benchmark's closed box with NEE and no sun (``closedbox15k.nee``'s), or
-of the benchmark's ``outdoor600k`` scene with sun (``outdoor600k.render``'s:
-2,344 blocks, every select one thread a ray over bounds staged in chunks).
+(``select_threads``, ``select_groups``) is patched, a grouped select whose
+bounds stay resident or one that stages them in chunks; ``:g1`` makes a
+grouped source take with ``select_groups`` at G = 1 the rounds that
+``select_lanes`` leaves to one thread a ray where the round's rays fit in the
+grid's threads (in a source whose groups keep every bound resident, only
+where the scene has at most ``AGG_BLOCKS`` blocks; the one-thread select then
+runs only above).  One sample at ``R``^2 (default 256), 4 bounces, three
+times: of outdoor_1300 with sun (``outdoor15k.render``'s shape), of the
+benchmark's closed box with NEE and no sun (``closedbox15k.nee``'s), or of
+the benchmark's ``outdoor600k`` scene with sun (``outdoor600k.render``'s:
+2,344 blocks, the bounds staged in two chunks).
 
 Per round and CUDA block, thread 0's cycles of each piece: select, scan,
 fill, test and the grid syncs between them.  Per warp (lane 0) the cycles of
 select's steps, the CUDA block's slowest warp kept: ``stage`` (the bounds
-into shared memory), ``slab`` (the slab tests with the K-insert), ``picks``
+into shared memory; in a one-thread select that stages chunks, inside
+``slab``), ``slab`` (the slab tests with the K-insert), ``picks``
 (the picks, their merge, their atomics and the queue rows) and ``append``
 (the live-list append).  Printed: per repetition the sums over rounds of
 the slowest CUDA block, in us on the clock that block 0's cycles give over
-the rounds' wall time; per round of the last repetition, the same; then the
+the rounds' wall time, and the select's by the rounds' G; per round of the
+last repetition, the same; then the
 instrumented ms a sample (CUDA events).  In a source whose test phase culls
 by sub-tile, per warp (lane 0) also the cycles of the test phase's steps
 over its work items, the CUDA block's slowest warp kept: ``wait`` (at the
@@ -149,9 +153,7 @@ THREAD_MARKS = STAGE + [
      "    if (more) live_out[out + __popc(m & ((1u << lane) - 1u))] = i;\n" + ENDS + "  }\n"
      + FLUSH),
 ]
-GROUP_MARKS = [
-    ("  int* s_cnt = ", "  const unsigned dbg_s0 = dclk();\n", "before"),
-    ("  stage_bounds(p, sb, 0, p.nb);  // its barriers order the zeroing too\n", ACC, "after"),
+GROUP_ENDS = [
     ("  const unsigned long long cur = has ? __ldcg(p.cursor + i) : NONE;\n",
      "  const unsigned dbg_a = dclk();\n", "after"),
     ("  // the group's K least", "  const unsigned dbg_b = dclk();\n", "before"),
@@ -160,6 +162,23 @@ GROUP_MARKS = [
     ("  if (more) live_out[out + __popc(mk & ((1u << lane) - 1u))] = i;\n",
      ENDS.replace("    ", "  ") + FLUSH, "after"),
 ]
+# a grouped select whose bounds stay resident: staged once before the rays load
+GROUP_MARKS = [
+    ("  int* s_cnt = ", "  const unsigned dbg_s0 = dclk();\n", "before"),
+    ("  stage_bounds(p, sb, 0, p.nb);  // its barriers order the zeroing too\n", ACC, "after"),
+] + GROUP_ENDS
+# one that stages them in chunks between the slab tests: each staging's
+# cycles move from slab to stage (the counts' zeroing and the rays' loads
+# count as stage too)
+CHUNK_STAGE = "    stage_bounds(p, sb, c0, c1);  // its barriers order the zeroing too\n"
+CHUNK_GROUP_MARKS = [
+    ("  int* s_cnt = ", "  const unsigned dbg_s0 = dclk();\n", "before"),
+    ("  const unsigned long long cur = has ? __ldcg(p.cursor + i) : NONE;\n",
+     "  unsigned dbg_acc[4] = {0u, 0u, 0u, 0u};\n  dbg_acc[3] = dclk() - dbg_s0;\n", "after"),
+    (CHUNK_STAGE, "", "    const unsigned dbg_t0 = dclk();\n" + CHUNK_STAGE +
+     "    const unsigned dbg_st = dclk() - dbg_t0;\n"
+     "    dbg_acc[3] += dbg_st;\n    dbg_acc[0] -= dbg_st;\n"),
+] + GROUP_ENDS
 # per warp (lane 0), a work item's cycles: waiting at the loop's first barrier
 # for the last warp's tests, fetching the next item, staging it and waiting
 # for this one's staging, culling and listing, testing the units
@@ -193,9 +212,11 @@ NEXT_MARKS = [
      "  if (threadIdx.x == 0) {\n    dbg_nx[0] += dbg_x1 - dbg_x0;\n"
      "    dbg_nx[1] += dclk() - dbg_x1;\n  }\n"),
 ]
-# where the one-thread select leaves a round to select_groups at G = 1
-G1 = ("    if (g == 1) {\n",
-      "    if (g == 1 && (p.nb > AGG_BLOCKS || n_live > gridDim.x * THREADS)) {\n")
+# where the one-thread select leaves a round to select_groups at G = 1: in a
+# source whose groups keep every bound resident, also above AGG_BLOCKS
+G1 = ("    if (g == 1) {\n", "    if (g == 1 && n_live > gridDim.x * THREADS) {\n")
+G1_RESIDENT = ("    if (g == 1) {\n",
+               "    if (g == 1 && (p.nb > AGG_BLOCKS || n_live > gridDim.x * THREADS)) {\n")
 
 
 def _in_fn(h: str, name: str, marks) -> str:
@@ -227,7 +248,7 @@ def patch(h: str, g1: bool) -> str:
     if g1:
         if not grouped or call.count(G1[0]) != 1:
             raise ValueError("g1 needs a source with select_groups")
-        call = call.replace(*G1)
+        call = call.replace(*(G1 if CHUNK_STAGE in h else G1_RESIDENT))
     h = h[:start] + ROUND.replace("SELECT_CALL", call).replace("TEST_CALL", test).replace(
         "DBG_G_OF", "g" if grouped else "1") + h[end:]
     if "// the lists are whole" in h:  # a test phase that culls by sub-tile
@@ -235,7 +256,8 @@ def patch(h: str, g1: bool) -> str:
     if "item = __shfl_sync(FULL, item, 0);" in h:  # a warp's next_item
         h = _in_fn(h, "next_item", NEXT_MARKS)
     if grouped:
-        return _in_fn(_in_fn(h, "select_threads", THREAD_MARKS), "select_groups", GROUP_MARKS)
+        marks = CHUNK_GROUP_MARKS if CHUNK_STAGE in h else GROUP_MARKS
+        return _in_fn(_in_fn(h, "select_threads", THREAD_MARKS), "select_groups", marks)
     return _in_fn(h, "select_round", THREAD_MARKS)
 
 
@@ -340,7 +362,11 @@ def main(argv=None) -> int:
                            steps_us={k: float(sum(x["steps"][k] for x in rows)) for k in STEPS},
                            test_steps_us={k: float(sum(x["test_steps"][k] for x in rows))
                                           for k in TEST_STEPS},
-                           sync_latency_us=float(sum(sum(x["min_syncs"]) for x in rows)))
+                           sync_latency_us=float(sum(sum(x["min_syncs"]) for x in rows)),
+                           select_us_by_g={g: dict(rounds=len(xs), max_select_us=float(
+                               sum(x["max_select"] for x in xs)), live=sum(x["n_live"] for x in xs))
+                               for g in sorted({x["g"] for x in rows})
+                               for xs in [[x for x in rows if x["g"] == g]]})
             print(f"[{label} rep {rep}] {json.dumps(summary)}", flush=True)
             reps.append(dict(summary=summary, rows=rows))
         for x in reps[-1]["rows"]:

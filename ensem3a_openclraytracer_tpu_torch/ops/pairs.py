@@ -56,10 +56,14 @@ SUB = ch.SUB_TILE  # triangles per sub-tile of the test phase's cull (csrc/pairs
 SUBS = ch.TRI_TILE // SUB  # sub-tiles a block
 S_MAX = 32  # most triangle slices of one work item (csrc/pairs.cuh bq::S_MAX)
 G_MAX = 32  # most select lanes a ray: a warp (csrc/pairs.cuh bq::G_MAX)
-AGG_BLOCKS = 1280  # most blocks of a scene whose select groups lanes (bq::AGG_BLOCKS)
+# Most blocks of a scene whose grouped select counts its picks in shared memory
+# beside the bounds; above, its warps take their slots from the global counts
+# (bq::AGG_BLOCKS).
+AGG_BLOCKS = 1280
 # Most blocks whose bounds the select keeps in shared memory for a whole round;
-# above, each batch of rays stages them in chunks of this many (bq::SEL_BLOCKS,
-# which both libraries export: pairs_sel_blocks, fused_queue_sel_blocks).
+# above, it stages them in chunks of this many, for each batch of rays in a
+# one-thread select and once a round in a grouped one (bq::SEL_BLOCKS, which
+# both libraries export: pairs_sel_blocks, fused_queue_sel_blocks).
 SEL_BLOCKS = 1600
 PAIR_CHUNK = 2048  # (ray, block) pairs per step of the plain version (bounds its memory)
 # (float bits of MAX_DIST) << 32 | triangle 0: "no hit yet"
@@ -94,11 +98,10 @@ def select_lanes(n_live: int, nb: int, grid_threads: int) -> int:
     """The lanes G of each live ray's group in a select of ``n_live`` rays
     on ``nb`` triangle blocks over ``grid_threads`` threads: the largest
     power of two with ``G <= G_MAX``, ``G <= nb`` and ``n_live * G <=
-    grid_threads``; 1 when none is larger, when no ray is live, or when
-    ``nb > AGG_BLOCKS`` (``csrc/pairs.cuh`` ``bq::select_lanes``)."""
+    grid_threads``; 1 when none is larger or when no ray is live
+    (``csrc/pairs.cuh`` ``bq::select_lanes``)."""
     g = 1
-    while (n_live > 0 and nb <= AGG_BLOCKS and 2 * g <= G_MAX and 2 * g <= nb
-           and n_live <= grid_threads // (2 * g)):
+    while n_live > 0 and 2 * g <= G_MAX and 2 * g <= nb and n_live <= grid_threads // (2 * g):
         g *= 2
     return g
 

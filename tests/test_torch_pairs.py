@@ -138,19 +138,21 @@ GRID_THREADS = 528 * 128  # outdoor15k.render's 2b grid on an H100: 4 CUDA block
     (1, 1, GRID_THREADS, 1), (1, 2, GRID_THREADS, 2), (1, 3, GRID_THREADS, 2),
     (1, 64, 128, 32), (5, 64, 128, 16), (1, 61, 1, 1), (3, 61, 7, 2),
     (1, pp.AGG_BLOCKS, GRID_THREADS, 32), (4096, pp.AGG_BLOCKS, GRID_THREADS, 16),
-    (1, pp.AGG_BLOCKS + 1, GRID_THREADS, 1), (4096, 1600, GRID_THREADS, 1)])
+    (1, pp.AGG_BLOCKS + 1, GRID_THREADS, 32), (4096, 1600, GRID_THREADS, 16),
+    (1, 2344, GRID_THREADS, 32), (2112, 2344, GRID_THREADS, 32), (2113, 2344, GRID_THREADS, 16),
+    (33792, 2344, GRID_THREADS, 2), (33793, 2344, GRID_THREADS, 1),
+    (1, 16512, GRID_THREADS, 32)])
 def test_select_lanes_fill_the_grid_in_powers_of_two(n_live, nb, grid_threads, want):
     """The kernel's select rule: the largest power of two up to ``G_MAX``
     and up to the block count whose groups of every live ray still fit in
-    the grid's threads; a round with no rays, or with enough to fill the
-    grid, and a scene of more than ``AGG_BLOCKS`` blocks keep one thread a
-    ray."""
+    the grid's threads, at any block count (above ``AGG_BLOCKS`` too, as
+    ``outdoor600k.render``'s 2,344 blocks); a round with no rays, or with
+    enough to fill the grid, keeps one thread a ray."""
     g = pp.select_lanes(n_live, nb, grid_threads)
     assert g == want
     assert g & (g - 1) == 0 and g <= pp.G_MAX and g <= max(nb, 1)
     assert g == 1 or n_live * g <= grid_threads
-    assert g == 1 or nb <= pp.AGG_BLOCKS
-    assert (n_live == 0 or nb > pp.AGG_BLOCKS or 2 * g > min(pp.G_MAX, nb)
+    assert (n_live == 0 or 2 * g > min(pp.G_MAX, nb)
             or n_live * 2 * g > grid_threads)
 
 
